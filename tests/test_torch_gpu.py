@@ -5,9 +5,12 @@ They import no JAX, so on a machine without it they run with
 ``python -m pytest --noconftest tests/test_torch_gpu.py -m gpu``.
 """
 
+import numpy as np
 import pytest
 import torch
 
+from difffacto_torch.ops import emd_hybrid as eh
+from difffacto_torch.ops import fps as fps_mod
 from difffacto_torch.ops import fused_core as fc
 
 torch.set_num_threads(1)
@@ -54,3 +57,97 @@ def test_fused_core_refuses_float32(cuda):
     args = fc.operands(fc.example_inputs(B=1, N=64, depth=1), cuda, torch.float32)
     with pytest.raises(TypeError):
         fc.fused_core(*args, DH**-0.5)
+
+
+def _clouds(B, N, seed, distinct=None):
+    rng = np.random.RandomState(seed)
+    x = rng.randn(B, distinct or N, 3).astype(np.float32)
+    if distinct:
+        x = np.tile(x, (1, N // distinct, 1))
+    return torch.as_tensor(x)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B, N, m, distinct", [(2, 8192, 2048, None), (3, 1000, 64, None),
+                                               (2, 256, 32, 16)])
+def test_fps_matches_plain_version_index_for_index(cuda, B, N, m, distinct):
+    """The real shape, a ragged N, and fewer distinct points than samples (all
+    remaining distances are 0, so index 0 repeats). Both sides compute
+    (dx*dx + dy*dy) + dz*dz in f32 without FMA, so the indices are equal."""
+    x = _clouds(B, N, seed=N, distinct=distinct).to(cuda)
+    before = fps_mod.launches
+    got = fps_mod.furthest_point_sample(x, m)
+    torch.cuda.synchronize()
+    assert fps_mod.launches == before + 1
+    want = fps_mod.furthest_point_sample_reference(x, m)
+    assert got.dtype == torch.int32 and got.shape == (B, m)
+    assert torch.equal(got, want)
+    if distinct:
+        assert (got[:, distinct:] == 0).all()
+
+
+def _mean_cost(a, b, assign):
+    matched = torch.gather(b, 1, assign.long()[..., None].expand(-1, -1, 3))
+    return (a - matched).norm(dim=-1).mean(dim=1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [2048, 512, 384])
+def test_emd_hybrid_matches_plain_version(cuda, n):
+    """The kernel and its plain version sum their log-sum-exp in another order,
+    so near-ties may land on other objects: the matched costs must agree
+    within 0.5 %, the share of equal assignments is printed. At n = 512 the
+    kernel's cost is held to 1.01 x the Hungarian optimum."""
+    a = (_clouds(2, n, seed=n) * 0.3).to(cuda)
+    b = (_clouds(2, n, seed=n + 1) * 0.3).to(cuda)
+    before = eh.launches
+    got, rounds, bids = eh.emd_assignment_hybrid(a, b, auction_iters=150, return_work=True)
+    torch.cuda.synchronize()
+    assert eh.launches == before + 1
+    want, rounds_w, bids_w = eh.emd_assignment_hybrid_reference(
+        a, b, auction_iters=150, return_work=True)
+    assert got.dtype == torch.int32 and got.shape == (2, n)
+    assert (got >= 0).all() and (got < n).all()
+    cg, cw = _mean_cost(a, b, got), _mean_cost(a, b, want)
+    print(f"emd_hybrid n={n}: equal share {(got == want).float().mean().item():.4f}, "
+          f"rounds {rounds.tolist()} vs plain {rounds_w.tolist()}, bids {bids.tolist()} vs "
+          f"plain {bids_w.tolist()}, cost {cg.tolist()} vs plain {cw.tolist()}")
+    assert ((cg - cw).abs() <= 0.005 * cw).all()
+    assert ((n + rounds - 1 <= bids) & (bids <= n * (rounds + 1))).all()
+    if torch.equal(got, want):
+        assert torch.equal(rounds, rounds_w) and torch.equal(bids, bids_w)
+    if n == 512:
+        from scipy.optimize import linear_sum_assignment
+
+        for i in range(2):
+            d = torch.cdist(a[i], b[i]).cpu().numpy()
+            ri, ci = linear_sum_assignment(d)
+            assert cg[i].item() <= 1.01 * d[ri, ci].mean()
+
+
+@pytest.mark.gpu
+def test_emd_hybrid_global_state_at_8192(cuda):
+    """n = 8192 does not fit in shared memory: the state lies in the global
+    workspace. That variant is held to the plain version as the shared-memory
+    one is: in range, matched cost within 0.5 %, nearly bijective. One pair,
+    because the plain version holds several (B, 8192, 8192) f32 matrices."""
+    a = (_clouds(1, 8192, seed=3) * 0.3).to(cuda)
+    b = (_clouds(1, 8192, seed=4) * 0.3).to(cuda)
+    got, rounds, bids = eh.emd_assignment_hybrid(a, b, auction_iters=150, return_work=True)
+    torch.cuda.synchronize()
+    want = eh.emd_assignment_hybrid_reference(a, b, auction_iters=150)
+    assert (got >= 0).all() and (got < 8192).all()
+    share = got[0].unique().numel() / 8192
+    cg, cw = _mean_cost(a, b, got), _mean_cost(a, b, want)
+    print(f"emd_hybrid n=8192: rounds {rounds.tolist()}, bids {bids.tolist()}, distinct objects "
+          f"{share:.4f}, equal share {(got == want).float().mean().item():.4f}, "
+          f"cost {cg.tolist()} vs plain {cw.tolist()}")
+    assert 1 <= rounds.item() <= 150 and share >= 0.98
+    assert ((cg - cw).abs() <= 0.005 * cw).all()
+
+
+@pytest.mark.gpu
+def test_emd_hybrid_refuses_ragged_n(cuda):
+    a = torch.zeros(1, 100, 3, device=cuda)
+    with pytest.raises(ValueError):
+        eh.emd_assignment_hybrid(a, a)

@@ -28,7 +28,11 @@ GEN_CHAIR = str(ROOT / "configs" / "gen_chair.py")
 
 def test_import_leaves_jax_out():
     code = (
-        "import sys, difffacto_torch, difffacto_torch.models, difffacto_torch.ops.fused_core;"
+        "import sys, runpy, difffacto_torch, difffacto_torch.models, difffacto_torch.ops.fused_core;"
+        "import difffacto_torch.ops.points, difffacto_torch.ops.fps, difffacto_torch.ops.chamfer;"
+        "import difffacto_torch.ops.emd, difffacto_torch.ops.emd_hybrid, difffacto_torch.data;"
+        "import difffacto_torch.metrics, difffacto_torch.metrics.iou, difffacto_torch.runner;"
+        "runpy.run_path('tools/test_gen_torch.py', run_name='imported');"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'difffacto_tpu'));"
         "assert not bad, bad"
     )
@@ -36,7 +40,9 @@ def test_import_leaves_jax_out():
 
 
 def test_no_jax_import_in_the_port():
-    files = sorted((ROOT / "difffacto_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted((ROOT / "difffacto_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "tools" / "test_gen_torch.py"]
+    assert len(files) >= 30
     bad = []
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):
