@@ -1,7 +1,7 @@
 """The part aligner: a small transformer over the K part tokens.
 
 Port of ``difffacto_tpu/models/aligner.py:PartAlignerTransformer`` for the
-generation path of the shipped configs: CIMLE noise of type 0 (scaled and
+shipped configs, generation and training: CIMLE noise of type 0 (scaled and
 concatenated to every part token) and the class embedding added after
 ``proj_in``. The other noise types raise ``NotImplementedError``.
 """
@@ -24,7 +24,7 @@ class PartAlignerTransformer(nn.Module):
     """part_code (B, K, C) -> mean (B, K, 3), logvar (B, K, 3)."""
 
     def __init__(self, in_channels: int, n_heads: int, d_head: int, out_channels: int,
-                 depth: int = 1, n_class: int = 4,
+                 depth: int = 1, dropout: float = 0.0, n_class: int = 4,
                  single_attn: bool = False, class_cond: bool = True,
                  mask_out_unreferenced_code: bool = True, cimle: bool = False,
                  noise_dim: int = 32, noise_scale: float = 10.0, cimle_start_epoch: int = 0,
@@ -54,15 +54,17 @@ class PartAlignerTransformer(nn.Module):
         # JAX package keeps, ``aligner.py:112-118``); its parameters still load.
         self.pre_norm = LayerNorm(inner, **kw)
         self.blocks = nn.ModuleList(
-            BasicTransformerBlock(inner, n_heads, d_head, generator=g, **kw)
+            BasicTransformerBlock(inner, n_heads, d_head, dropout=dropout, generator=g, **kw)
             for _ in range(depth)
         )
         self.post_norm = LayerNorm(inner, **kw)
         self.proj_out = Dense(inner, out_channels, generator=g, **kw)
 
-    def forward(self, part_code: torch.Tensor, valid_id=None, noise: Optional[torch.Tensor] = None):
+    def forward(self, part_code: torch.Tensor, valid_id=None, noise: Optional[torch.Tensor] = None,
+                train: bool = False, generator=None):
         """``noise`` (B, noise_dim) is the CIMLE latent; None or a wrong width
-        is replaced by zeros (``aligner.py:64-66``)."""
+        is replaced by zeros (``aligner.py:64-66``). ``train`` turns the
+        blocks' dropout on, drawn from ``generator``."""
         B, K, _ = part_code.shape
         if K != self.n_class:
             raise ValueError(f"part_code has {K} parts, the aligner {self.n_class}")
@@ -84,6 +86,6 @@ class PartAlignerTransformer(nn.Module):
         if not self.cimle:
             h = self.pre_norm(h)
         for blk in self.blocks:
-            h = blk(h, mask)
+            h = blk(h, mask, train, generator)
         h = self.proj_out(self.post_norm(h))
         return h[..., :3], h[..., 3:6]

@@ -1,12 +1,13 @@
-"""Anchored Gaussian diffusion: the reverse chain of generation.
+"""Anchored Gaussian diffusion: the reverse chain of generation and the training loss.
 
 Port of the gen_chair branches of ``difffacto_tpu/models/diffusion.py``
 (reference anchored_diffusion.py): the epsilon mean, the ``fixed_small``
 variance scaled by the per-point variance L^2, ``p_sample`` and
-``p_sample_loop`` as a Python loop over descending steps. The chain stays in
-float32 whatever the denoiser's compute dtype (``diffusion.py:373-378``).
-The other mean and variance types, DDIM, guidance and trajectories raise
-``NotImplementedError``.
+``p_sample_loop`` as a Python loop over descending steps, and for training
+``q_sample`` and the mse ``training_losses``. The chain stays in float32
+whatever the denoiser's compute dtype (``diffusion.py:373-378``). The other
+mean and variance types (and with them the variational-bound term), DDIM,
+guidance and trajectories raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -34,12 +35,14 @@ class AnchoredDiffusion:
                  model_var_type: str = FIXED_SMALL, clip_xstart: bool = False,
                  include_anchors: bool = True, include_cov: bool = False,
                  learn_anchor: bool = True, learn_variance: bool = False,
-                 guidance: bool = False, ddim_sampling: bool = False, net=None):
+                 guidance: bool = False, ddim_sampling: bool = False,
+                 loss_type: str = "mse", scale_loss: bool = False, net=None):
         unported = {
             "model_mean_type": (model_mean_type, EPSILON),
             "model_var_type": (model_var_type, FIXED_SMALL),
             "guidance": (guidance, False),
             "ddim_sampling": (ddim_sampling, False),
+            "loss_type": (loss_type, "mse"),
         }
         for key, (got, ported) in unported.items():
             if got != ported:
@@ -48,6 +51,7 @@ class AnchoredDiffusion:
         self.use_beta, self.rescale_timesteps = use_beta, rescale_timesteps
         self.clip_xstart, self.include_anchors, self.include_cov = clip_xstart, include_anchors, include_cov
         self.learn_anchor, self.learn_variance = learn_anchor, learn_variance
+        self.scale_loss = scale_loss
         self.schedule = make_schedule(num_timesteps, beta_1, beta_T, mode)
         self._on_device: Dict[torch.device, DiffusionSchedule] = {}
 
@@ -82,6 +86,50 @@ class AnchoredDiffusion:
         if self.include_cov:
             inp = torch.cat([inp, variance], dim=-1)
         return inp
+
+    def q_sample(self, x_start, t, anchors, noise=None, variance=None, generator=None):
+        """The anchored forward kernel (``diffusion.py:134-147``); ``noise``
+        injects the Gaussian draw."""
+        s = self.tables(x_start.device)
+        anchors = self._anchors(anchors)
+        if noise is None:
+            noise = randn(x_start.shape, generator, x_start.device, x_start.dtype)
+        L = torch.sqrt(self._variance(variance, x_start))
+        nd = x_start.ndim
+        return (
+            extract(s.sqrt_alphas_cumprod, t, nd) * (x_start - anchors)
+            + anchors
+            + extract(s.sqrt_one_minus_alphas_cumprod, t, nd) * L * noise
+        )
+
+    def training_losses(self, model_fn: Callable, x_start, t, anchors=None, variance=None,
+                        ctx=None, seg_mask=None, valid_id=None, flags=None, noise=None,
+                        reduce: bool = True, generator=None):
+        """The mse training loss of the epsilon mean (``diffusion.py:468-549``).
+
+        ``flags`` (B, N) masks the points of dropped parts; ``noise`` injects
+        the diffusion draw. Returns {'mse_loss'}."""
+        s = self.tables(x_start.device)
+        if anchors is None:
+            anchors = torch.zeros_like(x_start)
+        if noise is None:
+            noise = randn(x_start.shape, generator, x_start.device, x_start.dtype)
+        x_t = self.q_sample(x_start, t, anchors, noise=noise, variance=variance)
+        model_output = model_fn(self.model_input(x_t, anchors, variance),
+                                self.scale_timesteps(t, s), ctx, anchors, variance, seg_mask,
+                                valid_id)
+        diff = (noise - model_output) ** 2  # the epsilon target
+        if flags is not None:
+            diff = diff * flags[..., None]
+        if reduce:
+            if flags is not None:
+                diff = diff.mean(-1).sum() / flags.sum()
+            else:
+                diff = diff.sum() / diff.numel()
+        if self.scale_loss:
+            b, acp = extract(s.betas, t, diff.ndim), extract(s.alphas_cumprod, t, diff.ndim)
+            diff = diff * b * b / (2 * (1.0 - b) * (1.0 - acp))
+        return {"mse_loss": diff}
 
     def p_mean_variance(self, model_fn: Callable, x, t, anchors, ctx=None, variance=None,
                         seg_mask=None, valid_id=None):

@@ -1,9 +1,9 @@
-"""Latent normalizing flow (affine coupling) for the per-part prior, reverse only.
+"""Latent normalizing flow (affine coupling) for the per-part prior.
 
 Port of ``difffacto_tpu/models/flow.py``: ``n_class`` independent chains of
 affine coupling layers with alternating swaps. Generation runs them in
-reverse to turn Gaussian draws into part codes; the forward direction (the
-prior loss of training) is not ported yet.
+reverse to turn Gaussian draws into part codes; training runs them forward
+with the log-density change ``logpx`` for the prior loss.
 """
 
 from __future__ import annotations
@@ -31,7 +31,8 @@ class CouplingLayer(nn.Module):
         # inverse stays finite (``flow.py:39-49``).
         self.dense2 = Dense(intermediate_dim, 2 * (dim - self.d), zero_kernel=True, **kw)
 
-    def inverse(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, logpx=None, reverse: bool = False):
+        """x (B, dim); with ``logpx`` (B, 1) returns (y, logpx -+ log|det J|)."""
         d = self.d
         if self.swap:
             x = torch.cat([x[:, d:], x[:, :d]], dim=1)
@@ -41,8 +42,12 @@ class CouplingLayer(nn.Module):
         s_t = self.dense2(h)
         scale = torch.sigmoid(s_t[:, :out_dim] + 2.0)
         shift = s_t[:, out_dim:]
-        y1 = (x[:, d:] - shift) / scale
-        return torch.cat([y1, x[:, :d]] if self.swap else [x[:, :d], y1], dim=1)
+        y1 = (x[:, d:] - shift) / scale if reverse else x[:, d:] * scale + shift
+        y = torch.cat([y1, x[:, :d]] if self.swap else [x[:, :d], y1], dim=1)
+        if logpx is None:
+            return y
+        logdetjac = torch.log(scale).sum(dim=1, keepdim=True)
+        return y, logpx + (logdetjac if reverse else -logdetjac)
 
 
 class SequentialFlow(nn.Module):
@@ -58,10 +63,13 @@ class SequentialFlow(nn.Module):
             for i in range(depth)
         )
 
-    def inverse(self, x: torch.Tensor) -> torch.Tensor:
-        for layer in reversed(self.chain):
-            x = layer.inverse(x)
-        return x
+    def forward(self, x: torch.Tensor, logpx=None, reverse: bool = False):
+        for layer in (reversed(self.chain) if reverse else self.chain):
+            if logpx is None:
+                x = layer(x, reverse=reverse)
+            else:
+                x, logpx = layer(x, logpx, reverse=reverse)
+        return x if logpx is None else (x, logpx)
 
 
 class PerPartFlow(nn.Module):
@@ -80,7 +88,9 @@ class PerPartFlow(nn.Module):
             for _ in range(n_class)
         )
 
-    def forward(self, x: torch.Tensor, reverse: bool = True) -> torch.Tensor:
-        if not reverse:
-            raise NotImplementedError("the forward flow (prior loss) is not ported yet")
-        return torch.stack([f.inverse(x[:, k]) for k, f in enumerate(self.flows)], dim=1)
+    def forward(self, x: torch.Tensor, logpx=None, reverse: bool = True):
+        """x (B, K, D); with ``logpx`` (B, K, 1) returns (y, logpx)."""
+        if logpx is None:
+            return torch.stack([f(x[:, k], reverse=reverse) for k, f in enumerate(self.flows)], dim=1)
+        outs = [f(x[:, k], logpx[:, k], reverse=reverse) for k, f in enumerate(self.flows)]
+        return torch.stack([o[0] for o in outs], dim=1), torch.stack([o[1] for o in outs], dim=1)

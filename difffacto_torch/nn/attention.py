@@ -11,7 +11,9 @@ generation path:
   tokens, masked with ``finfo.min`` and a plain softmax, as the aligner runs it
   (``BasicTransformerBlock._fused_layout``, ``nn/attention.py:281-313``).
 
-Generation runs deterministically, so dropout is the identity.
+With ``train=True`` the block applies dropout after the out-projection and
+on the GEGLU activations, the two sites of the JAX block; the draws come from
+an explicit generator.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from .layers import default_generator, gelu, lecun_normal, ln_stats_f32, param
+from .layers import default_generator, dropout, gelu, lecun_normal, ln_stats_f32, param
 
 
 def small_ctx_attention(q, k, v, mask, scale: float) -> torch.Tensor:
@@ -66,11 +68,11 @@ class BasicTransformerBlock(nn.Module):
     """
 
     def __init__(self, dim: int, n_heads: int, d_head: int, context_dim=None,
-                 *, dtype=None, device="cuda", generator=None):
+                 dropout: float = 0.0, *, dtype=None, device="cuda", generator=None):
         super().__init__()
         if n_heads * d_head != dim:
             raise NotImplementedError("only the block with n_heads * d_head == dim is ported")
-        self.n_heads, self.d_head, self.dtype = n_heads, d_head, dtype
+        self.n_heads, self.d_head, self.dtype, self.dropout = n_heads, d_head, dtype, dropout
         g = default_generator(generator)
         cdim = context_dim if context_dim is not None else dim
         ff = 4 * dim
@@ -89,7 +91,8 @@ class BasicTransformerBlock(nn.Module):
         self.ffn_w2 = param(lecun_normal((ff, dim), g), device)
         self.ffn_b2 = param(zeros(dim), device)
 
-    def forward(self, x: torch.Tensor, mask=None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask=None, train: bool = False,
+                generator=None) -> torch.Tensor:
         """Self-attention over the tokens of x (B, M, dim), then the GEGLU FF."""
         cdt = self.dtype or x.dtype
         B, M, D = x.shape
@@ -100,9 +103,11 @@ class BasicTransformerBlock(nn.Module):
         v = (hq @ self.wv.to(cdt)).reshape(B, M, h_, dh)
         out = masked_softmax_attention(q, k, v, mask, dh**-0.5).reshape(B, M, D)
         out = out @ self.wout.to(cdt) + self.bout.to(cdt)
+        out = dropout(out, self.dropout, train, generator)
         x = x + out.to(x.dtype)
 
         hf = ln_stats_f32(x, self.ffn_ln_scale, self.ffn_ln_bias).to(cdt)
         a, g = (hf @ self.ffn_w1.to(cdt) + self.ffn_b1.to(cdt)).chunk(2, dim=-1)
-        out = (a * gelu(g)) @ self.ffn_w2.to(cdt) + self.ffn_b2.to(cdt)
+        act = dropout(a * gelu(g), self.dropout, train, generator)
+        out = act @ self.ffn_w2.to(cdt) + self.ffn_b2.to(cdt)
         return x + out.to(x.dtype)

@@ -1,6 +1,7 @@
 """Shared layers, channel-last, with the JAX package's parameter layout.
 
-Port of the pieces of ``difffacto_tpu/nn/layers.py`` that generation uses.
+Port of the pieces of ``difffacto_tpu/nn/layers.py`` that generation and the
+training step use.
 Parameters keep flax's names and layout (a dense kernel is (in, out)) so the
 weight bridge (``utils/jax_params.py``) is a renaming, not a rewrite.
 
@@ -40,8 +41,19 @@ def lecun_normal(shape, generator: torch.Generator) -> torch.Tensor:
 
 
 def param(value: torch.Tensor, device) -> nn.Parameter:
-    # The port covers generation only, so parameters carry no gradient.
-    return nn.Parameter(value.to(device), requires_grad=False)
+    # Trainable; the generation entry points run under ``torch.inference_mode``.
+    return nn.Parameter(value.to(device))
+
+
+def dropout(x: torch.Tensor, p: float, train: bool, generator=None) -> torch.Tensor:
+    """Inverted dropout with an explicit generator: the identity unless
+    ``train`` and p > 0 (flax ``nn.Dropout``: keep with 1 - p, scale 1 / (1 - p))."""
+    if not train or p <= 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout in training needs a torch.Generator")
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    return x * keep.to(x.dtype) / (1.0 - p)
 
 
 def timestep_embedding(timesteps: torch.Tensor, dim: int, max_period: float = 10000.0) -> torch.Tensor:
@@ -135,13 +147,78 @@ class GEGLU(nn.Module):
 
 class FeedForward(nn.Module):
     """GEGLU feed-forward (``nn/layers.py:72-91`` with ``glu=True``), as the
-    denoiser's ``time_embed``; inference only, so dropout is the identity."""
+    denoiser's ``time_embed``: dropout after the gate when training."""
 
-    def __init__(self, dim: int, mult: int = 4, *, dtype=None, device="cuda", generator=None):
+    def __init__(self, dim: int, mult: int = 4, dropout: float = 0.0,
+                 *, dtype=None, device="cuda", generator=None):
         super().__init__()
         g = default_generator(generator)
+        self.dropout = dropout
         self.geglu = GEGLU(dim, dim * mult, dtype=dtype, device=device, generator=g)
         self.dense0 = Dense(dim * mult, dim, dtype=dtype, device=device, generator=g)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.dense0(self.geglu(x))
+    def forward(self, x: torch.Tensor, train: bool = False, generator=None) -> torch.Tensor:
+        return self.dense0(dropout(self.geglu(x), self.dropout, train, generator))
+
+
+class TorchBatchNorm(nn.Module):
+    """BatchNorm over the last axis as ``difffacto_tpu/nn/layers.py:TorchBatchNorm``
+    (flax ``nn.BatchNorm``, eps 1e-5) computes it.
+
+    ``shape`` is (C,) or, for the stacked per-part heads, (K, C): the
+    statistics reduce over every leading axis of x that ``shape`` does not
+    cover. In training the batch mean and the *biased* batch variance
+    E[x^2] - E[x]^2 (clipped at 0, f32) normalise x and move the running
+    statistics by ``running = 0.9 running + 0.1 batch``; torch's own
+    BatchNorm1d would store the unbiased variance. In eval the running
+    statistics normalise.
+    """
+
+    def __init__(self, shape, momentum: float = 0.1, eps: float = 1e-5,
+                 *, dtype=None, device="cuda"):
+        super().__init__()
+        shape = (shape,) if isinstance(shape, int) else tuple(shape)
+        self.momentum, self.eps, self.dtype = momentum, eps, dtype
+        self.scale = param(torch.ones(shape), device)
+        self.bias = param(torch.zeros(shape), device)
+        self.register_buffer("mean", torch.zeros(shape, device=device))
+        self.register_buffer("var", torch.ones(shape, device=device))
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        st = torch.promote_types(x.dtype, torch.float32)
+        xf = x.to(st)
+        if train:
+            dims = tuple(range(x.ndim - self.scale.ndim))
+            mean = xf.mean(dims)
+            var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
+            with torch.no_grad():
+                self.mean.mul_(1.0 - self.momentum).add_(self.momentum * mean.to(self.mean.dtype))
+                self.var.mul_(1.0 - self.momentum).add_(self.momentum * var.to(self.var.dtype))
+        else:
+            mean, var = self.mean.to(st), self.var.to(st)
+        y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.scale.to(st)) + self.bias.to(st)
+        return y.to(self.dtype or torch.promote_types(x.dtype, self.scale.dtype))
+
+
+class ConvBNReLUStack(nn.Module):
+    """The 1x1-conv + BN + ReLU point stack (``nn/layers.py:299-319``): ReLU
+    after every layer but, unless ``relu_last``, the last."""
+
+    def __init__(self, in_features: int, features, relu_last: bool = False,
+                 *, dtype=None, device="cuda", generator=None):
+        super().__init__()
+        g = default_generator(generator)
+        self.relu_last = relu_last
+        dims = [in_features, *features]
+        for i in range(len(features)):
+            setattr(self, f"dense{i}", Dense(dims[i], dims[i + 1], dtype=dtype, device=device,
+                                             generator=g))
+            setattr(self, f"bn{i}", TorchBatchNorm(dims[i + 1], dtype=dtype, device=device))
+        self.n = len(features)
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        for i in range(self.n):
+            x = getattr(self, f"bn{i}")(getattr(self, f"dense{i}")(x), train)
+            if i < self.n - 1 or self.relu_last:
+                x = torch.relu(x)
+        return x

@@ -1,20 +1,23 @@
 """The weight bridge: a JAX parameter tree into the port's modules.
 
-``load_jax_params(model, params)`` takes ``variables["params"]`` of the JAX
-package as nested dicts of arrays (anything ``numpy.asarray`` reads) and
-fills the matching port module. The port keeps flax's names and (in, out)
-layout, so the mapping is a renaming:
+``load_jax_params(model, params, batch_stats=None)`` takes
+``variables["params"]`` (and ``variables["batch_stats"]``) of the JAX package
+as nested dicts of arrays (anything ``numpy.asarray`` reads) and fills the
+matching port module. The port keeps flax's names and (in, out) layout, so
+the mapping is a renaming:
 
 * ``block_{i}`` -> ``blocks.{i}``, ``chain_{j}`` -> ``chain.{j}``,
-  ``Dense_{k}`` -> ``dense{k}``, ``GEGLU_0`` -> ``geglu``;
+  ``Dense_{k}`` -> ``dense{k}``, ``GEGLU_0`` -> ``geglu``,
+  ``TorchBatchNorm_{k}/BatchNorm_0`` -> ``bn{k}``, ``LayerNorm_{k}`` -> ``ln{k}``;
 * the per-part flow parameters come stacked on a leading part axis
   (``flow/flows/chain_{j}/Dense_{k}/kernel`` is (4, in, out)) and split into
-  ``flow.flows.{p}``.
+  ``flow.flows.{p}``; the per-part PointNetV2 heads stay stacked, as the port
+  keeps them.
 
-``encoder_net`` (the PointNetV2 encoder) and ``batch_stats`` are not part of
-the generation path and are skipped, by name only. Any other key that is
-missing or left over raises ``KeyError``; a shape that differs raises
-``ValueError``.
+``params`` fills the module's parameters and ``batch_stats`` its BatchNorm
+buffers (``mean``, ``var``); without ``batch_stats`` the buffers keep their
+values. A key that is missing or left over raises ``KeyError``; a shape that
+differs raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -26,12 +29,13 @@ import numpy as np
 import torch
 from torch import nn
 
-SKIPPED = ("encoder_net", "batch_stats")
 _RENAMES = (
     (re.compile(r"^block_(\d+)$"), r"blocks.\1"),
     (re.compile(r"^chain_(\d+)$"), r"chain.\1"),
     (re.compile(r"^Dense_(\d+)$"), r"dense\1"),
     (re.compile(r"^GEGLU_0$"), "geglu"),
+    (re.compile(r"^TorchBatchNorm_(\d+)$"), r"bn\1"),
+    (re.compile(r"^LayerNorm_(\d+)$"), r"ln\1"),
 )
 
 
@@ -44,11 +48,11 @@ def _rename(key: str) -> str:
 
 def _flatten(node: Mapping, prefix: str, out: Dict[str, np.ndarray]):
     for key, val in node.items():
-        if key in SKIPPED:
-            continue
         name = prefix + _rename(key)
         if isinstance(val, Mapping):
-            if key == "flows":
+            if key == "BatchNorm_0":  # flax's module inside TorchBatchNorm
+                _flatten(val, prefix, out)
+            elif key == "flows":
                 sub: Dict[str, np.ndarray] = {}
                 _flatten(val, "", sub)
                 for path, arr in sub.items():
@@ -60,11 +64,22 @@ def _flatten(node: Mapping, prefix: str, out: Dict[str, np.ndarray]):
             out[name] = np.asarray(val)
 
 
-def load_jax_params(model: nn.Module, params: Mapping) -> None:
-    """Copy the JAX parameter tree ``params`` into ``model`` in place."""
+def flatten_jax_tree(tree: Mapping) -> Dict[str, np.ndarray]:
+    """A JAX ``params`` or ``batch_stats`` tree as {port name: array}."""
     flat: Dict[str, np.ndarray] = {}
-    _flatten(params, "", flat)
-    targets = dict(model.named_parameters())
+    _flatten(tree, "", flat)
+    return flat
+
+
+def load_jax_params(model: nn.Module, params: Mapping, batch_stats: Mapping = None) -> None:
+    """Copy the JAX tree ``params`` into the parameters of ``model`` and, if
+    given, ``batch_stats`` into its BatchNorm buffers, in place."""
+    _fill(dict(model.named_parameters()), flatten_jax_tree(params))
+    if batch_stats is not None:
+        _fill(dict(model.named_buffers()), flatten_jax_tree(batch_stats))
+
+
+def _fill(targets: Dict[str, torch.Tensor], flat: Dict[str, np.ndarray]) -> None:
     missing = sorted(set(targets) - set(flat))
     extra = sorted(set(flat) - set(targets))
     if missing or extra:

@@ -78,3 +78,5 @@ MODELS = Registry("MODELS")
 ENCODERS = Registry("ENCODERS")
 DIFFUSIONS = Registry("DIFFUSIONS")
 NETS = Registry("NETS")
+SAMPLERS = Registry("SAMPLERS")
+SCHEDULERS = Registry("SCHEDULERS")
