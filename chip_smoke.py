@@ -41,9 +41,12 @@ Phases, each fatal (non-zero exit, no "ok" line):
    step on a batch with a NaN must leave every parameter, moment and BatchNorm
    buffer as it was. Then 3 steps of the stage-2 set-up (``gen=True``, aligner
    noise_scale 50, only the aligner trainable, the CIMLE noise chosen by
-   ``select_best_noise`` over 10 candidates), one step at batch 8 against the
-   same model on the CPU with every draw injected, and the timing of the step
-   and of its two kernels. One JSON line then gives every kernel's numbers.
+   ``select_best_noise`` over 10 candidates) and one more with the flow prior
+   weighted, one step at batch 8 against the same model on the CPU with every
+   draw injected, and the timing of the step and of its two kernels, which are
+   first held against the plain version at the step's own shape (4096 tiles,
+   many for each block of the backward's grid). One JSON line then gives every
+   kernel's numbers.
 
 The last line is {"ok": true, "device": {...}}.
 """
@@ -143,16 +146,19 @@ def trunk_bound_ms(args, out_bytes, in_ch, depth):
 
 def trunk_train_bound_ms(ops, B, N, depth, out_bytes):
     """The least time for the training trunk's forward and for its backward.
-    Per token and block the forward does 2 D^2 + 3 D FF + 1024 MACs; the
-    backward recomputes that and does 5 D^2 (q again, dWout, d_attn, dWq, dh),
-    8 D FF (a and g again, d_act, dW2, dh2 twice, dW1 twice) and 3072 in the
-    attention to 4 tokens. Bytes: every operand once, the output (forward) or
-    dy, dx and every gradient (backward) once."""
+    Per token and block the forward does 2 D^2 (Wq, Wout) + 3 D FF (W1, W2) MACs
+    and 1024 in the attention to 4 tokens (scores, weighted sum). Given only its
+    inputs, the backward needs that forward once more, two products for each
+    matrix product (the input's gradient and the weight's): 4 D^2 + 6 D FF, and
+    2048 in the attention (d_weights, dV, dq, dK). What the kernel recomputes
+    beyond that is its design's cost, not part of the bound. Bytes: every
+    operand once, the output (forward) or dy, dx and every gradient (backward)
+    once."""
     from difffacto_torch.ops import fused_core as fc
 
     small = 2 * fc.HEADS * fc.CTX * (fc.D // fc.HEADS)
     fwd = 2 * fc.D * fc.D + 3 * fc.D * fc.FF + small
-    bwd = fwd + 5 * fc.D * fc.D + 8 * fc.D * fc.FF + 3 * small
+    bwd = fwd + 4 * fc.D * fc.D + 6 * fc.D * fc.FF + 2 * small
     in_bytes = sum(a.numel() * a.element_size() for a in ops)
     io = B * N * fc.D * 2
     out = {}
@@ -306,7 +312,27 @@ def main():
     # The training trunk: forward and every gradient against the plain version
     # at p = 0 and p = 0.2, with absent parts and a ragged N.
     train_fwd_err = train_bwd_err = 0.0
-    names = ["x", "k", "v"] + list(fct.PARAM_NAMES)
+    grad_names = ["x", "k", "v"] + list(fct.PARAM_NAMES)
+
+    def hold_train(label, y, g, yr, gr):
+        """Fail unless the forward y and the 18 gradients g agree with the plain
+        version's yr and gr; returns the largest absolute differences."""
+        err = (y - yr).abs()
+        rels = [((a - b).norm() / b.norm()).item() for a, b in zip(g, gr)]
+        maxs = [((a - b).abs().max() / b.abs().max()).item() for a, b in zip(g, gr)]
+        worst = max(range(len(rels)), key=rels.__getitem__)
+        print(f"fused_trunk_train {label}: forward max abs err "
+              f"{err.max().item():.4e} (tol {KERNEL_MAX_ABS}), mean {err.mean().item():.4e} "
+              f"(tol {KERNEL_MEAN_ABS}); 18 gradients: relative L2 at most {max(rels):.4e} "
+              f"(d{grad_names[worst]}, tol {GRAD_REL_L2}), largest difference over largest entry "
+              f"at most {max(maxs):.4e} (tol {GRAD_MAX_REL})")
+        ok = all(torch.isfinite(t).all().item() for t in [y] + g)
+        if not ok or err.max().item() > KERNEL_MAX_ABS or err.mean().item() > KERNEL_MEAN_ABS:
+            fail(f"fused_trunk_train forward disagrees with its plain version at {label}")
+        if not max(rels) <= GRAD_REL_L2 or not max(maxs) <= GRAD_MAX_REL:
+            fail(f"fused_trunk_train backward disagrees with its plain version at {label}")
+        return err.max().item(), max((a - b).abs().max().item() for a, b in zip(g, gr))
+
     for B, N, mask in ((4, 2048, [[1, 1, 1, 1], [1, 0, 1, 1], [1, 1, 1, 1], [0, 1, 1, 1]]),
                        (2, 1000, [[1, 1, 0, 1], [1, 1, 1, 1]])):
         inp = fct.example_inputs(B, N, depth=5, seed=B, mask=mask)
@@ -316,22 +342,8 @@ def main():
             y, g = fct.run_example(fct.fused_trunk_train, inp, par, p, 1234, dev)
             torch.cuda.synchronize()
             yr, gr = fct.run_example(fct.fused_trunk_train_reference, inp, par, p, 1234, dev)
-            err = (y - yr).abs()
-            rels = [((a - b).norm() / b.norm()).item() for a, b in zip(g, gr)]
-            maxs = [((a - b).abs().max() / b.abs().max()).item() for a, b in zip(g, gr)]
-            worst = max(range(len(rels)), key=rels.__getitem__)
-            print(f"fused_trunk_train B={B} N={N} p={p}: forward max abs err "
-                  f"{err.max().item():.4e} (tol {KERNEL_MAX_ABS}), mean {err.mean().item():.4e} "
-                  f"(tol {KERNEL_MEAN_ABS}); 18 gradients: relative L2 at most {max(rels):.4e} "
-                  f"(d{names[worst]}, tol {GRAD_REL_L2}), largest difference over largest entry "
-                  f"at most {max(maxs):.4e} (tol {GRAD_MAX_REL})")
-            ok = all(torch.isfinite(t).all().item() for t in [y] + g)
-            if not ok or err.max().item() > KERNEL_MAX_ABS or err.mean().item() > KERNEL_MEAN_ABS:
-                fail(f"fused_trunk_train forward disagrees with its plain version at B={B} N={N}")
-            if not max(rels) <= GRAD_REL_L2 or not max(maxs) <= GRAD_MAX_REL:
-                fail(f"fused_trunk_train backward disagrees with its plain version at B={B} N={N}")
-            train_fwd_err = max(train_fwd_err, err.max().item())
-            train_bwd_err = max(train_bwd_err, max((a - b).abs().max().item() for a, b in zip(g, gr)))
+            fe, be = hold_train(f"B={B} N={N} p={p}", y, g, yr, gr)
+            train_fwd_err, train_bwd_err = max(train_fwd_err, fe), max(train_bwd_err, be)
         # p = 0.2: the kept share, two seeds differ, one seed repeats bit for bit
         kept = (fct.dropout_mult(1234, B, N, 0, 1, fc.FF, 0.2, dev) > 0).float().mean().item()
         with torch.no_grad():
@@ -684,7 +696,13 @@ def main():
     tmodel = None
     torch.cuda.empty_cache()
 
-    inp = fct.example_inputs(TRAIN_BATCH, 2048, depth=5, seed=11)
+    # The two kernels at the step's shape (4096 tiles: every block of the
+    # backward's persistent grid walks about 31 of them, reusing its scratch
+    # and adding many tiles into one dK/dV row), parts absent in some rows:
+    # held against the plain version, then timed.
+    step_mask = np.ones((TRAIN_BATCH, fc.CTX), np.float32)
+    step_mask[1, 1] = step_mask[5, 0] = step_mask[TRAIN_BATCH - 1, 3] = 0.0
+    inp = fct.example_inputs(TRAIN_BATCH, 2048, depth=5, seed=11, mask=step_mask)
     par = fct.example_params(depth=5, seed=12)
     x, k, v = (torch.as_tensor(inp[n]).to(dev, torch.bfloat16) for n in ("x", "k", "v"))
     mask = torch.as_tensor(inp["mask"]).to(dev)
@@ -694,10 +712,6 @@ def main():
                      generator=torch.Generator(device=dev).manual_seed(3)).to(torch.bfloat16)
     grad_bytes = 4 * sum(int(np.prod(sh)) for _, sh in fct.grad_sizes(5, TRAIN_BATCH))
     bounds = trunk_train_bound_ms(ops, TRAIN_BATCH, 2048, 5, grad_bytes)
-    before_f, before_b = fct.launches_fwd, fct.launches_bwd
-    fwd_ms = cuda_ms(lambda: fct.launch_forward(ops, seed_t, launch), 10)
-    bwd_ms = cuda_ms(lambda: fct.launch_backward(ops, dy, seed_t, launch), 5)
-    fct.launches_fwd, fct.launches_bwd = before_f, before_b
 
     def plain(backward):
         xr, kr, vr = (t.clone().requires_grad_(backward) for t in (x, k, v))
@@ -706,6 +720,19 @@ def main():
             y = fct.fused_trunk_train_reference(seed_t, xr, kr, vr, mask, *pr, 0.25, 0.2)
             if backward:
                 y.backward(dy)
+        return y.detach().float(), [t.grad.float() for t in (xr, kr, vr, *pr)] if backward else None
+
+    before_f, before_b = fct.launches_fwd, fct.launches_bwd
+    y_k = fct.launch_forward(ops, seed_t, launch).float()
+    dx_k, g_k = fct.launch_backward(ops, dy, seed_t, launch)
+    torch.cuda.synchronize()
+    fe, be = hold_train(f"B={TRAIN_BATCH} N=2048 p=0.2 ({launch[0] * 2048 // fct.TILE} tiles)",
+                        y_k, [dx_k.float()] + g_k, *plain(True))
+    train_fwd_err, train_bwd_err = max(train_fwd_err, fe), max(train_bwd_err, be)
+    del y_k, dx_k, g_k
+    fwd_ms = cuda_ms(lambda: fct.launch_forward(ops, seed_t, launch), 10)
+    bwd_ms = cuda_ms(lambda: fct.launch_backward(ops, dy, seed_t, launch), 5)
+    fct.launches_fwd, fct.launches_bwd = before_f, before_b
 
     plain_fwd_ms = cuda_ms(lambda: plain(False), 2)
     plain_bwd_ms = cuda_ms(lambda: plain(True), 2) - plain_fwd_ms
@@ -737,8 +764,12 @@ def main():
             {k: round(m[k], 5) for k in need + ("prior_loss", "skipped_nonfinite")}))
         if any(not np.isfinite(v) for v in m.values()) or m["skipped_nonfinite"] != 0.0:
             fail(f"a stage-2 step gave {m}")
-    changed = {n for n, a, b in zip(names, p0, smodel.parameters()) if not torch.equal(a, b)}
-    moved = {n for n, mu in zip(names, state.opt_state["mu"]) if bool((mu != 0).any())}
+
+    def changed_and_moved():
+        changed = {n for n, a, b in zip(names, p0, smodel.parameters()) if not torch.equal(a, b)}
+        return changed, {n for n, mu in zip(names, state.opt_state["mu"]) if bool((mu != 0).any())}
+
+    changed, moved = changed_and_moved()
     # kl_weight is 0 in this configuration, so the flows' gradient is exactly 0,
     # and the aligner's pre_norm is never applied (a quirk kept): no moments there.
     expect_moved = {n for n in names if ".flow." not in n and "aligner.pre_norm" not in n}
@@ -751,6 +782,24 @@ def main():
     if moved != expect_moved:
         fail(f"stage 2 moments differ from the parameters with a gradient: "
              f"{sorted(moved ^ expect_moved)[:5]}")
+    # One more step with the flow prior weighted (the class's default 1e-3): the
+    # forward flows' logpx gradient runs at full width. Each coupling layer's
+    # s/t head (dense2) starts at zero and the filter keeps it there, so it is
+    # the heads that gain moments: nothing flows back through a zero kernel.
+    smodel.encoder_mod.kl_weight = 1e-3
+    state, metrics = step(state, sbatch, 5, 0)
+    m = {k: float(v) for k, v in metrics.items()}
+    changed, moved = changed_and_moved()
+    with_prior = expect_moved | {n for n in names if ".flow." in n and ".dense2." in n}
+    print(f"  stage-2 step with kl_weight 1e-3: " + json.dumps(
+        {k: round(m[k], 5) for k in need + ("prior_loss", "skipped_nonfinite")})
+        + f"; {len(moved)} of {len(names)} parameters have Adam moments "
+        f"(every one with a gradient: {len(with_prior)})")
+    if any(not np.isfinite(v) for v in m.values()) or m["skipped_nonfinite"] != 0.0:
+        fail(f"the stage-2 step with the prior weighted gave {m}")
+    if m["prior_loss"] == 0.0 or changed != trainable or moved != with_prior:
+        fail(f"the stage-2 step with the prior weighted: prior_loss {m['prior_loss']}, "
+             f"{sorted(changed ^ trainable)[:5]} changed, {sorted(moved ^ with_prior)[:5]} moments")
     del smodel, state, step, tx, p0
     torch.cuda.empty_cache()
 

@@ -38,11 +38,13 @@
 //    same way. The order of the sums changes from run to run, so gradients
 //    repeat only to f32 rounding.
 //
-// Bound on an H100 (989 TFLOP/s bf16, 3.35 TB/s): 229,376 MACs per token and
-// block forward; the backward recomputes that, repeats the Wq and W1 products
-// in the reverse walk and does two products per weight, about 3.6 forwards.
-// At B=128, N=2048, depth 5: 0.60 TFLOP forward (0.61 ms), 2.2 TFLOP backward
-// (2.2 ms), against 0.14 GB of traffic: both are compute-bound.
+// Bound on an H100 (989 TFLOP/s bf16, 3.35 TB/s): 230,400 MACs per token and
+// block forward; given only its inputs the backward needs that once more and
+// two products per matrix product, 691,200 MACs, 3 forwards. At B=128, N=2048,
+// depth 5: 0.60 TFLOP forward (0.61 ms), 1.81 TFLOP backward (1.83 ms), against
+// 0.14 GB of traffic: both are compute-bound. This kernel does more than the
+// bound counts: keeping only u and up in the scratch, it repeats the Wq and W1
+// products in the reverse walk (another 147,456 MACs, 0.6 forwards).
 //
 // First things a later change should fix: the weight re-reads from L2 per
 // tile (as in fused_core.cu), scalar atomics (sm_90 has a 4-wide f32 red),

@@ -185,6 +185,31 @@ def test_fused_trunk_train_matches_plain_version(cuda, n, p):
 
 
 @pytest.mark.gpu
+def test_fused_trunk_train_many_tiles_per_block(cuda):
+    """More tiles than twice the card's SMs, a ragged N and absent parts: every
+    block of the backward's persistent grid walks several tiles, reuses its
+    scratch and adds many tiles into one dK/dV row."""
+    B, n = 24, 1000
+    tiles = B * -(-n // fct.TILE)
+    assert tiles > 2 * torch.cuda.get_device_properties(cuda).multi_processor_count
+    mask = np.ones((B, 4), np.float32)
+    mask[1, 2] = mask[7, 0] = mask[B - 1, 3] = 0.0
+    inp = fct.example_inputs(B=B, N=n, depth=2, seed=6, mask=mask)
+    inp["cot"] = np.random.RandomState(7).randn(B, n, 128).astype(np.float32)
+    par = fct.example_params(depth=2, seed=8)
+    y, g = fct.run_example(fct.fused_trunk_train, inp, par, 0.2, 31, cuda)
+    torch.cuda.synchronize()
+    yr, gr = fct.run_example(fct.fused_trunk_train_reference, inp, par, 0.2, 31, cuda)
+    err = (y - yr).abs()
+    assert err.max().item() <= BF16_MAX_ABS and err.mean().item() <= BF16_MEAN_ABS
+    for name, a, b in zip(["x", "k", "v"] + list(fct.PARAM_NAMES), g, gr):
+        assert torch.isfinite(a).all(), name
+        rel = ((a - b).norm() / b.norm()).item()
+        print(f"d{name}: relative L2 {rel:.3e}")
+        assert rel <= GRAD_REL_L2, name
+
+
+@pytest.mark.gpu
 def test_fused_trunk_train_dropout_repeats_and_depends_on_the_seed(cuda):
     inp = fct.example_inputs(B=2, N=256, depth=2, seed=4)
     par = fct.example_params(depth=2, seed=5)
