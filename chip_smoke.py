@@ -1,20 +1,24 @@
 #!/usr/bin/env python3
 """Run the PyTorch port on one CUDA card and check it: gen_chair generation,
-the eval protocol that scores what was generated, and the gen_chair training
-step.
+the eval protocol that scores what was generated, the gen_chair training
+step, and gen_chair generation with two-attention blocks beside the UNet
+denoiser.
 
     python3 chip_smoke.py
 
 Phases, each fatal (non-zero exit, no "ok" line):
 
 1. device: a CUDA card is required; prints its name and power limit.
-2. build: builds every CUDA source of the three paths (one nvcc each, started
+2. build: builds every CUDA source of the four paths (one nvcc each, started
    together) and prints the build time and ``-Xptxas -v``.
 3. kernels: each kernel against its plain PyTorch version, with the stated
    tolerance, at the main paths' shapes and at ragged ones: the trunk in
    bf16, the training trunk's forward and its backward (dx, dK, dV and the 15
    parameter gradients) at p = 0 and p = 0.2, FPS index for index, the EMD
-   assignment by its matched cost.
+   assignment by its matched cost, the fused LN-GEGLU FF at the denoiser's
+   (T = 256 x 2048, D = 128) and the aligner's (T = 1024, D = 256) shapes and
+   at T = 384, the one-block kernel at B = 256, N = 2048 with parts absent and
+   at N = 384.
 4. generation: ``configs/gen_chair.py`` at full width (2048 points, T=100,
    denoiser depth 5 at width 128, 4 x 14 flows, aligner depth 5,
    ``cimle_sample_num=1``, bf16), seeded random weights, through
@@ -45,8 +49,20 @@ Phases, each fatal (non-zero exit, no "ok" line):
    weighted, one step at batch 8 against the same model on the CPU with every
    draw injected, and the timing of the step and of its two kernels, which are
    first held against the plain version at the step's own shape (4096 tiles,
-   many for each block of the backward's grid). One JSON line then gives every
-   kernel's numbers.
+   many for each block of the backward's grid).
+8. two-attention generation and UNet, full width: ``configs/gen_chair.py``
+   with ``single_attn=False`` set on the loaded config in the aligner and the
+   denoiser. Batch-16 generation with launch counts set to 0 just before and
+   read just after: 500 fused-FF launches (5 blocks x 100 steps; the
+   aligner's T = 64 takes the unfused FF) and no trunk launch; a batch-1 run
+   with every draw injected against the same model on the CPU; generation at
+   batch 256 (1 warm-up, 2 timed runs, 505 fused-FF launches each: the
+   aligner's T = 1024 takes the kernel). Then a UNet forward at B = 256 x 2048
+   with the gen_chair denoiser's widths (3 channels, 8 x 16, depth 5, part
+   tokens (B, 4, 522) with parts absent): 5 one-block launches, and at batch 2
+   against the CPU. The fused FF and the one-block kernel are timed with CUDA
+   events beside their plain versions and bounds. One JSON line then gives
+   every kernel's numbers.
 
 The last line is {"ok": true, "device": {...}}.
 """
@@ -80,6 +96,14 @@ KERNEL_MAX_ABS, KERNEL_MEAN_ABS = 0.125, 1e-3
 # and the chain carries them to the samples. An H100 showed a relative L2
 # difference of 5.6e-4; a wrong kernel or chain gives O(1).
 E2E_REL_L2 = 5e-3
+# Phase 8: the UNet forward at batch 2, card against CPU, relative L2 over
+# what the network adds to its input (proj_out is given random weights: it
+# starts at zero). bf16 both, the CPU through the plain block. An H100 showed
+# 1.5e-2, and on the CPU the same seeded net in bf16 differs from itself in
+# f32 by 1.5e-2 too: the hidden state is f32 between the blocks and rounds to
+# bf16 at each of the five; a wrong kernel or mask gives O(1).
+UNET_REL_L2 = 5e-2
+TWO_ATTN_BATCH_TIMED, TWO_ATTN_ITERS, UNET_BATCH = 256, 2, 256
 # The EMD kernel and its plain version sum their log-sum-exp in another order,
 # so a near-tie may go to another object: assignments may differ (the share is
 # printed), the matched costs agree within 0.5 %. At n = 512 the kernel's cost
@@ -213,6 +237,48 @@ def to_device(batch, device):
     return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
 
 
+def ff_bound_ms(args, out_bytes):
+    """The fused FF: 24 T D^2 operations (W1, 2 FF = 8 D wide, then W2) over
+    the bf16 peak against its bytes (inputs read once, output written once)."""
+    T, D = args[0].shape
+    t_ops = 24.0 * T * D * D / PEAK_BF16_FLOPS * 1e3
+    t_bytes = (sum(a.numel() * a.element_size() for a in args) + out_bytes) / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def block_bound_ms(args, out_bytes):
+    """One block: per token 2 D^2 (Wq, Wout) + 12 D^2 (the FF) MACs and
+    2 x 8 heads x 4 tokens x 16 in the attention, against its bytes."""
+    from difffacto_torch.ops import fused_block as fb
+
+    B, N, D = args[0].shape
+    macs = 14 * D * D + 2 * fb.HEADS * fb.CTX * (D // fb.HEADS)
+    t_ops = 2.0 * B * N * macs / PEAK_BF16_FLOPS * 1e3
+    t_bytes = (sum(a.numel() * a.element_size() for a in args) + out_bytes) / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def ff_operands(D, T, device, seed):
+    """fused_ff's operands at width D on ``device``: bf16, b1 and b2 f32."""
+    from difffacto_torch.ops import fused_core as fc
+    from difffacto_torch.ops import fused_ff as ff
+
+    return fc.operands(ff.example_inputs(T, D, seed), device, torch.bfloat16)
+
+
+def hold_bf16(name, got, want):
+    """Fail unless a bf16 kernel's output agrees with ``want`` (its plain
+    version's) within KERNEL_MAX_ABS and KERNEL_MEAN_ABS; returns the largest
+    absolute difference."""
+    err = (got.float() - want.float()).abs()
+    print(f"{name}: max abs err {err.max().item():.4e} (tol {KERNEL_MAX_ABS}), "
+          f"mean {err.mean().item():.4e} (tol {KERNEL_MEAN_ABS})")
+    if (not torch.isfinite(got.float()).all() or err.max().item() > KERNEL_MAX_ABS
+            or err.mean().item() > KERNEL_MEAN_ABS):
+        fail(f"{name} disagrees with its plain version")
+    return err.max().item()
+
+
 def fps_bound_ms(B, N, m):
     """FPS: B (m - 1) N distance updates of 8 f32 operations against reading
     the coordinates and writing the indices once."""
@@ -251,13 +317,39 @@ def seeded_clouds(B, N, seed, distinct=None):
     return torch.as_tensor(x)
 
 
-def build_model(noise_scale, device):
+def build_model(noise_scale, device, single_attn=True):
     from difffacto_torch import MODELS, Config, build_from_cfg
 
     mcfg = Config(os.path.join(ROOT, "configs", "gen_chair.py")).model.dump()
     mcfg.update(npoints=2048, ret_traj=False, cimle_sample_num=1, dtype=torch.bfloat16)
-    mcfg["encoder"]["part_aligner"]["noise_scale"] = noise_scale
+    mcfg["encoder"]["part_aligner"].update(noise_scale=noise_scale, single_attn=single_attn)
+    mcfg["diffusion"]["net"]["single_attn"] = single_attn
     return build_from_cfg(mcfg, MODELS, device=device, seed=0)
+
+
+def build_unet(device):
+    """UNet at the gen_chair denoiser's widths with seeded weights; proj_out,
+    which starts at zero, gets random ones so that the output shows the net."""
+    from difffacto_torch.models import UNet
+    from difffacto_torch.nn.layers import lecun_normal
+
+    g = torch.Generator().manual_seed(3)
+    net = UNet(3, 8, 16, depth=5, prior_dim=522, dtype=torch.bfloat16, device=device,
+               generator=g)
+    with torch.no_grad():
+        net.proj_out.kernel.copy_(lecun_normal((128, 3), g))
+    return net
+
+
+def unet_inputs(B, device, seed):
+    """x (B, 2048, 3), t (B,), part tokens (B, 4, 522) and valid_id with a
+    part absent in every third row."""
+    rng = np.random.RandomState(seed)
+    valid = np.ones((B, 4), np.float32)
+    valid[::3, 1] = 0.0
+    return [torch.as_tensor(a, device=device) for a in (
+        rng.randn(B, 2048, 3).astype(np.float32), rng.randint(0, 100, B),
+        rng.randn(B, 4, 522).astype(np.float32), valid)]
 
 
 def main():
@@ -278,11 +370,13 @@ def main():
     from difffacto_torch.ops import _build
     from difffacto_torch.ops import emd_hybrid as eh
     from difffacto_torch.ops import fps as fpsm
+    from difffacto_torch.ops import fused_block as fb
     from difffacto_torch.ops import fused_core as fc
     from difffacto_torch.ops import fused_core_train as fct
+    from difffacto_torch.ops import fused_ff as ff
 
     t0 = time.perf_counter()
-    logs = _build.build(["fused_core", "fused_core_train", "fps", "emd_hybrid"])
+    logs = _build.build(["fused_core", "fused_core_train", "fps", "emd_hybrid", "fused_ff"])
     print(f"built {sorted(logs)} in {time.perf_counter() - t0:.1f} s")
     for name, log in logs.items():
         for line in log.splitlines():
@@ -290,6 +384,7 @@ def main():
                 print(f"  {name}: {line.strip()}")
     print(f"  fused_core: {fc.smem_bytes()} bytes of dynamic shared memory per block")
     print(f"  fused_core_train: {fct.smem_bytes()} bytes (forward, backward)")
+    print(f"  fused_ff: {ff.smem_bytes(128)} bytes at D = 128, {ff.smem_bytes(256)} at D = 256")
 
     phase("3 kernels against their plain versions")
     max_err = 0.0
@@ -300,14 +395,8 @@ def main():
         args = fc.operands(fc.example_inputs(B, N, depth=5, seed=B, mask=mask), dev, torch.bfloat16)
         got = fc.fused_core(*args, 0.25)
         torch.cuda.synchronize()
-        want = fc.fused_core_reference(*args, 0.25)
-        err = (got.float() - want.float()).abs()
-        ok = torch.isfinite(got.float()).all().item()
-        print(f"fused_core B={B} N={N}: max abs err {err.max().item():.4e} (tol {KERNEL_MAX_ABS}), "
-              f"mean {err.mean().item():.4e} (tol {KERNEL_MEAN_ABS})")
-        if not ok or err.max().item() > KERNEL_MAX_ABS or err.mean().item() > KERNEL_MEAN_ABS:
-            fail(f"fused_core disagrees with its plain version at B={B} N={N}")
-        max_err = max(max_err, err.max().item())
+        max_err = max(max_err, hold_bf16(f"fused_core B={B} N={N}", got,
+                                         fc.fused_core_reference(*args, 0.25)))
 
     # The training trunk: forward and every gradient against the plain version
     # at p = 0 and p = 0.2, with absent parts and a ragged N.
@@ -364,11 +453,29 @@ def main():
     h0 = (x13.float() @ pin_w.float() + pin_b).to(torch.bfloat16)
     with torch.no_grad():
         y_train = fct.fused_trunk_train(0, h0, k, v, mask, *tail, 0.25, 0.0)
-    err = (y_train.float() - fc.fused_core(*core, 0.25).float()).abs()
-    print(f"fused_trunk_train at p=0 against fused_core: max abs err {err.max().item():.4e} "
-          f"(tol {KERNEL_MAX_ABS}), mean {err.mean().item():.4e} (tol {KERNEL_MEAN_ABS})")
-    if err.max().item() > KERNEL_MAX_ABS or err.mean().item() > KERNEL_MEAN_ABS:
-        fail("the training forward at p=0 disagrees with fused_core")
+    hold_bf16("fused_trunk_train at p=0 against fused_core", y_train, fc.fused_core(*core, 0.25))
+
+    # The fused LN-GEGLU FF at the two-attention denoiser's shape (batch 256),
+    # the aligner's (batch 256) and a smaller T; the one-block kernel at UNet's
+    # shape with parts absent and at an N that pick_tile takes.
+    ff_err = 0.0
+    for D, T in ((128, BATCH_TIMED * 2048), (256, 4 * BATCH_TIMED), (128, 384)):
+        args = ff_operands(D, T, dev, seed=T)
+        got = ff.fused_ln_geglu_ff(*args)
+        torch.cuda.synchronize()
+        ff_err = max(ff_err, hold_bf16(f"fused_ff D={D} T={T}", got, ff.fused_ln_geglu_ff_reference(*args)))
+        del args, got
+    block_err = 0.0
+    for B, N in ((UNET_BATCH, 2048), (4, 384)):
+        mask = np.ones((B, fb.CTX), np.float32)
+        mask[1, 1] = mask[2, 0] = mask[2, 3] = mask[B - 1, 2] = 0.0
+        args = fc.operands(fb.example_inputs(B, N, seed=N, mask=mask), dev, torch.bfloat16)
+        got = fb.fused_block(*args, 0.25)
+        torch.cuda.synchronize()
+        block_err = max(block_err, hold_bf16(f"fused_block B={B} N={N}", got,
+                                             fb.fused_block_reference(*args, 0.25)))
+        del args, got
+    torch.cuda.empty_cache()
 
     # FPS index for index: the protocol's shape, a ragged N, and 16 distinct
     # points repeated to 256 (all remaining distances 0: index 0 repeats).
@@ -836,6 +943,134 @@ def main():
         fail("the training step on the card disagrees with the CPU")
     if not diffs.mean().item() <= STEP_PARAM_MEAN_LR * LR or not diffs.max().item() <= 2.02 * LR:
         fail("the updated parameters on the card disagree with the CPU")
+    del runs
+    torch.cuda.empty_cache()
+
+    phase("8 two-attention gen_chair generation and UNet, full width")
+    t_phase = time.perf_counter()
+    valid = torch.ones(BATCH_CHECK, 4, device=dev)
+    for noise_scale in (100, 1):
+        model = build_model(noise_scale, dev, single_attn=False)
+        ff.launches = fc.launches = fb.launches = 0
+        pred = sample_generation(model, BATCH_CHECK, valid_id=valid,
+                                 generator=torch.Generator(device=dev).manual_seed(0))["pred"]
+        torch.cuda.synchronize()
+        two_counts = dict(fused_ff=ff.launches, fused_core=fc.launches, fused_block=fb.launches)
+        if torch.isfinite(pred).all():
+            break
+        print(f"non-finite samples at aligner noise_scale {noise_scale}; lowering it to 1")
+    else:
+        fail("two-attention generation: non-finite samples")
+    depth = len(model.net.blocks)
+    expected = dict(fused_ff=depth * model.num_timesteps, fused_core=0, fused_block=0)
+    print(f"noise_scale {noise_scale}, batch {BATCH_CHECK}: pred {tuple(pred.shape)}, launches "
+          f"{two_counts}, expected {expected} (the aligner's T = {4 * BATCH_CHECK} takes the "
+          f"unfused FF)")
+    if tuple(pred.shape) != (BATCH_CHECK, 2048, 3):
+        fail(f"two-attention generation: pred has shape {tuple(pred.shape)}")
+    if two_counts != expected:
+        fail(f"two-attention generation launched {two_counts}, expected {expected}")
+
+    rng = np.random.RandomState(1)
+    draws = dict(
+        z=rng.randn(1, 4, 256), cimle_noise=rng.randn(1, 32),
+        noise=rng.randn(1, 2048, 3), step_noise=rng.randn(model.num_timesteps, 1, 2048, 3),
+    )
+    runs = {}
+    for where, m in (("cuda", model), ("cpu", build_model(noise_scale, "cpu", single_attn=False))):
+        d = {k: torch.as_tensor(v, dtype=torch.float32, device=where) for k, v in draws.items()}
+        t0 = time.perf_counter()
+        runs[where] = sample_generation(
+            m, 1, valid_id=torch.as_tensor(valid1, dtype=torch.float32, device=where), **d
+        )["pred"].float().cpu()
+        print(f"two-attention batch-1 generation on {where}: {time.perf_counter() - t0:.1f} s")
+    diff = (runs["cuda"] - runs["cpu"]).abs()
+    two_rel = (diff.norm() / runs["cpu"].norm()).item()
+    print(f"card vs CPU plain FF: max abs {diff.max().item():.4e}, relative L2 {two_rel:.4e} "
+          f"(tol {E2E_REL_L2})")
+    if not torch.isfinite(runs["cuda"]).all() or two_rel > E2E_REL_L2:
+        fail("two-attention generation on the card disagrees with the CPU plain version")
+
+    valid = torch.ones(TWO_ATTN_BATCH_TIMED, 4, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    sample_generation(model, TWO_ATTN_BATCH_TIMED, valid_id=valid, generator=gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ff.launches = 0
+    t0 = time.perf_counter()
+    for _ in range(TWO_ATTN_ITERS):
+        sample_generation(model, TWO_ATTN_BATCH_TIMED, valid_id=valid, generator=gen)
+    torch.cuda.synchronize()
+    two_dt = (time.perf_counter() - t0) / TWO_ATTN_ITERS
+    two_per_gen = ff.launches / TWO_ATTN_ITERS
+    two_peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"two-attention gen_chair batch {TWO_ATTN_BATCH_TIMED}: "
+          f"{TWO_ATTN_BATCH_TIMED / two_dt:.2f} shapes/s ({two_dt:.3f} s per batch), peak memory "
+          f"{two_peak:.2f} GiB, {two_per_gen:.0f} fused_ff launches per generation")
+    if two_per_gen != depth * model.num_timesteps + depth:
+        fail(f"{two_per_gen} fused_ff launches per batch-{TWO_ATTN_BATCH_TIMED} generation, "
+             f"expected {depth * model.num_timesteps + depth}")
+    del model, runs, pred
+    torch.cuda.empty_cache()
+
+    # UNet: one forward at full size, counted; then batch 2 against the CPU.
+    unet = build_unet(dev)
+    x, t, ctx, vid = unet_inputs(UNET_BATCH, dev, seed=2)
+    fb.launches = 0
+    with torch.inference_mode():
+        y = unet(x, t, ctx, valid_id=vid)
+    torch.cuda.synchronize()
+    unet_launches = fb.launches
+    print(f"UNet B={UNET_BATCH} N=2048: out {tuple(y.shape)} {y.dtype}, fused_block launches "
+          f"{unet_launches} (expected {len(unet.prior_blocks)})")
+    if tuple(y.shape) != (UNET_BATCH, 2048, 3) or not torch.isfinite(y).all():
+        fail("UNet output not finite (256, 2048, 3)")
+    if unet_launches != len(unet.prior_blocks):
+        fail(f"UNet launched fused_block {unet_launches} times, expected {len(unet.prior_blocks)}")
+    unet_ms = cuda_ms(torch.inference_mode()(lambda: unet(x, t, ctx, valid_id=vid)), 3)
+    del y, x, t, ctx, vid
+    ys = {}
+    for where, net in (("cuda", unet), ("cpu", build_unet("cpu"))):
+        inp = unet_inputs(2, where, seed=4)
+        with torch.inference_mode():
+            ys[where] = (net(inp[0], inp[1], inp[2], valid_id=inp[3]) - inp[0]).float().cpu()
+    unet_rel = ((ys["cuda"] - ys["cpu"]).norm() / ys["cpu"].norm()).item()
+    print(f"UNet forward {unet_ms:.2f} ms at B={UNET_BATCH}; card vs CPU at batch 2: relative "
+          f"L2 {unet_rel:.4e} of what the net adds (tol {UNET_REL_L2})")
+    if not unet_rel <= UNET_REL_L2:
+        fail("the UNet forward on the card disagrees with the CPU plain version")
+    del unet
+    torch.cuda.empty_cache()
+
+    # The two kernels at the main paths' shapes, with their plain versions and bounds.
+    args = ff_operands(128, TWO_ATTN_BATCH_TIMED * 2048, dev, seed=5)
+    before = ff.launches
+    ff_bound, ff_by = ff_bound_ms(args, args[0].numel() * 2)
+    ff_ms = cuda_ms(lambda: ff.fused_ln_geglu_ff(*args), 20)
+    ff_plain_ms = cuda_ms(lambda: ff.fused_ln_geglu_ff_reference(*args), 3)
+    args256 = ff_operands(256, 4 * TWO_ATTN_BATCH_TIMED, dev, seed=6)
+    ff_ms_256 = cuda_ms(lambda: ff.fused_ln_geglu_ff(*args256), 20)
+    ff.launches = before
+    print(f"fused_ff T={args[0].shape[0]} D=128: {ff_ms:.3f} ms, bound {ff_bound:.3f} ms "
+          f"({ff_by}), {100 * ff_bound / ff_ms:.1f}% of roofline; plain version "
+          f"{ff_plain_ms:.3f} ms; 500 launches are "
+          f"{100 * 500 * ff_ms / (1e3 * two_dt):.1f}% of a batch's generation; "
+          f"T=1024 D=256: {ff_ms_256:.3f} ms, bound {ff_bound_ms(args256, args256[0].numel() * 2)[0]:.4f} ms")
+    del args, args256
+    mask = np.ones((UNET_BATCH, fb.CTX), np.float32)
+    mask[::3, 1] = 0.0
+    args = fc.operands(fb.example_inputs(UNET_BATCH, 2048, seed=7, mask=mask), dev, torch.bfloat16)
+    before = fb.launches
+    block_bound, block_by = block_bound_ms(args, args[0].numel() * 2)
+    block_ms = cuda_ms(lambda: fb.fused_block(*args, 0.25), 20)
+    block_plain_ms = cuda_ms(lambda: fb.fused_block_reference(*args, 0.25), 3)
+    fb.launches = before
+    print(f"fused_block B={UNET_BATCH} N=2048: {block_ms:.3f} ms, bound {block_bound:.3f} ms "
+          f"({block_by}), {100 * block_bound / block_ms:.1f}% of roofline; plain version "
+          f"{block_plain_ms:.3f} ms; 5 launches are {100 * 5 * block_ms / unet_ms:.1f}% of the "
+          f"UNet forward")
+    del args
+    print(f"phase 8: {time.perf_counter() - t_phase:.1f} s")
 
     print(card)
     print(json.dumps({"kernels": [trunk, {
@@ -866,6 +1101,18 @@ def main():
         "bound_by": bounds["bwd"][1], "library_ms": None,
         "train_step_ms": step_ms, "train_step_host_ms": host_ms,
         "train_shapes_per_s": 1e3 * TRAIN_BATCH / step_ms, "train_peak_gib": train_peak_gib,
+    }, {
+        "name": "fused_block", "route": "cuda", "source": "difffacto_torch/csrc/fused_core.cu",
+        "replaces": "difffacto_tpu/ops/fused_block.py:24", "launches": unet_launches,
+        "max_abs_err": block_err, "ms": block_ms, "plain_ms": block_plain_ms,
+        "bound_ms": block_bound, "bound_by": block_by, "library_ms": None,
+        "unet_forward_ms": unet_ms,
+    }, {
+        "name": "fused_ff", "route": "cuda", "source": "difffacto_torch/csrc/fused_ff.cu",
+        "replaces": "difffacto_tpu/ops/fused_ff.py:26", "launches": two_counts["fused_ff"],
+        "max_abs_err": ff_err, "ms": ff_ms, "plain_ms": ff_plain_ms, "bound_ms": ff_bound,
+        "bound_by": ff_by, "library_ms": None, "ms_at_t1024_d256": ff_ms_256,
+        "two_attn_shapes_per_s": TWO_ATTN_BATCH_TIMED / two_dt, "two_attn_peak_gib": two_peak,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,6 +11,10 @@ the Sinkhorn+auction EMD assignment (``csrc/emd_hybrid.cu``) as CUDA kernels.
 Slice 3 is the training step (``parallel/``: ``build_optimizer_from_cfg``,
 ``init_train_state``, ``make_train_step``) with the denoiser's training trunk
 as a forward and a backward CUDA kernel (``csrc/fused_core_train.cu``).
+Slice 4 is generation with two-attention blocks (``single_attn=False``),
+whose fused LayerNorm -> GEGLU feed-forward is a CUDA kernel
+(``csrc/fused_ff.cu``), and the ``UNet`` denoiser's forward, whose flat
+blocks run one block per launch (a second entry point of ``fused_core.cu``).
 The package imports torch, numpy, scipy and yaml, never JAX or the JAX
 package. Entry points run on the card (``device="cuda"``) unless the caller
 asks for the CPU.

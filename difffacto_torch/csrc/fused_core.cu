@@ -34,6 +34,15 @@
 // ((depth, B, 4, 128), computed outside) are staged per block. Shared memory
 // is ~189 KB, so one block runs per SM.
 //
+// A second entry point, difffacto_fused_block, runs one block alone from the
+// same code with proj_in and the pre- and post-LN compiled out: x (B, N, 128)
+// bf16 in, the block's residual stream out. It replaces the TPU kernel
+// difffacto_tpu/ops/fused_block.py:_block_kernel (the flat single-attention
+// block with a context, difffacto_tpu/nn/attention.py:271), whose arithmetic
+// is this kernel's per-block body. Its bound: 14 D^2 + 1024 MACs per token,
+// 2.41e11 FLOP at B=256, N=2048 (0.24 ms), against ~1.5 MB of weights and 4
+// bytes a token and channel of x in and out (0.16 ms): compute-bound.
+//
 // First thing a later change should fix: one block's weights are 0.46 MB
 // (2.29 MB for five), so they cannot stay resident as they do in the TPU's
 // VMEM, and every thread block re-reads all 2.29 MB from L2 -- at B=256,
@@ -242,6 +251,9 @@ __device__ __forceinline__ void residual_add(bf16* x, const float* C, const floa
   }
 }
 
+// TRUNK: the whole trunk (proj_in, pre-LN, depth blocks, post-LN). Otherwise
+// one block on x (B, N, D) as it is, its residual stream stored.
+template <bool TRUNK>
 __global__ void __launch_bounds__(THREADS, 1) fused_core_kernel(const Args a) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* xs = reinterpret_cast<bf16*>(smem + OFF_X);
@@ -255,27 +267,37 @@ __global__ void __launch_bounds__(THREADS, 1) fused_core_kernel(const Args a) {
   float* mask = reinterpret_cast<float*>(smem + OFF_MASK);
 
   const int b = blockIdx.y, n0 = blockIdx.x * TILE, tid = threadIdx.x;
-  const int in_ch = a.in_ch;
-
-  // ---- proj_in: stage the raw input tile and the 13 x 128 kernel in f32
-  float* xin = f0;                  // (TILE, MAX_IN)
-  float* pw = f0 + TILE * MAX_IN;   // (MAX_IN, D)
-  for (int i = tid; i < TILE * in_ch; i += THREADS) {
-    const int t = i / in_ch, c = i - t * in_ch, n = n0 + t;
-    xin[t * MAX_IN + c] =
-        n < a.N ? __bfloat162float(a.x[((size_t)b * a.N + n) * in_ch + c]) : 0.0f;
-  }
-  for (int i = tid; i < in_ch * D; i += THREADS) pw[i] = __bfloat162float(a.pin_w[i]);
   if (tid < CTX) mask[tid] = a.mask[b * CTX + tid];
-  __syncthreads();
-  for (int i = tid; i < TILE * D; i += THREADS) {
-    const int t = i >> 7, c = i & (D - 1);
-    float acc = 0.0f;
-    for (int j = 0; j < in_ch; ++j) acc += xin[t * MAX_IN + j] * pw[j * D + c];
-    xs[t * LDB + c] = __float2bfloat16(acc + a.pin_b[c]);
+
+  if constexpr (TRUNK) {
+    // ---- proj_in: stage the raw input tile and the 13 x 128 kernel in f32
+    const int in_ch = a.in_ch;
+    float* xin = f0;                  // (TILE, MAX_IN)
+    float* pw = f0 + TILE * MAX_IN;   // (MAX_IN, D)
+    for (int i = tid; i < TILE * in_ch; i += THREADS) {
+      const int t = i / in_ch, c = i - t * in_ch, n = n0 + t;
+      xin[t * MAX_IN + c] =
+          n < a.N ? __bfloat162float(a.x[((size_t)b * a.N + n) * in_ch + c]) : 0.0f;
+    }
+    for (int i = tid; i < in_ch * D; i += THREADS) pw[i] = __bfloat162float(a.pin_w[i]);
+    __syncthreads();
+    for (int i = tid; i < TILE * D; i += THREADS) {
+      const int t = i >> 7, c = i & (D - 1);
+      float acc = 0.0f;
+      for (int j = 0; j < in_ch; ++j) acc += xin[t * MAX_IN + j] * pw[j * D + c];
+      xs[t * LDB + c] = __float2bfloat16(acc + a.pin_b[c]);
+    }
+    __syncthreads();
+    layer_norm(xs, xs, a.pre_scale, a.pre_bias);
+  } else {
+    // ---- the block's input tile as it is, zero past the last token
+    for (int i = tid; i < TILE * (D / 8); i += THREADS) {
+      const int t = i >> 4, c = i & 15, n = n0 + t;
+      uint4 val = make_uint4(0u, 0u, 0u, 0u);
+      if (n < a.N) val = reinterpret_cast<const uint4*>(a.x + ((size_t)b * a.N + n) * D)[c];
+      reinterpret_cast<uint4*>(xs + t * LDB)[c] = val;
+    }
   }
-  __syncthreads();
-  layer_norm(xs, xs, a.pre_scale, a.pre_bias);
   __syncthreads();
 
   for (int i = 0; i < a.depth; ++i) {
@@ -331,14 +353,17 @@ __global__ void __launch_bounds__(THREADS, 1) fused_core_kernel(const Args a) {
     __syncthreads();
   }
 
-  // ---- post-LN and the store of the valid rows
-  layer_norm(xs, hs, a.post_scale, a.post_bias);
-  __syncthreads();
+  // ---- post-LN (the trunk only) and the store of the valid rows
+  if constexpr (TRUNK) {
+    layer_norm(xs, hs, a.post_scale, a.post_bias);
+    __syncthreads();
+  }
+  const bf16* res = TRUNK ? hs : xs;
   for (int i = tid; i < TILE * (D / 8); i += THREADS) {
     const int t = i >> 4, c = i & 15, n = n0 + t;
     if (n < a.N)
       reinterpret_cast<uint4*>(a.out + ((size_t)b * a.N + n) * D)[c] =
-          reinterpret_cast<const uint4*>(hs + t * LDB)[c];
+          reinterpret_cast<const uint4*>(res + t * LDB)[c];
   }
 }
 
@@ -354,7 +379,7 @@ extern "C" int difffacto_fused_core(
   if (B < 1 || B > 65535 || N < 1 || in_ch < 1 || in_ch > MAX_IN || depth < 1)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      fused_core_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+      fused_core_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
   Args a;
   a.x = (const bf16*)x; a.pin_w = (const bf16*)pin_w; a.pin_b = (const float*)pin_b;
@@ -368,7 +393,31 @@ extern "C" int difffacto_fused_core(
   a.b2 = (const float*)b2; a.out = (bf16*)out;
   a.B = B; a.N = N; a.in_ch = in_ch; a.depth = depth; a.scale = scale;
   dim3 grid((N + TILE - 1) / TILE, B);
-  fused_core_kernel<<<grid, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(a);
+  fused_core_kernel<true><<<grid, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// One block: x, out (B, N, 128) bf16; k, v (B, 4, 128) bf16; mask (B, 4) f32.
+extern "C" int difffacto_fused_block(
+    const void* x, const void* k, const void* v, const void* mask, const void* n2_scale,
+    const void* n2_bias, const void* wq, const void* wout, const void* bout,
+    const void* ff_scale, const void* ff_bias, const void* w1, const void* b1, const void* w2,
+    const void* b2, void* out, int B, int N, float scale, void* stream) {
+  if (B < 1 || B > 65535 || N < 1) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_core_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  Args a = {};
+  a.x = (const bf16*)x; a.k = (const bf16*)k; a.v = (const bf16*)v;
+  a.mask = (const float*)mask;
+  a.n2_scale = (const bf16*)n2_scale; a.n2_bias = (const bf16*)n2_bias;
+  a.wq = (const bf16*)wq; a.wout = (const bf16*)wout; a.bout = (const float*)bout;
+  a.ff_scale = (const bf16*)ff_scale; a.ff_bias = (const bf16*)ff_bias;
+  a.w1 = (const bf16*)w1; a.b1 = (const float*)b1; a.w2 = (const bf16*)w2;
+  a.b2 = (const float*)b2; a.out = (bf16*)out;
+  a.B = B; a.N = N; a.depth = 1; a.scale = scale;
+  dim3 grid((N + TILE - 1) / TILE, B);
+  fused_core_kernel<false><<<grid, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 

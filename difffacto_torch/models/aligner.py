@@ -3,7 +3,9 @@
 Port of ``difffacto_tpu/models/aligner.py:PartAlignerTransformer`` for the
 shipped configs, generation and training: CIMLE noise of type 0 (scaled and
 concatenated to every part token) and the class embedding added after
-``proj_in``. The other noise types raise ``NotImplementedError``.
+``proj_in``. The other noise types raise ``NotImplementedError``. With
+``single_attn=False`` the blocks are ``TwoAttentionBlock``s, for generation
+only.
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ..nn.attention import BasicTransformerBlock
+from ..nn.attention import BasicTransformerBlock, TwoAttentionBlock
 from ..nn.layers import Dense, LayerNorm, default_generator, param
 from ..utils.device import resolve_device
 from ..utils.registry import ENCODERS
@@ -32,8 +34,6 @@ class PartAlignerTransformer(nn.Module):
                  *, dtype=None, device="cuda", generator=None):
         super().__init__()
         device = resolve_device(device)
-        if not single_attn:
-            raise NotImplementedError("the aligner is ported for single_attn=True only")
         if cimle and cond_noise_type != 0:
             raise NotImplementedError(
                 f"aligner cond_noise_type={cond_noise_type} is not ported yet (only 0)"
@@ -55,6 +55,8 @@ class PartAlignerTransformer(nn.Module):
         self.pre_norm = LayerNorm(inner, **kw)
         self.blocks = nn.ModuleList(
             BasicTransformerBlock(inner, n_heads, d_head, dropout=dropout, generator=g, **kw)
+            if single_attn
+            else TwoAttentionBlock(inner, n_heads, d_head, generator=g, **kw)
             for _ in range(depth)
         )
         self.post_norm = LayerNorm(inner, **kw)
@@ -86,6 +88,6 @@ class PartAlignerTransformer(nn.Module):
         if not self.cimle:
             h = self.pre_norm(h)
         for blk in self.blocks:
-            h = blk(h, mask, train, generator)
+            h = blk(h, mask=mask, train=train, generator=generator)
         h = self.proj_out(self.post_norm(h))
         return h[..., :3], h[..., 3:6]

@@ -1,7 +1,7 @@
 """Shared layers, channel-last, with the JAX package's parameter layout.
 
-Port of the pieces of ``difffacto_tpu/nn/layers.py`` that generation and the
-training step use.
+Port of the pieces of ``difffacto_tpu/nn/layers.py`` that generation, the
+training step and the UNet denoiser use.
 Parameters keep flax's names and layout (a dense kernel is (in, out)) so the
 weight bridge (``utils/jax_params.py``) is a renaming, not a rewrite.
 
@@ -17,8 +17,10 @@ import math
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 from torch import nn
+
+from ..ops.fused_ff import fused_ln_geglu_ff, pick_tile
+from .functional import gelu, ln_stats_f32
 
 _TRUNC_STD = 0.87962566103423978  # std of a standard normal truncated to [-2, 2]
 
@@ -72,31 +74,12 @@ def timestep_embedding(timesteps: torch.Tensor, dim: int, max_period: float = 10
     return emb
 
 
-def gelu(x: torch.Tensor) -> torch.Tensor:
-    """jax.nn.gelu's default: the tanh approximation."""
-    return F.gelu(x, approximate="tanh")
-
-
-def ln_stats_f32(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """LayerNorm with f32 (or wider) statistics, two-pass biased variance,
-    result in the statistics' dtype."""
-    ln_dt = torch.promote_types(torch.float32, x.dtype)
-    xf = x.to(ln_dt)
-    mu = xf.mean(-1, keepdim=True)
-    var = ((xf - mu) ** 2).mean(-1, keepdim=True)
-    return (xf - mu) * torch.rsqrt(var + eps) * scale.to(ln_dt) + bias.to(ln_dt)
-
-
-def ln_affine(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """``difffacto_tpu/nn/layers.py:ln_affine``: eps 1e-5, output in x.dtype."""
-    return ln_stats_f32(x, scale, bias, eps).to(x.dtype)
-
-
 class Dense(nn.Module):
-    """flax ``nn.Dense``: ``x @ kernel + bias`` with kernel (in, out)."""
+    """flax ``nn.Dense``: ``x @ kernel + bias`` with kernel (in, out); no bias
+    with ``use_bias=False``."""
 
     def __init__(self, in_features: int, out_features: int, *, zero_kernel: bool = False,
-                 dtype=None, device="cuda", generator=None):
+                 use_bias: bool = True, dtype=None, device="cuda", generator=None):
         super().__init__()
         self.dtype = dtype
         g = default_generator(generator)
@@ -106,11 +89,12 @@ class Dense(nn.Module):
             else lecun_normal((in_features, out_features), g)
         )
         self.kernel = param(kernel, device)
-        self.bias = param(torch.zeros(out_features), device)
+        self.bias = param(torch.zeros(out_features), device) if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype or torch.promote_types(x.dtype, self.kernel.dtype)
-        return torch.matmul(x.to(dt), self.kernel.to(dt)) + self.bias.to(dt)
+        y = torch.matmul(x.to(dt), self.kernel.to(dt))
+        return y if self.bias is None else y + self.bias.to(dt)
 
 
 class LayerNorm(nn.Module):
@@ -131,6 +115,31 @@ class LayerNorm(nn.Module):
         var = torch.clamp((xf * xf).mean(-1, keepdim=True) - mu * mu, min=0.0)
         y = (xf - mu) * (torch.rsqrt(var + 1e-5) * self.scale.to(st)) + self.bias.to(st)
         return y.to(self.dtype or torch.promote_types(x.dtype, self.scale.dtype))
+
+
+class GroupNorm(nn.Module):
+    """flax ``nn.GroupNorm`` without a dtype, over x (B, ..., C): per batch row
+    and group of C / num_groups channels, f32 statistics over every other axis
+    with flax's fast variance E[x^2] - E[x]^2 clipped at 0; result in the
+    input's dtype promoted with the f32 parameters."""
+
+    def __init__(self, num_groups: int, channels: int, eps: float = 1e-6, *, device="cuda"):
+        super().__init__()
+        if channels % num_groups:
+            raise ValueError(f"{num_groups} groups do not divide {channels} channels")
+        self.num_groups, self.eps = num_groups, eps
+        self.scale = param(torch.ones(channels), device)
+        self.bias = param(torch.zeros(channels), device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        st = torch.promote_types(x.dtype, torch.float32)
+        B, C = x.shape[0], x.shape[-1]
+        grouped = (self.num_groups, C // self.num_groups)
+        xf = x.to(st).reshape(B, -1, *grouped)
+        mu = xf.mean((1, 3), keepdim=True)
+        var = torch.clamp((xf * xf).mean((1, 3), keepdim=True) - mu * mu, min=0.0)
+        mul = torch.rsqrt(var + self.eps) * self.scale.to(st).reshape(grouped)
+        return ((xf - mu) * mul + self.bias.to(st).reshape(grouped)).reshape(x.shape)
 
 
 class GEGLU(nn.Module):
@@ -159,6 +168,45 @@ class FeedForward(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False, generator=None) -> torch.Tensor:
         return self.dense0(dropout(self.geglu(x), self.dropout, train, generator))
+
+
+class FusedLNFF(nn.Module):
+    """Pre-LN GEGLU feed-forward with residual, ``x + FF(LN(x))``
+    (``difffacto_tpu/nn/layers.py:94-170``), parameters flat: ``ln_scale``,
+    ``ln_bias``, ``w1`` (D, 8 D), ``b1``, ``w2`` (4 D, D), ``b2``.
+
+    As in the JAX package, x (B, N, D) with 128 dividing D and
+    ``pick_tile(B N)`` not 0 goes through ``ops/fused_ff.fused_ln_geglu_ff``
+    (the kernel on the card, its plain version on the CPU); any other input
+    through the unfused composition, whose GEGLU runs in the compute dtype.
+    Deterministic only: the JAX package trains it unfused, with dropout.
+    """
+
+    def __init__(self, dim: int, mult: int = 4, *, dtype=None, device="cuda", generator=None):
+        super().__init__()
+        g = default_generator(generator)
+        self.dtype = dtype
+        inner = dim * mult
+        self.ln_scale = param(torch.ones(dim), device)
+        self.ln_bias = param(torch.zeros(dim), device)
+        self.w1 = param(lecun_normal((dim, 2 * inner), g), device)
+        self.b1 = param(torch.zeros(2 * inner), device)
+        self.w2 = param(lecun_normal((inner, dim), g), device)
+        self.b2 = param(torch.zeros(dim), device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cdt = self.dtype or x.dtype
+        D = x.shape[-1]
+        if x.ndim == 3 and D % 128 == 0 and pick_tile(x.shape[0] * x.shape[1]):
+            out = fused_ln_geglu_ff(
+                x.reshape(-1, D).to(cdt).contiguous(), self.ln_scale.to(cdt),
+                self.ln_bias.to(cdt), self.w1.to(cdt), self.b1.float(), self.w2.to(cdt),
+                self.b2.float())
+            return out.reshape(x.shape).to(x.dtype)
+        h = ln_stats_f32(x.float(), self.ln_scale, self.ln_bias).to(cdt)
+        a, g = (h @ self.w1.to(cdt) + self.b1.to(cdt)).chunk(2, dim=-1)
+        out = (a * gelu(g)) @ self.w2.to(cdt) + self.b2.to(cdt)
+        return x + out.to(x.dtype)
 
 
 class TorchBatchNorm(nn.Module):

@@ -81,3 +81,29 @@ def load(name: str) -> ctypes.CDLL:
         build([name])
         lib = _libs[name] = ctypes.CDLL(str(library_path(name)))
     return lib
+
+
+def check_operands(kernel: str, specs, tensors) -> None:
+    """Raise unless each tensor lies on the card of the first, with the
+    (name, shape, dtype) of its spec, contiguous and 16-byte aligned: what a
+    kernel takes through a raw pointer."""
+    device = tensors[0].device
+    for (name, shape, dtype), t in zip(specs, tensors):
+        if t.device.type != "cuda":
+            raise ValueError(f"{kernel}: {name} is on {t.device}, not on the card")
+        if t.device != device:
+            raise ValueError(f"{kernel}: operands must share one device")
+        if t.dtype != dtype:
+            raise TypeError(f"{kernel}: {name} is {t.dtype}, the kernel takes {dtype}")
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{kernel}: {name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{kernel}: {name} must be contiguous and 16-byte aligned")
+
+
+def check_launch(lib: ctypes.CDLL, kernel: str, rc: int) -> None:
+    """Raise if the C entry point returned a CUDA error code."""
+    if rc != 0:
+        raise RuntimeError(
+            f"{kernel} kernel launch failed: {lib.difffacto_cuda_error_string(rc).decode()}"
+        )

@@ -17,11 +17,10 @@ import ctypes
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
-from ..nn.attention import small_ctx_attention
-from ..nn.layers import ln_affine
+from ..nn.functional import ln_affine
 from . import _build
+from .fused_block import fused_block_reference
 
 # The kernel's fixed shapes (csrc/fused_core.cu).
 D, HEADS, CTX, FF, MAX_IN = 128, 8, 4, 512, 16
@@ -39,27 +38,12 @@ def fused_core_reference(x, pin_w, pin_b, k, v, mask, pre_scale, pre_bias, post_
     product accumulates in f32 and LayerNorm statistics are f32; results
     round to x's dtype where the Pallas kernel rounds. Returns (B, N, D).
     """
-    dt = x.dtype
-    B, N = x.shape[:2]
-    depth, _, M, Dm = k.shape
-    dh = Dm // HEADS
-    f = lambda a: a.float()
-
-    h = (f(x) @ f(pin_w) + f(pin_b)).to(dt)
+    h = (x.float() @ pin_w.float() + pin_b.float()).to(x.dtype)
     h = ln_affine(h, pre_scale, pre_bias)
-    for i in range(depth):
-        a = ln_affine(h, n2_scale[i], n2_bias[i])
-        q = (f(a) @ f(wq[i])).to(dt).reshape(B, N, HEADS, dh)
-        attn = small_ctx_attention(
-            q, k[i].reshape(B, M, HEADS, dh), v[i].reshape(B, M, HEADS, dh), mask, scale
-        ).reshape(B, N, Dm)
-        o = (f(attn) @ f(wout[i]) + f(bout[i])).to(dt)
-        h = (f(h) + f(o)).to(dt)
-        a = ln_affine(h, ff_scale[i], ff_bias[i])
-        u, g = (f(a) @ f(w1[i]) + f(b1[i])).chunk(2, dim=-1)
-        act = (u * F.gelu(g, approximate="tanh")).to(dt)
-        o = (f(act) @ f(w2[i]) + f(b2[i])).to(dt)
-        h = (f(h) + f(o)).to(dt)
+    for i in range(k.shape[0]):
+        h = fused_block_reference(h, k[i], v[i], mask, n2_scale[i], n2_bias[i], wq[i], wout[i],
+                                  bout[i], ff_scale[i], ff_bias[i], w1[i], b1[i], w2[i], b2[i],
+                                  scale, HEADS)
     return ln_affine(h, post_scale, post_bias)
 
 
@@ -94,17 +78,6 @@ def operands(inputs, device="cpu", dtype=torch.float32):
     ]
 
 
-def _check(name, t, shape, dtype):
-    if t.device.type != "cuda":
-        raise ValueError(f"fused_core: {name} is on {t.device}, not on the card")
-    if t.dtype != dtype:
-        raise TypeError(f"fused_core: {name} is {t.dtype}, the kernel takes {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"fused_core: {name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
-    if not t.is_contiguous() or t.data_ptr() % 16:
-        raise ValueError(f"fused_core: {name} must be contiguous and 16-byte aligned")
-
-
 def fused_core(x, pin_w, pin_b, k, v, mask, pre_scale, pre_bias, post_scale, post_bias,
                n2_scale, n2_bias, wq, wout, bout, ff_scale, ff_bias, w1, b1, w2, b2,
                scale: float) -> torch.Tensor:
@@ -134,10 +107,7 @@ def fused_core(x, pin_w, pin_b, k, v, mask, pre_scale, pre_bias, post_scale, pos
         ("w1", (depth, D, 2 * FF), bf), ("b1", (depth, 2 * FF), f32),
         ("w2", (depth, FF, D), bf), ("b2", (depth, D), f32),
     )
-    for (name, shape, dtype), t in zip(shapes, args):
-        _check(name, t, shape, dtype)
-    if any(t.device != x.device for t in args):
-        raise ValueError("fused_core: operands must share one device")
+    _build.check_operands("fused_core", shapes, args)
     lib = _library()
     out = torch.empty((B, N, D), dtype=bf, device=x.device)
     with torch.cuda.device(x.device):
@@ -145,10 +115,7 @@ def fused_core(x, pin_w, pin_b, k, v, mask, pre_scale, pre_bias, post_scale, pos
         rc = lib.difffacto_fused_core(
             *(t.data_ptr() for t in args), out.data_ptr(), B, N, in_ch, depth, float(scale), stream
         )
-    if rc != 0:
-        raise RuntimeError(
-            f"fused_core kernel launch failed: {lib.difffacto_cuda_error_string(rc).decode()}"
-        )
+    _build.check_launch(lib, "fused_core", rc)
     launches += 1
     return out
 

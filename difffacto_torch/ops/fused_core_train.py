@@ -29,7 +29,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..nn.layers import ln_affine
+from ..nn.functional import ln_affine
 from . import _build
 from .fused_core import CTX, D, FF, HEADS
 
@@ -109,7 +109,7 @@ def fused_trunk_train_reference(seed, x, k, v, mask, pre_scale, pre_bias, post_s
     for i in range(depth):
         a = ln_affine(h, c(n2_scale[i]), c(n2_bias[i]))
         q = (f(a) @ f(c(wq[i]))).to(dt).reshape(B, N, HEADS, dh)
-        # attention to the M context tokens as nn/attention.py:small_ctx_attention does it
+        # attention to the M context tokens as nn/functional.py:small_ctx_attention does it
         # (one max-shift per token, weights and the weighted sum rounded), in f's precision
         ki, vi = f(c(k[i])).reshape(B, M, HEADS, dh), f(c(v[i])).reshape(B, M, HEADS, dh)
         m = f(mask)[:, None, None, :]

@@ -9,6 +9,9 @@ the mapping is a renaming:
 * ``block_{i}`` -> ``blocks.{i}``, ``chain_{j}`` -> ``chain.{j}``,
   ``Dense_{k}`` -> ``dense{k}``, ``GEGLU_0`` -> ``geglu``,
   ``TorchBatchNorm_{k}/BatchNorm_0`` -> ``bn{k}``, ``LayerNorm_{k}`` -> ``ln{k}``;
+* UNet's ``GroupNorm_0`` -> ``group_norm``, ``emb_{i}`` -> ``emb.{i}``,
+  ``ln_{i}`` -> ``ln.{i}``, ``prior_block_{i}`` -> ``prior_blocks.{i}``,
+  ``lang_block_{i}`` -> ``lang_blocks.{i}``;
 * the per-part flow parameters come stacked on a leading part axis
   (``flow/flows/chain_{j}/Dense_{k}/kernel`` is (4, in, out)) and split into
   ``flow.flows.{p}``; the per-part PointNetV2 heads stay stacked, as the port
@@ -36,6 +39,9 @@ _RENAMES = (
     (re.compile(r"^GEGLU_0$"), "geglu"),
     (re.compile(r"^TorchBatchNorm_(\d+)$"), r"bn\1"),
     (re.compile(r"^LayerNorm_(\d+)$"), r"ln\1"),
+    (re.compile(r"^GroupNorm_0$"), "group_norm"),
+    (re.compile(r"^(emb|ln)_(\d+)$"), r"\1.\2"),
+    (re.compile(r"^(prior|lang)_block_(\d+)$"), r"\1_blocks.\2"),
 )
 
 

@@ -11,8 +11,10 @@ import torch
 
 from difffacto_torch.ops import emd_hybrid as eh
 from difffacto_torch.ops import fps as fps_mod
+from difffacto_torch.ops import fused_block as fb
 from difffacto_torch.ops import fused_core as fc
 from difffacto_torch.ops import fused_core_train as fct
+from difffacto_torch.ops import fused_ff as ff
 
 torch.set_num_threads(1)
 
@@ -228,3 +230,64 @@ def test_fused_trunk_train_refuses_float32_activations(cuda):
     rest = [torch.as_tensor(inp["mask"]).to(cuda)] + [torch.as_tensor(a).to(cuda) for a in par.values()]
     with pytest.raises(TypeError):
         fct.fused_trunk_train(0, x, k, v, *rest, DH**-0.5, 0.0)
+
+
+def _ff_operands(D, T, device, seed=0):
+    """fused_ff's operands: bf16, the biases b1 and b2 f32."""
+    return fc.operands(ff.example_inputs(T, D, seed), device, torch.bfloat16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D, T", [(128, 16 * 2048), (256, 1024), (256, 384), (128, 100)])
+def test_fused_ff_matches_plain_version(cuda, D, T):
+    """The denoiser's shape at batch 16, the aligner's at batch 256, a
+    smaller aligner T, and a T that is not a multiple of the 64-token tile."""
+    args = _ff_operands(D, T, cuda, seed=T)
+    before = ff.launches
+    got = ff.fused_ln_geglu_ff(*args)
+    torch.cuda.synchronize()
+    assert ff.launches == before + 1
+    want = ff.fused_ln_geglu_ff_reference(*args)
+    assert got.shape == want.shape == (T, D) and torch.isfinite(got.float()).all()
+    err = (got.float() - want.float()).abs()
+    print(f"fused_ff D={D} T={T}: max abs err {err.max().item():.3e}, mean {err.mean().item():.3e}")
+    assert err.max().item() <= BF16_MAX_ABS and err.mean().item() <= BF16_MEAN_ABS
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B, N", [(16, 2048), (2, 384), (2, 1000)])
+def test_fused_block_matches_plain_version(cuda, B, N):
+    """UNet's block at batch 16 x 2048 points, an N that pick_tile takes
+    (384) and a ragged N; parts absent in some rows."""
+    mask = np.ones((B, fb.CTX), np.float32)
+    mask[1, 1] = mask[B - 1, 3] = 0.0
+    args = fc.operands(fb.example_inputs(B, N, seed=N, mask=mask), cuda, torch.bfloat16)
+    before = fb.launches
+    got = fb.fused_block(*args, DH**-0.5)
+    torch.cuda.synchronize()
+    assert fb.launches == before + 1
+    want = fb.fused_block_reference(*args, DH**-0.5)
+    assert got.shape == want.shape == (B, N, fb.D) and torch.isfinite(got.float()).all()
+    err = (got.float() - want.float()).abs()
+    print(f"fused_block B={B} N={N}: max abs err {err.max().item():.3e}, mean {err.mean().item():.3e}")
+    assert err.max().item() <= BF16_MAX_ABS and err.mean().item() <= BF16_MEAN_ABS
+
+
+@pytest.mark.gpu
+def test_fused_ff_and_block_refuse_wrong_operands(cuda):
+    """float32 activations, a weight left on the CPU and an unported width
+    raise before any launch."""
+    args = _ff_operands(128, 256, cuda)
+    with pytest.raises(TypeError):
+        ff.fused_ln_geglu_ff(args[0].float(), *args[1:])
+    with pytest.raises(ValueError, match="not on the card"):
+        ff.fused_ln_geglu_ff(*args[:3], args[3].cpu(), *args[4:])
+    with pytest.raises(NotImplementedError):
+        ff.fused_ln_geglu_ff(*_ff_operands(64, 256, cuda))
+    block = fc.operands(fb.example_inputs(2, 256), cuda, torch.bfloat16)
+    with pytest.raises(ValueError, match="not on the card"):
+        fb.fused_block(*block[:6], block[6].cpu(), *block[7:], DH**-0.5)
+    with pytest.raises(NotImplementedError):
+        fb.fused_block(block[0], block[1][:, :3], block[2][:, :3], block[3][:, :3], *block[4:],
+                       DH**-0.5)
+
