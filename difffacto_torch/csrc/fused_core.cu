@@ -40,8 +40,8 @@
 // difffacto_tpu/ops/fused_block.py:_block_kernel (the flat single-attention
 // block with a context, difffacto_tpu/nn/attention.py:271), whose arithmetic
 // is this kernel's per-block body. Its bound: 14 D^2 + 1024 MACs per token,
-// 2.41e11 FLOP at B=256, N=2048 (0.24 ms), against ~1.5 MB of weights and 4
-// bytes a token and channel of x in and out (0.16 ms): compute-bound.
+// 2.41e11 FLOP at B=256, N=2048 (0.24 ms), against 0.46 MB of weights and 4
+// bytes a token and channel of x in and out (0.08 ms): compute-bound.
 //
 // First thing a later change should fix: one block's weights are 0.46 MB
 // (2.29 MB for five), so they cannot stay resident as they do in the TPU's
