@@ -10,10 +10,14 @@ Phases, each fatal (non-zero exit, no "ok" line):
 
 1. device: a CUDA card is required; prints its name and power limit.
 2. build: builds every CUDA source of the four paths (one nvcc each, started
-   together) and prints the build time and ``-Xptxas -v``.
+   together) and prints nvcc's and ptxas's versions, the build time and
+   ``-Xptxas -v``, and the counts of
+   wgmma (HGMMA) and TMA or bulk-copy (UTMALDG, UBLKCP) instructions in the
+   trunk's binary (``cuobjdump -sass``): none of either fails.
 3. kernels: each kernel against its plain PyTorch version, with the stated
    tolerance, at the main paths' shapes and at ragged ones: the trunk in
-   bf16, the training trunk's forward and its backward (dx, dK, dV and the 15
+   bf16 (also at the timed B = 256, N = 2048 with parts absent: 4096 tiles,
+   31 or 32 for each block of the persistent grid), the training trunk's forward and its backward (dx, dK, dV and the 15
    parameter gradients) at p = 0 and p = 0.2, FPS index for index, the EMD
    assignment by its matched cost, the fused LN-GEGLU FF at the denoiser's
    (T = 256 x 2048, D = 128) and the aligner's (T = 1024, D = 256) shapes and
@@ -28,7 +32,12 @@ Phases, each fatal (non-zero exit, no "ok" line):
    CPU, where the trunk is the plain version.
 5. timing: generation at batch 256 (1 warm-up, 3 timed runs), the trunk
    kernel and its plain version with CUDA events at the main path's shape,
-   and the bound.
+   the bound; the host-side schedule's tiles for each block and a model (not
+   a measurement) of the weight bytes a launch streams from L2; then the
+   device's busy and idle share over one generation at batch 16 and one at
+   batch 256: busy from ``torch.profiler`` tracing the card alone, against
+   the wall time of an unprofiled run of the same generation (no device time
+   in the trace fails).
 6. eval protocol, full width: 64 generated gen_chair shapes against 64
    seeded reference clouds of 8192 points (the gen_car val shape) through
    ``evaluate_gen``: FPS 8192 -> 2048, bbox-normalize, MMD/COV/1-NNA over CD
@@ -166,6 +175,33 @@ def trunk_bound_ms(args, out_bytes, in_ch, depth):
     t_ops = 2.0 * B * N * macs / PEAK_BF16_FLOPS * 1e3
     t_bytes = (sum(a.numel() * a.element_size() for a in args) + out_bytes) / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def device_busy(fn):
+    """(wall ms, device-busy ms) of fn(): the wall time of one unprofiled run,
+    and the union of the device intervals (kernels, copies) that
+    ``torch.profiler``, tracing the card alone, records over a second run of
+    the same work."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    if busy <= 0:
+        fail("torch.profiler traced no device time")
+    return wall, busy / 1e3
 
 
 def trunk_train_bound_ms(ops, B, N, depth, out_bytes):
@@ -375,6 +411,10 @@ def main():
     from difffacto_torch.ops import fused_core_train as fct
     from difffacto_torch.ops import fused_ff as ff
 
+    for tool in ("nvcc", "ptxas"):
+        version = subprocess.run([os.path.join(os.path.dirname(_build.nvcc()), tool), "--version"],
+                                 capture_output=True, text=True, timeout=60).stdout.strip()
+        print(f"{tool}: {version.splitlines()[-1] if version else 'no version'}")
     t0 = time.perf_counter()
     logs = _build.build(["fused_core", "fused_core_train", "fps", "emd_hybrid", "fused_ff"])
     print(f"built {sorted(logs)} in {time.perf_counter() - t0:.1f} s")
@@ -383,20 +423,34 @@ def main():
             if "Used" in line or "spill" in line or "smem" in line:
                 print(f"  {name}: {line.strip()}")
     print(f"  fused_core: {fc.smem_bytes()} bytes of dynamic shared memory per block")
+    sass = subprocess.run([os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump"), "-sass",
+                           str(_build.library_path("fused_core"))],
+                          capture_output=True, text=True, timeout=300).stdout
+    ops = {op: sass.count(op) for op in ("HGMMA", "UTMALDG", "UBLKCP")}
+    print(f"  fused_core SASS: {ops}")
+    if ops["HGMMA"] == 0 or ops["UTMALDG"] + ops["UBLKCP"] == 0:
+        fail("the trunk's binary holds no wgmma or no TMA/bulk copy")
     print(f"  fused_core_train: {fct.smem_bytes()} bytes (forward, backward)")
     print(f"  fused_ff: {ff.smem_bytes(128)} bytes at D = 128, {ff.smem_bytes(256)} at D = 256")
 
     phase("3 kernels against their plain versions")
     max_err = 0.0
     # Parts absent in some rows, a ragged N, and the batch-16 shape of phase 4.
+    # Then the timed shape with parts absent: 4096 tiles, 31 or 32 per block.
+    timed_mask = np.ones((BATCH_TIMED, 4), np.float32)
+    timed_mask[1, 1] = timed_mask[5, 0] = timed_mask[200, 2] = timed_mask[BATCH_TIMED - 1, 3] = 0.0
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for B, N, mask in ((4, 2048, [[1, 1, 1, 1], [1, 0, 1, 1], [1, 1, 1, 1], [0, 1, 1, 1]]),
                        (2, 1000, [[1, 1, 0, 1], [1, 1, 1, 1]]),
-                       (BATCH_CHECK, 2048, None)):
+                       (BATCH_CHECK, 2048, None), (BATCH_TIMED, 2048, timed_mask)):
         args = fc.operands(fc.example_inputs(B, N, depth=5, seed=B, mask=mask), dev, torch.bfloat16)
+        sched = fc.schedule(B, N, sms)
         got = fc.fused_core(*args, 0.25)
         torch.cuda.synchronize()
-        max_err = max(max_err, hold_bf16(f"fused_core B={B} N={N}", got,
-                                         fc.fused_core_reference(*args, 0.25)))
+        max_err = max(max_err, hold_bf16(
+            f"fused_core B={B} N={N} ({sched['total_tiles']} tiles, {sched['grid']} blocks)", got,
+            fc.fused_core_reference(*args, 0.25)))
+        del args, got
 
     # The training trunk: forward and every gradient against the plain version
     # at p = 0 and p = 0.2, with absent parts and a ragged N.
@@ -602,11 +656,28 @@ def main():
     print(f"fused_core B={BATCH_TIMED} N=2048: {kernel_ms:.3f} ms, bound {bound_ms:.3f} ms "
           f"({bound_by}), {100 * bound_ms / kernel_ms:.1f}% of roofline; plain version "
           f"{plain_ms:.3f} ms; 100 launches are {share:.1f}% of a batch's generation time")
+    sched = fc.schedule(BATCH_TIMED, 2048, sms)
+    # A model of the weight traffic, not a measurement: every tile streams
+    # every block's weights (bf16) from L2 once.
+    tile_weight_bytes = 5 * (2 * fc.D * fc.D + 3 * fc.D * fc.FF) * 2
+    l2_gb = sched["total_tiles"] * tile_weight_bytes / 1e9
+    print(f"fused_core schedule (host side): {sched['grid']} blocks over {sched['total_tiles']} "
+          f"tiles, at most {sched['tiles_per_block']} a block; modelled weight traffic from L2 "
+          f"(not measured) {l2_gb:.3f} GB per launch, {2 * l2_gb:.3f} GB with 64-token tiles")
+    idle = {}
+    for B in (BATCH_CHECK, BATCH_TIMED):
+        vb = torch.ones(B, 4, device=dev)
+        wall, busy = device_busy(lambda: sample_generation(
+            model, B, valid_id=vb, generator=torch.Generator(device=dev).manual_seed(2)))
+        idle[B] = 1.0 - busy / wall
+        print(f"generation at batch {B}: {wall:.1f} ms unprofiled, device busy {busy:.1f} ms "
+              f"(profiler, card only), idle share {100 * idle[B]:.1f}%")
     trunk = {
         "name": "fused_core", "route": "cuda", "source": "difffacto_torch/csrc/fused_core.cu",
         "replaces": "difffacto_tpu/ops/fused_core.py:33", "launches": launches,
         "max_abs_err": max_err, "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": None,
+        "bound_by": bound_by, "library_ms": None, "gen_shapes_per_s": shapes_per_s, "idle_share_batch16": idle[BATCH_CHECK],
+        "idle_share_batch256": idle[BATCH_TIMED],
     }
 
     phase("6 eval protocol, full width")

@@ -2,8 +2,8 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and compiles alone into
 ``build/kernels/lib<name>-<hash>.so`` at the root of the checkout (a directory
-``.gitignore`` lists); the hash covers the source and the flags, so an edited
-source is rebuilt. ``build`` starts one nvcc per missing library, all at once,
+``.gitignore`` lists); the hash covers the source, every ``csrc/*.cuh`` header
+and the flags, so an edited source or header is rebuilt. ``build`` starts one nvcc per missing library, all at once,
 and keeps what ``-Xptxas -v`` reports (registers, shared memory, spills) in a
 ``.log`` beside each library.
 """
@@ -39,9 +39,11 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(names: Iterable[str]) -> Dict[str, str]:

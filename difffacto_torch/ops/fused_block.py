@@ -2,9 +2,11 @@
 
 Replaces the TPU kernel ``difffacto_tpu/ops/fused_block.py:_block_kernel``
 with the second entry point of ``csrc/fused_core.cu`` (``difffacto_fused_block``,
-see the note there): the trunk kernel's per-block body without proj_in and
-the pre- and post-LN. For every token: LN -> q -> attention to the M context
-tokens -> out-proj + bout -> residual -> LN -> GEGLU FF -> residual.
+see the note there): the persistent trunk kernel's template at depth 1,
+without proj_in and the pre- and post-LN, on the same walk
+(``ops/fused_core.schedule``) and weight ring. For every token: LN -> q ->
+attention to the M context tokens -> out-proj + bout -> residual -> LN ->
+GEGLU FF -> residual.
 
 K and V of the context come in as (B, M, D) and the mask as (B, M), not the
 TPU's block-diagonal layout. ``fused_block`` launches the kernel for CUDA
@@ -94,12 +96,15 @@ def fused_block(x, k, v, mask, n2_scale, n2_bias, wq, wout, bout, ff_scale, ff_b
         ("b1", (2 * FF,), f32), ("w2", (FF, D), bf), ("b2", (D,), f32),
     )
     _build.check_operands("fused_block", specs, args)
+    from .fused_core import launch_schedule  # fused_core imports this module
+
     lib = _library()
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.difffacto_fused_block(
-            *(t.data_ptr() for t in args), out.data_ptr(), B, N, float(scale), stream)
+            *(t.data_ptr() for t in args), out.data_ptr(), B, N, float(scale),
+            *launch_schedule(B, N, x.device), stream)
     _build.check_launch(lib, "fused_block", rc)
     launches += 1
     return out
@@ -109,7 +114,8 @@ def _library() -> ctypes.CDLL:
     lib = _build.load("fused_core")
     fn = lib.difffacto_fused_block
     if not fn.argtypes:
-        fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_void_p]
+        fn.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 2 + [ctypes.c_float]
+                       + [ctypes.c_int] * 2 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         lib.difffacto_cuda_error_string.argtypes = [ctypes.c_int]
         lib.difffacto_cuda_error_string.restype = ctypes.c_char_p

@@ -9,11 +9,16 @@ residual] -> post-LN; proj_out stays outside, as in the JAX default.
 K and V of the context come in as (depth, B, 4, 128), not the TPU's
 block-diagonal layout; the mask is (B, 4). ``fused_core`` launches the kernel
 for CUDA tensors and runs ``fused_core_reference`` for CPU tensors.
+
+The kernel is persistent: ``schedule`` computes its walk over (batch row,
+128-token tile) work items, and the kernel walks the grid and the tiles per
+row it is given.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -24,6 +29,7 @@ from .fused_block import fused_block_reference
 
 # The kernel's fixed shapes (csrc/fused_core.cu).
 D, HEADS, CTX, FF, MAX_IN = 128, 8, 4, 512, 16
+TILE = 128  # tokens per work item
 
 launches = 0  # kernel launches since the caller last set it to 0
 
@@ -78,6 +84,30 @@ def operands(inputs, device="cpu", dtype=torch.float32):
     ]
 
 
+def schedule(B: int, N: int, sms: int) -> dict:
+    """The persistent kernel's walk, which the wrappers pass to it: one thread
+    block per SM, or one per tile where there are fewer tiles. Block ``i``
+    takes tiles i, i + grid, i + 2 grid, ... < total_tiles, and tile t is batch
+    row t // tiles_per_row, tokens from TILE * (t % tiles_per_row)."""
+    tiles_per_row = -(-N // TILE)
+    total = B * tiles_per_row
+    grid = min(sms, total)
+    return dict(grid=grid, tiles_per_row=tiles_per_row, total_tiles=total,
+                tiles_per_block=-(-total // grid))
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def launch_schedule(B: int, N: int, device: torch.device):
+    """(grid, tiles_per_row) of ``schedule`` on ``device``'s card, as the C
+    entry points take them."""
+    s = schedule(B, N, _sms(device.index if device.index is not None else torch.cuda.current_device()))
+    return s["grid"], s["tiles_per_row"]
+
+
 def fused_core(x, pin_w, pin_b, k, v, mask, pre_scale, pre_bias, post_scale, post_bias,
                n2_scale, n2_bias, wq, wout, bout, ff_scale, ff_bias, w1, b1, w2, b2,
                scale: float) -> torch.Tensor:
@@ -95,6 +125,8 @@ def fused_core(x, pin_w, pin_b, k, v, mask, pre_scale, pre_bias, post_scale, pos
     depth = wq.shape[0]
     if not 1 <= in_ch <= MAX_IN:
         raise ValueError(f"fused_core: input width {in_ch} is outside 1..{MAX_IN}")
+    if depth < 1:
+        raise ValueError(f"fused_core: depth {depth} is below 1")
     bf, f32 = torch.bfloat16, torch.float32
     shapes = (
         ("x", (B, N, in_ch), bf), ("pin_w", (in_ch, D), bf), ("pin_b", (D,), f32),
@@ -113,7 +145,8 @@ def fused_core(x, pin_w, pin_b, k, v, mask, pre_scale, pre_bias, post_scale, pos
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.difffacto_fused_core(
-            *(t.data_ptr() for t in args), out.data_ptr(), B, N, in_ch, depth, float(scale), stream
+            *(t.data_ptr() for t in args), out.data_ptr(), B, N, in_ch, depth, float(scale),
+            *launch_schedule(B, N, x.device), stream
         )
     _build.check_launch(lib, "fused_core", rc)
     launches += 1
@@ -124,7 +157,8 @@ def _library() -> ctypes.CDLL:
     lib = _build.load("fused_core")
     fn = lib.difffacto_fused_core
     if not fn.argtypes:
-        fn.argtypes = [ctypes.c_void_p] * 22 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
+        fn.argtypes = ([ctypes.c_void_p] * 22 + [ctypes.c_int] * 4 + [ctypes.c_float]
+                       + [ctypes.c_int] * 2 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         lib.difffacto_cuda_error_string.argtypes = [ctypes.c_int]
         lib.difffacto_cuda_error_string.restype = ctypes.c_char_p

@@ -37,21 +37,31 @@ def cuda():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n", [2048, 1000])
-def test_fused_core_matches_plain_version(cuda, n):
-    """Depth 5, a part absent in one row, N a multiple of the 64-token tile
-    and a ragged N."""
-    inp = fc.example_inputs(B=2, N=n, depth=5, mask=[[1, 1, 1, 1], [1, 1, 0, 1]])
-    args = fc.operands(inp, cuda, torch.bfloat16)
+@pytest.mark.parametrize("B, N, depth", [(2, 2048, 5), (2, 1000, 5), (32, 2048, 5), (1, 100, 5),
+                                         (1, 1000, 5), (1, 300, 10)])
+def test_fused_core_matches_plain_version(cuda, B, N, depth):
+    """Depth 5 with a part absent in the last row: N a multiple of the tile
+    and a ragged N; more tiles than twice the SMs, so that every block of the
+    persistent grid walks several; an N shorter than one tile; fewer tiles
+    than SMs; and depth 10, past the 8 blocks whose K and V the kernel holds
+    at once."""
+    sched = fc.schedule(B, N, torch.cuda.get_device_properties(cuda).multi_processor_count)
+    if B == 32:
+        assert sched["total_tiles"] > 2 * sched["grid"]
+    mask = np.ones((B, fc.CTX), np.float32)
+    mask[B - 1, 2] = 0.0
+    args = fc.operands(fc.example_inputs(B, N, depth=depth, mask=mask), cuda, torch.bfloat16)
     before = fc.launches
     got = fc.fused_core(*args, DH**-0.5)
     torch.cuda.synchronize()
     assert fc.launches == before + 1
     want = fc.fused_core_reference(*args, DH**-0.5)
-    assert got.shape == want.shape == (2, n, 128)
+    assert got.shape == want.shape == (B, N, 128)
     assert torch.isfinite(got.float()).all()
     err = (got.float() - want.float()).abs()
-    print(f"fused_core N={n}: max abs err {err.max().item():.3e}, mean {err.mean().item():.3e}")
+    print(f"fused_core B={B} N={N} depth={depth} ({sched['total_tiles']} tiles on "
+          f"{sched['grid']} blocks): max abs err {err.max().item():.3e}, "
+          f"mean {err.mean().item():.3e}")
     assert err.max().item() <= BF16_MAX_ABS and err.mean().item() <= BF16_MEAN_ABS
 
 
@@ -255,12 +265,15 @@ def test_fused_ff_matches_plain_version(cuda, D, T):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B, N", [(16, 2048), (2, 384), (2, 1000)])
+@pytest.mark.parametrize("B, N", [(16, 2048), (2, 384), (2, 1000), (32, 2048), (1, 100),
+                                  (1, 1000)])
 def test_fused_block_matches_plain_version(cuda, B, N):
     """UNet's block at batch 16 x 2048 points, an N that pick_tile takes
-    (384) and a ragged N; parts absent in some rows."""
+    (384), a ragged N, and the trunk's walk shapes: more tiles than twice the
+    SMs, an N shorter than one tile, fewer tiles than SMs; parts absent in
+    some rows."""
     mask = np.ones((B, fb.CTX), np.float32)
-    mask[1, 1] = mask[B - 1, 3] = 0.0
+    mask[min(1, B - 1), 1] = mask[B - 1, 3] = 0.0
     args = fc.operands(fb.example_inputs(B, N, seed=N, mask=mask), cuda, torch.bfloat16)
     before = fb.launches
     got = fb.fused_block(*args, DH**-0.5)
