@@ -11,9 +11,12 @@ Phases, each fatal (non-zero exit, no "ok" line):
 1. device: a CUDA card is required; prints its name and power limit.
 2. build: builds every CUDA source of the four paths (one nvcc each, started
    together) and prints nvcc's and ptxas's versions, the build time and
-   ``-Xptxas -v``, and the counts of
-   wgmma (HGMMA) and TMA or bulk-copy (UTMALDG, UBLKCP) instructions in the
-   trunk's binary (``cuobjdump -sass``): none of either fails.
+   ``-Xptxas -v`` (registers, shared memory, spills of every kernel), and the
+   counts of wgmma (HGMMA), TMA (UTMALDG), warp-level matrix (HMMA) and global
+   reduction (REDG, 4-wide ones apart) instructions in each kernel of the
+   trunk's and the training trunk's binaries (``cuobjdump -sass``, function by
+   function): a kernel without HGMMA or UTMALDG fails, as does any HMMA in the
+   training trunk's or a backward without 4-wide REDG.
 3. kernels: each kernel against its plain PyTorch version, with the stated
    tolerance, at the main paths' shapes and at ragged ones: the trunk in
    bf16 (also at the timed B = 256, N = 2048 with parts absent: 4096 tiles,
@@ -56,9 +59,13 @@ Phases, each fatal (non-zero exit, no "ok" line):
    noise_scale 50, only the aligner trainable, the CIMLE noise chosen by
    ``select_best_noise`` over 10 candidates) and one more with the flow prior
    weighted, one step at batch 8 against the same model on the CPU with every
-   draw injected, and the timing of the step and of its two kernels, which are
-   first held against the plain version at the step's own shape (4096 tiles,
-   many for each block of the backward's grid).
+   draw injected, and the timing of the step (with its peak memory) and of its
+   two kernels, which are first held against the plain version at the step's
+   own shape (2048 tiles, about 16 for each block of both persistent grids);
+   the forward is timed as the step runs it, saving the activations the
+   backward reads. Each bound counts what its kernel is given (the
+   backward's, the saved activations); the backward's bound given only the
+   Pallas pair's inputs is printed under its own label.
 8. two-attention generation and UNet, full width: ``configs/gen_chair.py``
    with ``single_attn=False`` set on the loaded config in the aligner and the
    denoiser. Batch-16 generation with launch counts set to 0 just before and
@@ -205,24 +212,35 @@ def device_busy(fn):
 
 
 def trunk_train_bound_ms(ops, B, N, depth, out_bytes):
-    """The least time for the training trunk's forward and for its backward.
-    Per token and block the forward does 2 D^2 (Wq, Wout) + 3 D FF (W1, W2) MACs
-    and 1024 in the attention to 4 tokens (scores, weighted sum). Given only its
-    inputs, the backward needs that forward once more, two products for each
-    matrix product (the input's gradient and the weight's): 4 D^2 + 6 D FF, and
-    2048 in the attention (d_weights, dV, dq, dK). What the kernel recomputes
-    beyond that is its design's cost, not part of the bound. Bytes: every
-    operand once, the output (forward) or dy, dx and every gradient (backward)
-    once."""
+    """The least time for the training trunk's forward and for its backward,
+    each given its own inputs. Per token and block the forward does 2 D^2
+    (Wq, Wout) + 3 D FF (W1, W2) MACs and 1024 in the attention to 4 tokens
+    (scores, weighted sum), and under autograd writes 2 depth + 1 bf16
+    activations a token. The backward reads those activations (each block's
+    u and up, the final hidden), so it redoes only Wq, W1 and the attention
+    (D^2 + 2 D FF + 1024) before two products for each matrix product (the
+    input's gradient and the weight's: 4 D^2 + 6 D FF) and 2048 in the
+    attention (d_weights, dV, dq, dK). What the kernel does beyond that is
+    its design's cost, not part of the bound. Bytes: every operand once, the
+    output and the saved activations (forward) or dy, the saved activations,
+    dx and every gradient (backward) once.
+
+    ``bwd_jax_inputs`` is the backward given only the Pallas pair's inputs
+    (no saved activations: the whole forward once more), the bound that
+    earlier measurements of this kernel were held to."""
     from difffacto_torch.ops import fused_core as fc
 
     small = 2 * fc.HEADS * fc.CTX * (fc.D // fc.HEADS)
     fwd = 2 * fc.D * fc.D + 3 * fc.D * fc.FF + small
-    bwd = fwd + 4 * fc.D * fc.D + 6 * fc.D * fc.FF + 2 * small
+    grads = 4 * fc.D * fc.D + 6 * fc.D * fc.FF + 2 * small
+    redo = fc.D * fc.D + 2 * fc.D * fc.FF + small
     in_bytes = sum(a.numel() * a.element_size() for a in ops)
     io = B * N * fc.D * 2
+    saved = (2 * depth + 1) * io
     out = {}
-    for name, macs, nbytes in (("fwd", fwd, in_bytes + io), ("bwd", bwd, in_bytes + 2 * io + out_bytes)):
+    for name, macs, nbytes in (("fwd", fwd, in_bytes + io + saved),
+                               ("bwd", redo + grads, in_bytes + saved + 2 * io + out_bytes),
+                               ("bwd_jax_inputs", fwd + grads, in_bytes + 2 * io + out_bytes)):
         t_ops = 2.0 * B * N * depth * macs / PEAK_BF16_FLOPS * 1e3
         t_bytes = nbytes / PEAK_BYTES * 1e3
         out[name] = (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes")
@@ -420,17 +438,40 @@ def main():
     print(f"built {sorted(logs)} in {time.perf_counter() - t0:.1f} s")
     for name, log in logs.items():
         for line in log.splitlines():
+            if "entry function" in line:
+                print(f"  {name}: {line.split('entry function')[1].split(' for ')[0].strip()}")
             if "Used" in line or "spill" in line or "smem" in line:
                 print(f"  {name}: {line.strip()}")
     print(f"  fused_core: {fc.smem_bytes()} bytes of dynamic shared memory per block")
-    sass = subprocess.run([os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump"), "-sass",
-                           str(_build.library_path("fused_core"))],
-                          capture_output=True, text=True, timeout=300).stdout
-    ops = {op: sass.count(op) for op in ("HGMMA", "UTMALDG", "UBLKCP")}
-    print(f"  fused_core SASS: {ops}")
-    if ops["HGMMA"] == 0 or ops["UTMALDG"] + ops["UBLKCP"] == 0:
-        fail("the trunk's binary holds no wgmma or no TMA/bulk copy")
     print(f"  fused_core_train: {fct.smem_bytes()} bytes (forward, backward)")
+    # Every trunk kernel (B1, B6, B2, B3) is wgmma fed by TMA, each function
+    # counted on its own; the backward flushes its weight gradients with
+    # 4-wide reductions (REDG ... F32x4 in SASS) and the training trunk holds
+    # no warp-level (WMMA) product.
+    for lib in ("fused_core", "fused_core_train"):
+        sass = subprocess.run([os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump"), "-sass",
+                               str(_build.library_path(lib))],
+                              capture_output=True, text=True, timeout=300).stdout
+        funcs = {}
+        for part in sass.split("Function : ")[1:]:
+            fname, body = part.split("\n", 1)
+            ops = {op: body.count(op) for op in ("HGMMA", "HMMA", "UTMALDG", "REDG")}
+            ops["REDG x4"] = sum(1 for line in body.splitlines() if "REDG" in line and "x4" in line)
+            funcs[fname.strip()] = ops
+            print(f"  {lib} SASS {fname.strip()}: {ops}")
+        want = {"fused_core": {"fused_core_kernel": 2},
+                "fused_core_train": {"fused_core_kernel": 1, "trunk_train_bwd_kernel": 1}}[lib]
+        for kernel, n in want.items():
+            if sum(kernel in f for f in funcs) != n:
+                fail(f"the binary of {lib} does not hold {n} {kernel}")
+        for fname in (f for f in funcs if any(kernel in f for kernel in want)):
+            ops = funcs[fname]
+            if ops["HGMMA"] == 0 or ops["UTMALDG"] == 0:
+                fail(f"{fname} in {lib} holds no wgmma or no TMA load")
+            if lib == "fused_core_train" and ops["HMMA"]:
+                fail(f"{fname} in {lib} still holds warp-level (WMMA) products")
+            if "trunk_train_bwd_kernel" in fname and ops["REDG x4"] == 0:
+                fail("the training backward flushes no weight gradient with a 4-wide reduction")
     print(f"  fused_ff: {ff.smem_bytes(128)} bytes at D = 128, {ff.smem_bytes(256)} at D = 256")
 
     phase("3 kernels against their plain versions")
@@ -874,10 +915,10 @@ def main():
     tmodel = None
     torch.cuda.empty_cache()
 
-    # The two kernels at the step's shape (4096 tiles: every block of the
-    # backward's persistent grid walks about 31 of them, reusing its scratch
-    # and adding many tiles into one dK/dV row), parts absent in some rows:
-    # held against the plain version, then timed.
+    # The two kernels at the step's shape (2048 tiles of 128 tokens: every
+    # block of both persistent grids walks about 16 of them, the backward
+    # reusing its parked gradient and adding many tiles into one dK/dV row),
+    # parts absent in some rows: held against the plain version, then timed.
     step_mask = np.ones((TRAIN_BATCH, fc.CTX), np.float32)
     step_mask[1, 1] = step_mask[5, 0] = step_mask[TRAIN_BATCH - 1, 3] = 0.0
     inp = fct.example_inputs(TRAIN_BATCH, 2048, depth=5, seed=11, mask=step_mask)
@@ -901,15 +942,17 @@ def main():
         return y.detach().float(), [t.grad.float() for t in (xr, kr, vr, *pr)] if backward else None
 
     before_f, before_b = fct.launches_fwd, fct.launches_bwd
-    y_k = fct.launch_forward(ops, seed_t, launch).float()
-    dx_k, g_k = fct.launch_backward(ops, dy, seed_t, launch)
+    y_k, acts = fct.launch_forward(ops, seed_t, launch, save=True)
+    y_k = y_k.float()
+    dx_k, g_k = fct.launch_backward(ops, acts, dy, seed_t, launch)
     torch.cuda.synchronize()
     fe, be = hold_train(f"B={TRAIN_BATCH} N=2048 p=0.2 ({launch[0] * 2048 // fct.TILE} tiles)",
                         y_k, [dx_k.float()] + g_k, *plain(True))
     train_fwd_err, train_bwd_err = max(train_fwd_err, fe), max(train_bwd_err, be)
     del y_k, dx_k, g_k
-    fwd_ms = cuda_ms(lambda: fct.launch_forward(ops, seed_t, launch), 10)
-    bwd_ms = cuda_ms(lambda: fct.launch_backward(ops, dy, seed_t, launch), 5)
+    # The forward as the step runs it: saving the activations for the backward.
+    fwd_ms = cuda_ms(lambda: fct.launch_forward(ops, seed_t, launch, save=True), 10)
+    bwd_ms = cuda_ms(lambda: fct.launch_backward(ops, acts, dy, seed_t, launch), 5)
     fct.launches_fwd, fct.launches_bwd = before_f, before_b
 
     plain_fwd_ms = cuda_ms(lambda: plain(False), 2)
@@ -919,7 +962,17 @@ def main():
         print(f"fused_trunk_train {name} B={TRAIN_BATCH} N=2048 p=0.2: {ms:.3f} ms, bound "
               f"{b_ms:.3f} ms ({b_by}), {100 * b_ms / ms:.1f}% of roofline; plain version "
               f"{pms:.1f} ms; {100 * ms / step_ms:.1f}% of the training step")
-    del x, k, v, params, ops, dy
+    # The bounds count the saved activations' bytes (written by the forward,
+    # read by the backward); the backward's bound given only the Pallas
+    # pair's inputs is printed under its own label.
+    saved = acts.numel() * acts.element_size()
+    jax_bwd = bounds["bwd_jax_inputs"][0]
+    print(f"fused_trunk_train bwd: bound given only the Pallas pair's inputs {jax_bwd:.3f} ms, "
+          f"{100 * jax_bwd / bwd_ms:.1f}% of it; the saved activations {saved / 1e6:.1f} MB")
+    print(f"the pair: {fwd_ms + bwd_ms:.3f} ms against {bounds['fwd'][0] + bounds['bwd'][0]:.3f} "
+          f"ms (the two bounds); against {bounds['fwd'][0] + jax_bwd:.3f} ms given only the "
+          f"Pallas pair's inputs")
+    del x, k, v, params, ops, dy, acts
     torch.cuda.empty_cache()
 
     # Stage 2: gen=True, aligner noise_scale 50, only the aligner trainable,
@@ -1170,7 +1223,8 @@ def main():
         "launches": train_counts["fused_trunk_train_bwd"], "max_abs_err": train_bwd_err,
         "ms": bwd_ms, "plain_ms": plain_bwd_ms, "bound_ms": bounds["bwd"][0],
         "bound_by": bounds["bwd"][1], "library_ms": None,
-        "train_step_ms": step_ms, "train_step_host_ms": host_ms,
+        "bound_ms_jax_inputs": bounds["bwd_jax_inputs"][0], "train_step_ms": step_ms,
+        "train_step_host_ms": host_ms,
         "train_shapes_per_s": 1e3 * TRAIN_BATCH / step_ms, "train_peak_gib": train_peak_gib,
     }, {
         "name": "fused_block", "route": "cuda", "source": "difffacto_torch/csrc/fused_core.cu",

@@ -1,6 +1,7 @@
 // Hopper building blocks shared by the port's kernels (sm_90a only):
 // mbarriers, TMA tensor loads, warpgroup matrix multiply (wgmma) with A in
-// registers and B in shared memory, and register rebalancing.
+// registers or in shared memory and B in shared memory, vector reductions into
+// global memory, and register rebalancing.
 //
 // Conventions. A bf16 weight W (K, N) with N contiguous is fetched by TMA in
 // boxes of K' rows x 64 columns (128 bytes a row) with the 128-byte swizzle;
@@ -139,8 +140,9 @@ __device__ __forceinline__ void fence_regs(uint32_t (&a)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(a[i])::"memory");
 }
 
-// d (64 x 128 f32) = A (64 x 16 bf16, registers) x B (16 x 128 bf16, MN-major
-// in shared memory) + (accumulate ? d : 0).
+// d (64 x 128 f32) = A (64 x 16 bf16, registers) x B (16 x 128 bf16 in shared
+// memory, MN-major for TB = 1, K-major for TB = 0) + (accumulate ? d : 0).
+template <int TB = 1>
 __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], uint32_t a0, uint32_t a1,
                                                     uint32_t a2, uint32_t a3, uint64_t desc_b,
                                                     int accumulate) {
@@ -151,7 +153,7 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], uint32_t a0,
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %69, p, 1, 1, 1;\n}"
+      "{%64, %65, %66, %67}, %69, p, 1, 1, %70;\n}"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
         "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
@@ -163,7 +165,7 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], uint32_t a0,
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
         "+f"(d[62]), "+f"(d[63])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(accumulate), "l"(desc_b));
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(accumulate), "l"(desc_b), "n"(TB));
 }
 
 // d += A (64 x 16 k-steps) x B over the k-steps of one weight chunk in a ring
@@ -194,6 +196,75 @@ __device__ __forceinline__ void chunk_product(float (&d)[64], uint32_t (&a)[4 * 
   wgmma_wait<0>();
   fence_regs(d);
   fence_regs(a);
+}
+
+// Make this thread's ordinary shared-memory stores visible to the
+// asynchronous proxy (wgmma operand reads) before a barrier hands them over.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// d (64 x 128 f32) = A (64 x 16 bf16) x B (16 x 128 bf16) + (accumulate ? d : 0),
+// both operands in shared memory by descriptor; TA, TB: 1 for MN-major
+// ("transposed"), 0 for K-major.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t desc_a,
+                                                    uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, %67, %68;\n}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+        "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TA), "n"(TB));
+}
+
+// d (64 x 64 f32) = A (64 x 16 bf16) x B (16 x 64 bf16) + (accumulate ? d : 0),
+// both operands in shared memory by descriptor; TA, TB: 1 for MN-major
+// ("transposed"), 0 for K-major.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc_a,
+                                                    uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, %35, %36;\n}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TA), "n"(TB));
+}
+
+// A K-major operand with the 128-byte swizzle: rows of 64 bf16 (128 bytes),
+// 8-row groups 1024 bytes apart; a k-step of 16 advances the start by 32
+// bytes inside the swizzle atom (the leading byte offset is not used).
+__device__ __forceinline__ uint64_t desc_k_sw128(uint32_t saddr) {
+  return desc_mn_sw128(saddr, 16u, 1024u);
+}
+
+// One 4-wide f32 reduction into global memory (sm_90: a single red.v4).
+__device__ __forceinline__ void red_add_v4(float* dst, float a, float b, float c, float e) {
+  atomicAdd(reinterpret_cast<float4*>(dst), make_float4(a, b, c, e));
+}
+
+__device__ __forceinline__ void red_add_v2(float* dst, float a, float b) {
+  atomicAdd(reinterpret_cast<float2*>(dst), make_float2(a, b));
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {

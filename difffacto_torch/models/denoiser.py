@@ -3,11 +3,13 @@
 Port of ``difffacto_tpu/models/denoiser.py:TransformerNet`` (the reference's
 attention.py:309-440): per-point tokens (x_t ++ per-point params ++ class
 one-hot) cross-attend to the 4 part tokens (part code ++ params ++ class ++
-t-embedding) through ``depth`` blocks. With single-attention blocks the trunk
-runs deterministically as one call of ``ops/fused_core.fused_core``; with
-``train=True`` as one call of ``ops/fused_core_train.fused_trunk_train``
+t-embedding) through ``depth`` blocks. With single-attention blocks at the
+shapes of ``trunk_kernel_takes`` (inner width 128, 8 heads, 4 part tokens) the
+trunk runs deterministically as one call of ``ops/fused_core.fused_core``;
+with ``train=True`` as one call of ``ops/fused_core_train.fused_trunk_train``
 (proj_in outside, dropout inside, a backward kernel behind it): the CUDA
-kernels on the card, their plain versions on the CPU. proj_out is applied
+kernels on the card, their plain versions on the CPU. At any other shape the
+blocks run one by one, as with two-attention blocks. proj_out is applied
 after the trunk with a matrix product, as in the JAX default (tail not fused).
 With two-attention blocks (``single_attn=False``) the blocks run one by one,
 each ending in ``FusedLNFF``, as the JAX package runs them
@@ -29,6 +31,7 @@ from ..nn.attention import BasicTransformerBlock, TwoAttentionBlock
 from ..nn.functional import ln_affine
 from ..nn.layers import (Dense, FeedForward, GroupNorm, LayerNorm, default_generator,
                          timestep_embedding)
+from ..ops.fused_block import takes as trunk_kernel_takes
 from ..ops.fused_core import fused_core
 from ..ops.fused_core_train import fused_trunk_train
 from ..utils.device import resolve_device
@@ -99,13 +102,14 @@ class TransformerNet(nn.Module):
     def _proj_in(self, x, cdt):
         return x.to(cdt) @ self.proj_in.kernel.to(cdt) + self.proj_in.bias.to(cdt)
 
-    def _two_attention_trunk(self, x, ctx, valid_id, cdt):
+    def _block_trunk(self, x, ctx, valid_id, cdt, train=False, generator=None):
         """proj_in -> pre-LN -> the blocks one by one -> post-LN
-        (``denoiser.py:301-308``)."""
+        (``denoiser.py:301-308``): the two-attention trunk, and the
+        single-attention trunk at shapes the trunk kernels do not take."""
         mask = valid_id if self.mask_out_unreferenced_code else None
         h = ln_affine(self._proj_in(x, cdt), self.pre_norm.scale, self.pre_norm.bias)
         for blk in self.blocks:
-            h = blk(h, ctx, mask)
+            h = blk(h, ctx, mask, train, generator)
         return ln_affine(h, self.post_norm.scale, self.post_norm.bias)
 
     def _train_trunk(self, x, k, v, mask, cdt, generator):
@@ -153,7 +157,10 @@ class TransformerNet(nn.Module):
             if train:
                 raise NotImplementedError(
                     "TransformerNet with two-attention blocks is ported for generation only")
-            h = self._two_attention_trunk(x, ctx, valid_id, cdt)
+            h = self._block_trunk(x, ctx, valid_id, cdt)
+        elif not trunk_kernel_takes(self.n_heads * self.d_head, self.n_heads, ctx.shape[1]):
+            # the JAX package's per-block composition (denoiser.py:301-309)
+            h = self._block_trunk(x, ctx, valid_id, cdt, train, generator)
         else:
             h = self._single_attention_trunk(x, ctx, valid_id, cdt, train, generator)
         out = (h.to(cdt) @ self.proj_out.kernel.to(cdt) + self.proj_out.bias.to(cdt)).to(x.dtype)
@@ -164,7 +171,8 @@ class TransformerNet(nn.Module):
         return out
 
     def _single_attention_trunk(self, x, ctx, valid_id, cdt, train, generator):
-        """The whole trunk as one kernel call: ``fused_core`` deterministically,
+        """The whole trunk as one kernel call, at the shapes
+        ``trunk_kernel_takes`` accepts: ``fused_core`` deterministically,
         ``fused_trunk_train`` in training."""
         B = x.shape[0]
         M = ctx.shape[1]

@@ -12,10 +12,12 @@ Port of ``difffacto_tpu/nn/attention.py``:
   (``attention.py:152-181``), norm1 -> attn1, norm2 -> attn2, then
   ``FusedLNFF``. Generation only.
 * ``BasicTransformerBlock``: the flat single-attention layout
-  (``attention.py:198-313``). With a context of at most 8 tokens, 128
-  dividing the width and ``pick_tile(N)`` not 0 it runs as one call of
+  (``attention.py:198-313``). With a context at the shapes the kernel takes
+  (``block_kernel_takes``: width 128, 8 heads, 4 context tokens, and
+  ``pick_tile(N)`` not 0) it runs as one call of
   ``ops/fused_block.fused_block``; otherwise, and in training, the unfused
-  math, masked with ``finfo.min``.
+  math, masked with ``finfo.min``. The JAX package takes its kernel at more
+  shapes; the math is the same.
 
 With ``train=True`` the flat block applies dropout after the out-projection
 and on the GEGLU activations, the two sites of the JAX block; the draws come
@@ -28,11 +30,19 @@ import torch
 from torch import nn
 
 from ..ops.fused_block import fused_block
+from ..ops.fused_block import takes as block_takes
 from ..ops.fused_ff import pick_tile
 from .functional import gelu, ln_stats_f32
 from .layers import Dense, FusedLNFF, LayerNorm, default_generator, dropout, lecun_normal, param
 
 SMALL_CTX = 8  # context lengths at or below this take the small-context paths
+
+
+def block_kernel_takes(width: int, heads: int, ctx_tokens: int, tokens: int) -> bool:
+    """The shape rule of the flat block with a context: the one-block kernel
+    where it takes (width, heads, context length) and ``pick_tile`` takes the
+    token count, as the JAX package dispatches; the unfused math otherwise."""
+    return block_takes(width, heads, ctx_tokens) and bool(pick_tile(tokens))
 
 
 def masked_softmax_attention(q, k, v, mask, scale: float) -> torch.Tensor:
@@ -172,7 +182,7 @@ class BasicTransformerBlock(nn.Module):
         B, N, D = x.shape
         M = context.shape[1] if context is not None else N
         h_, dh = self.n_heads, self.d_head
-        if not train and context is not None and M <= SMALL_CTX and D % 128 == 0 and pick_tile(N):
+        if not train and context is not None and block_kernel_takes(D, h_, M, N):
             ctx_c = context.to(cdt)
             ones = torch.ones(B, M, device=x.device)
             return fused_block(

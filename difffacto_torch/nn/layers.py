@@ -20,6 +20,7 @@ import torch
 from torch import nn
 
 from ..ops.fused_ff import fused_ln_geglu_ff, pick_tile
+from ..ops.fused_ff import takes as ff_takes
 from .functional import gelu, ln_stats_f32
 
 _TRUNC_STD = 0.87962566103423978  # std of a standard normal truncated to [-2, 2]
@@ -170,15 +171,22 @@ class FeedForward(nn.Module):
         return self.dense0(dropout(self.geglu(x), self.dropout, train, generator))
 
 
+def ff_kernel_takes(width: int, tokens: int) -> bool:
+    """The shape rule of ``FusedLNFF``: the fused FF kernel where it takes the
+    width and ``pick_tile`` takes the token count; the unfused math otherwise."""
+    return ff_takes(width) and bool(pick_tile(tokens))
+
+
 class FusedLNFF(nn.Module):
     """Pre-LN GEGLU feed-forward with residual, ``x + FF(LN(x))``
     (``difffacto_tpu/nn/layers.py:94-170``), parameters flat: ``ln_scale``,
     ``ln_bias``, ``w1`` (D, 8 D), ``b1``, ``w2`` (4 D, D), ``b2``.
 
-    As in the JAX package, x (B, N, D) with 128 dividing D and
-    ``pick_tile(B N)`` not 0 goes through ``ops/fused_ff.fused_ln_geglu_ff``
+    x (B, N, D) at the shapes ``ff_kernel_takes`` accepts (D 128 or 256,
+    ``pick_tile(B N)`` not 0) goes through ``ops/fused_ff.fused_ln_geglu_ff``
     (the kernel on the card, its plain version on the CPU); any other input
     through the unfused composition, whose GEGLU runs in the compute dtype.
+    The JAX package takes its kernel at any D that 128 divides.
     Deterministic only: the JAX package trains it unfused, with dropout.
     """
 
@@ -197,7 +205,7 @@ class FusedLNFF(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cdt = self.dtype or x.dtype
         D = x.shape[-1]
-        if x.ndim == 3 and D % 128 == 0 and pick_tile(x.shape[0] * x.shape[1]):
+        if x.ndim == 3 and ff_kernel_takes(D, x.shape[0] * x.shape[1]):
             out = fused_ln_geglu_ff(
                 x.reshape(-1, D).to(cdt).contiguous(), self.ln_scale.to(cdt),
                 self.ln_bias.to(cdt), self.w1.to(cdt), self.b1.float(), self.w2.to(cdt),

@@ -31,6 +31,14 @@ D, HEADS, CTX, FF = 128, 8, 4, 512
 launches = 0  # kernel launches since the caller last set it to 0
 
 
+def takes(width: int, heads: int, ctx_tokens: int) -> bool:
+    """Whether the kernels of ``csrc/fused_core.cu`` (this block, the trunk)
+    and ``csrc/fused_core_train.cu`` take a block of this inner width, head
+    count and context length: the modules send every other shape to the
+    unfused math."""
+    return (width, heads, ctx_tokens) == (D, HEADS, CTX)
+
+
 def fused_block_reference(x, k, v, mask, n2_scale, n2_bias, wq, wout, bout, ff_scale, ff_bias,
                           w1, b1, w2, b2, scale: float, heads: int = HEADS) -> torch.Tensor:
     """Plain PyTorch block with the kernel's arithmetic.
@@ -83,7 +91,7 @@ def fused_block(x, k, v, mask, n2_scale, n2_bias, wq, wout, bout, ff_scale, ff_b
         raise ValueError(f"fused_block: no kernel for device {x.device}")
     B, N, Dm = x.shape
     M = k.shape[1]
-    if (Dm, heads, M) != (D, HEADS, CTX):
+    if not takes(Dm, heads, M):
         raise NotImplementedError(
             f"fused_block: the kernel takes D={D}, {HEADS} heads and M={CTX} context tokens; "
             f"got D={Dm}, {heads} heads, M={M}")

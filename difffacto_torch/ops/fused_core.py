@@ -25,7 +25,7 @@ import torch
 
 from ..nn.functional import ln_affine
 from . import _build
-from .fused_block import fused_block_reference
+from .fused_block import fused_block_reference, takes
 
 # The kernel's fixed shapes (csrc/fused_core.cu).
 D, HEADS, CTX, FF, MAX_IN = 128, 8, 4, 512, 16
@@ -36,11 +36,12 @@ launches = 0  # kernel launches since the caller last set it to 0
 
 def fused_core_reference(x, pin_w, pin_b, k, v, mask, pre_scale, pre_bias, post_scale,
                          post_bias, n2_scale, n2_bias, wq, wout, bout, ff_scale, ff_bias,
-                         w1, b1, w2, b2, scale: float) -> torch.Tensor:
+                         w1, b1, w2, b2, scale: float, heads: int = HEADS) -> torch.Tensor:
     """Plain PyTorch trunk with the kernel's arithmetic.
 
-    x (B, N, IN) in the compute dtype; pin_w (IN, D); k, v (depth, B, M, D);
-    mask (B, M); per-block parameters stacked on a leading depth axis. Every
+    x (B, N, IN) in the compute dtype; pin_w (IN, D); k, v (depth, B, M, D)
+    with D split into ``heads`` heads; mask (B, M); per-block parameters
+    stacked on a leading depth axis. Every
     product accumulates in f32 and LayerNorm statistics are f32; results
     round to x's dtype where the Pallas kernel rounds. Returns (B, N, D).
     """
@@ -49,7 +50,7 @@ def fused_core_reference(x, pin_w, pin_b, k, v, mask, pre_scale, pre_bias, post_
     for i in range(k.shape[0]):
         h = fused_block_reference(h, k[i], v[i], mask, n2_scale[i], n2_bias[i], wq[i], wout[i],
                                   bout[i], ff_scale[i], ff_bias[i], w1[i], b1[i], w2[i], b2[i],
-                                  scale, HEADS)
+                                  scale, heads)
     return ln_affine(h, post_scale, post_bias)
 
 
@@ -110,19 +111,24 @@ def launch_schedule(B: int, N: int, device: torch.device):
 
 def fused_core(x, pin_w, pin_b, k, v, mask, pre_scale, pre_bias, post_scale, post_bias,
                n2_scale, n2_bias, wq, wout, bout, ff_scale, ff_bias, w1, b1, w2, b2,
-               scale: float) -> torch.Tensor:
+               scale: float, heads: int = HEADS) -> torch.Tensor:
     """The trunk: the CUDA kernel for tensors on the card, the plain version
     for tensors on the CPU. On the card every operand is bf16 except the
-    biases pin_b, bout, b1, b2 and the mask, which are f32."""
+    biases pin_b, bout, b1, b2 and the mask, which are f32, and the shapes
+    are those ``takes`` accepts (others raise ``NotImplementedError``)."""
     global launches
     args = (x, pin_w, pin_b, k, v, mask, pre_scale, pre_bias, post_scale, post_bias,
             n2_scale, n2_bias, wq, wout, bout, ff_scale, ff_bias, w1, b1, w2, b2)
     if x.device.type == "cpu":
-        return fused_core_reference(*args, scale)
+        return fused_core_reference(*args, scale, heads)
     if x.device.type != "cuda":
         raise ValueError(f"fused_core: no kernel for device {x.device}")
     B, N, in_ch = x.shape
     depth = wq.shape[0]
+    if not takes(k.shape[-1], heads, k.shape[2]):
+        raise NotImplementedError(
+            f"fused_core: the kernel takes D={D}, {HEADS} heads and M={CTX} context tokens; "
+            f"got D={k.shape[-1]}, {heads} heads, M={k.shape[2]}")
     if not 1 <= in_ch <= MAX_IN:
         raise ValueError(f"fused_core: input width {in_ch} is outside 1..{MAX_IN}")
     if depth < 1:

@@ -17,8 +17,12 @@ bit. The bits are not the TPU's, so the port is held against JAX at p = 0.
 
 ``fused_trunk_train`` launches the kernels for CUDA tensors and runs
 ``fused_trunk_train_reference`` (plain differentiable PyTorch with the kernel's
-rounding points) for CPU tensors. The weight gradients of the backward kernel
-are summed with atomics, so they repeat only to f32 rounding from run to run.
+rounding points) for CPU tensors. Both kernels walk ``ops/fused_core.schedule``.
+Under autograd the forward kernel also saves every block's input and
+post-attention hidden and the hidden before the post-LN, (2 depth + 1, B, N,
+128) bf16, which the backward kernel reads instead of recomputing the
+forward. The backward sums its weight gradients with f32 vector reductions in
+no fixed order, so they repeat only to f32 rounding from run to run.
 """
 
 from __future__ import annotations
@@ -31,9 +35,9 @@ import torch.nn.functional as F
 
 from ..nn.functional import ln_affine
 from . import _build
-from .fused_core import CTX, D, FF, HEADS
+from .fused_block import takes
+from .fused_core import CTX, D, FF, HEADS, TILE, launch_schedule
 
-TILE = 64  # tokens per tile of the kernels (csrc/fused_core_train.cu)
 PARAM_NAMES = ("pre_scale", "pre_bias", "post_scale", "post_bias", "n2_scale", "n2_bias", "wq",
                "wout", "bout", "ff_scale", "ff_bias", "w1", "b1", "w2", "b2")
 F32_PARAMS = ("bout", "b1", "b2")  # the kernels read these in f32, the rest in bf16
@@ -82,10 +86,12 @@ def dropout_mult(seed, B, N, block, site, cols, p: float, device="cpu", n0: int 
 
 def fused_trunk_train_reference(seed, x, k, v, mask, pre_scale, pre_bias, post_scale, post_bias,
                                 n2_scale, n2_bias, wq, wout, bout, ff_scale, ff_bias, w1, b1,
-                                w2, b2, scale: float, dropout_p: float = 0.0) -> torch.Tensor:
+                                w2, b2, scale: float, dropout_p: float = 0.0,
+                                heads: int = HEADS) -> torch.Tensor:
     """Plain differentiable PyTorch trunk with the kernels' arithmetic.
 
-    x (B, N, D) in the compute dtype; k, v (depth, B, M, D); mask (B, M);
+    x (B, N, D) in the compute dtype; k, v (depth, B, M, D) with D split into
+    ``heads`` heads; mask (B, M);
     per-block parameters stacked on a leading depth axis, in any float dtype
     (they are cast to x's dtype, the three biases to f32). Every product
     accumulates in f32, LayerNorm statistics are f32, and results round to x's
@@ -94,7 +100,7 @@ def fused_trunk_train_reference(seed, x, k, v, mask, pre_scale, pre_bias, post_s
     dt = x.dtype
     B, N = x.shape[:2]
     depth, _, M, Dm = k.shape
-    dh = Dm // HEADS
+    dh = Dm // heads
     inner = w2.shape[1]
     f = lambda a: a.float() if a.dtype != torch.float64 else a
     c = lambda a: a.to(dt)
@@ -108,10 +114,10 @@ def fused_trunk_train_reference(seed, x, k, v, mask, pre_scale, pre_bias, post_s
     h = ln_affine(x, c(pre_scale), c(pre_bias))
     for i in range(depth):
         a = ln_affine(h, c(n2_scale[i]), c(n2_bias[i]))
-        q = (f(a) @ f(c(wq[i]))).to(dt).reshape(B, N, HEADS, dh)
+        q = (f(a) @ f(c(wq[i]))).to(dt).reshape(B, N, heads, dh)
         # attention to the M context tokens as nn/functional.py:small_ctx_attention does it
         # (one max-shift per token, weights and the weighted sum rounded), in f's precision
-        ki, vi = f(c(k[i])).reshape(B, M, HEADS, dh), f(c(v[i])).reshape(B, M, HEADS, dh)
+        ki, vi = f(c(k[i])).reshape(B, M, heads, dh), f(c(v[i])).reshape(B, M, heads, dh)
         m = f(mask)[:, None, None, :]
         s = torch.einsum("bnhd,bmhd->bnhm", f(q), ki) * scale + (m - 1.0) * 1e30
         e = torch.exp(s - s.reshape(B, N, -1).amax(-1)[:, :, None, None]) * m
@@ -225,43 +231,50 @@ def _raise(lib, what, rc):
     )
 
 
-def launch_forward(ops, seed_t, launch) -> torch.Tensor:
-    """Launch the forward kernel on the checked operands of ``_cast_operands``."""
+def launch_forward(ops, seed_t, launch, save: bool = False):
+    """Launch the forward kernel on the checked operands of ``_cast_operands``:
+    (y, the saved activations for the backward or None)."""
     global launches_fwd
     B, N, depth, scale, keep_scale, thresh, drop = launch
     x = ops[0]
     lib = _library()
     out = torch.empty((B, N, D), dtype=torch.bfloat16, device=x.device)
+    acts = (torch.empty((2 * depth + 1, B, N, D), dtype=torch.bfloat16, device=x.device)
+            if save else None)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.difffacto_trunk_train_fwd(
-            _pointers(ops), seed_t.data_ptr(), out.data_ptr(), B, N, depth, scale, keep_scale,
-            thresh, drop, stream)
+            _pointers(ops), seed_t.data_ptr(), out.data_ptr(),
+            acts.data_ptr() if save else None, B, N, depth, scale, keep_scale, thresh, drop,
+            *launch_schedule(B, N, x.device), stream)
     if rc != 0:
         _raise(lib, "forward", rc)
     launches_fwd += 1
-    return out
+    return out, acts
 
 
-def launch_backward(ops, dy, seed_t, launch):
-    """Launch the backward kernel: dx (bf16) and the f32 gradients of k, v and
-    the 15 parameters, in ``grad_sizes`` order."""
+def launch_backward(ops, acts, dy, seed_t, launch, lib=None):
+    """Launch the backward kernel on the forward's saved activations: dx (bf16)
+    and the f32 gradients of k, v and the 15 parameters, in ``grad_sizes``
+    order. ``lib`` is another build of the source, passed through ``bind``
+    (default: the port's own)."""
     global launches_bwd
     B, N, depth, scale, keep_scale, thresh, drop = launch
     x = ops[0]
-    lib = _library()
+    lib = lib or _library()
     sizes = grad_sizes(depth, B)
     flat = torch.zeros(sum(int(np.prod(s)) for _, s in sizes), dtype=torch.float32,
                        device=x.device)
-    tiles = B * (-(-N // TILE))
-    blocks = min(tiles, torch.cuda.get_device_properties(x.device).multi_processor_count)
-    scratch = torch.empty((blocks, 2 * depth, TILE, D), dtype=torch.bfloat16, device=x.device)
+    grid, tiles_per_row = launch_schedule(B, N, x.device)
+    park = torch.empty((grid, lib.difffacto_trunk_train_park_floats()), dtype=torch.float32,
+                       device=x.device)
     dx = torch.empty_like(x)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.difffacto_trunk_train_bwd(
-            _pointers(ops), dy.data_ptr(), seed_t.data_ptr(), dx.data_ptr(), scratch.data_ptr(),
-            flat.data_ptr(), blocks, B, N, depth, scale, keep_scale, thresh, drop, stream)
+            _pointers(ops), dy.data_ptr(), seed_t.data_ptr(), acts.data_ptr(), dx.data_ptr(),
+            park.data_ptr(), flat.data_ptr(), B, N, depth, scale, keep_scale, thresh, drop,
+            grid, tiles_per_row, stream)
     if rc != 0:
         _raise(lib, "backward", rc)
     launches_bwd += 1
@@ -284,31 +297,33 @@ def launch_args(x, k, v, mask, params, seed, scale: float, dropout_p: float):
 
 class _FusedTrunkTrain(torch.autograd.Function):
     """forward(seed, scale, dropout_p, x, k, v, mask, *15 parameters). Saves
-    only its (cast) inputs; the backward kernel recomputes the rest."""
+    its (cast) inputs and the forward kernel's saved activations."""
 
     @staticmethod
     def forward(ctx, seed, scale, dropout_p, x, k, v, mask, *params):
         ops, seed_t, launch = launch_args(x, k, v, mask, params, seed, scale, dropout_p)
-        out = launch_forward(ops, seed_t, launch)
-        ctx.save_for_backward(seed_t, *ops)
+        out, acts = launch_forward(ops, seed_t, launch, save=True)
+        ctx.save_for_backward(seed_t, acts, *ops)
         ctx.launch = launch
         ctx.param_dtypes = [p.dtype for p in params]
         return out
 
     @staticmethod
     def backward(ctx, dy):
-        seed_t, *ops = ctx.saved_tensors
+        seed_t, acts, *ops = ctx.saved_tensors
         dx, (dk, dv, *dparams) = launch_backward(
-            ops, dy.to(torch.bfloat16).contiguous(), seed_t, ctx.launch)
+            ops, acts, dy.to(torch.bfloat16).contiguous(), seed_t, ctx.launch)
         dparams = [g.to(dt) for g, dt in zip(dparams, ctx.param_dtypes)]
         return (None, None, None, dx, dk.to(ops[1].dtype), dv.to(ops[2].dtype), None, *dparams)
 
 
 def fused_trunk_train(seed, x, k, v, mask, pre_scale, pre_bias, post_scale, post_bias, n2_scale,
                       n2_bias, wq, wout, bout, ff_scale, ff_bias, w1, b1, w2, b2, scale: float,
-                      dropout_p: float = 0.0) -> torch.Tensor:
+                      dropout_p: float = 0.0, heads: int = HEADS) -> torch.Tensor:
     """The differentiable trunk: the CUDA kernel pair for tensors on the card,
-    the plain version for tensors on the CPU. On the card x, k and v are bf16;
+    the plain version for tensors on the CPU. On the card the shapes are
+    those ``ops/fused_block.takes`` accepts (others raise
+    ``NotImplementedError``). On the card x, k and v are bf16;
     the parameters may be the f32 masters (the function casts, and their
     gradients come back in their own dtype). ``seed`` is an int or a
     one-element integer tensor (on the card it is read on the device)."""
@@ -317,29 +332,43 @@ def fused_trunk_train(seed, x, k, v, mask, pre_scale, pre_bias, post_scale, post
     if not 0.0 <= dropout_p < 1.0:
         raise ValueError(f"fused_trunk_train: dropout_p {dropout_p} is outside [0, 1)")
     if x.device.type == "cpu":
-        return fused_trunk_train_reference(seed, x, k, v, mask, *params, scale, dropout_p)
+        return fused_trunk_train_reference(seed, x, k, v, mask, *params, scale, dropout_p, heads)
     if x.device.type != "cuda":
         raise ValueError(f"fused_trunk_train: no kernel for device {x.device}")
+    if not takes(k.shape[-1], heads, k.shape[2]):
+        raise NotImplementedError(
+            f"fused_trunk_train: the kernels take D={D}, {HEADS} heads and M={CTX} context "
+            f"tokens; got D={k.shape[-1]}, {heads} heads, M={k.shape[2]}")
+    if not (torch.is_grad_enabled()
+            and any(t.requires_grad for t in (x, k, v, mask, *params))):
+        ops, seed_t, launch = launch_args(x, k, v, mask, params, seed, scale, dropout_p)
+        return launch_forward(ops, seed_t, launch)[0]  # nothing to save
     return _FusedTrunkTrain.apply(seed, scale, dropout_p, x, k, v, mask, *params)
 
 
-def _library() -> ctypes.CDLL:
-    lib = _build.load("fused_core_train")
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C entry points' argument and result types on a loaded build
+    of ``csrc/fused_core_train.cu``; returns it."""
     fn = lib.difffacto_trunk_train_fwd
     if not fn.argtypes:
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        tail = [ci, ci, ci, cf, cf, ctypes.c_uint, ci, vp]
-        fn.argtypes = [vp, vp, vp] + tail
+        tail = [ci, ci, ci, cf, cf, ctypes.c_uint, ci, ci, ci, vp]
+        fn.argtypes = [vp] * 4 + tail
         fn.restype = ci
         bwd = lib.difffacto_trunk_train_bwd
-        bwd.argtypes = [vp] * 6 + [ci] + tail
+        bwd.argtypes = [vp] * 7 + tail
         bwd.restype = ci
         lib.difffacto_cuda_error_string.argtypes = [ci]
         lib.difffacto_cuda_error_string.restype = ctypes.c_char_p
-        for name in ("difffacto_trunk_train_fwd_smem_bytes", "difffacto_trunk_train_bwd_smem_bytes"):
+        for name in ("difffacto_trunk_train_fwd_smem_bytes", "difffacto_trunk_train_bwd_smem_bytes",
+                     "difffacto_trunk_train_park_floats"):
             getattr(lib, name).argtypes = []
             getattr(lib, name).restype = ci
     return lib
+
+
+def _library() -> ctypes.CDLL:
+    return bind(_build.load("fused_core_train"))
 
 
 def smem_bytes():

@@ -22,6 +22,12 @@ WIDTHS = (128, 256)  # the model widths the kernel takes; FF = 4 D
 launches = 0  # kernel launches since the caller last set it to 0
 
 
+def takes(width: int) -> bool:
+    """Whether the kernel takes this model width: the module sends every
+    other width to the unfused math."""
+    return width in WIDTHS
+
+
 def pick_tile(T: int, preferred: int = 1024) -> int:
     """Largest power-of-two tile <= preferred dividing T (>= 128), else 0
     (``difffacto_tpu/ops/fused_ff.py:pick_tile``): the JAX package runs its
@@ -71,7 +77,7 @@ def fused_ln_geglu_ff(x, ln_scale, ln_bias, w1, b1, w2, b2) -> torch.Tensor:
     if x.device.type != "cuda":
         raise ValueError(f"fused_ff: no kernel for device {x.device}")
     T, D = x.shape
-    if D not in WIDTHS or tuple(w1.shape) != (D, 8 * D):
+    if not takes(D) or tuple(w1.shape) != (D, 8 * D):
         raise NotImplementedError(
             f"fused_ff: the kernel takes D in {WIDTHS} with FF = 4 D; got x {tuple(x.shape)}, "
             f"w1 {tuple(w1.shape)}")

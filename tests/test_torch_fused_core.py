@@ -16,23 +16,25 @@ from difffacto_torch.ops import fused_core as fc
 H, DH, M = 8, 16, 4
 
 
-def jax_trunk(inp):
+def jax_trunk(inp, heads=H):
     """The Pallas kernel in interpret mode, with the block-diagonal K/V the
-    JAX denoiser builds (difffacto_tpu/models/denoiser.py:217-234)."""
+    JAX denoiser builds (difffacto_tpu/models/denoiser.py:217-234) for
+    ``heads`` heads of 128 / heads channels."""
     depth, B = inp["k"].shape[:2]
-    eye = np.eye(H, dtype=np.float32)
-    k = inp["k"].reshape(depth, B, M, H, DH)
-    v = inp["v"].reshape(depth, B, M, H, DH)
-    k_bd = np.einsum("ibmhd,gh->ibgdhm", k, eye).reshape(depth, B, H * DH, H * M)
-    v_bd = np.einsum("ibmhd,hg->ibhmgd", v, eye).reshape(depth, B, H * M, H * DH)
+    dh = H * DH // heads
+    eye = np.eye(heads, dtype=np.float32)
+    k = inp["k"].reshape(depth, B, M, heads, dh)
+    v = inp["v"].reshape(depth, B, M, heads, dh)
+    k_bd = np.einsum("ibmhd,gh->ibgdhm", k, eye).reshape(depth, B, heads * dh, heads * M)
+    v_bd = np.einsum("ibmhd,hg->ibhmgd", v, eye).reshape(depth, B, heads * M, heads * dh)
     j = {k_: jnp.asarray(v_) for k_, v_ in inp.items()}
     out = fused_denoiser_core_call(
-        j["x"], jnp.asarray(k_bd), jnp.asarray(v_bd), jnp.asarray(np.tile(inp["mask"], (1, H))),
+        j["x"], jnp.asarray(k_bd), jnp.asarray(v_bd), jnp.asarray(np.tile(inp["mask"], (1, heads))),
         jnp.asarray(np.kron(eye, np.ones((M, M), np.float32))),
         j["pre_scale"], j["pre_bias"], j["post_scale"], j["post_bias"],
         j["n2_scale"], j["n2_bias"], j["wq"], j["wout"], j["bout"],
         j["ff_scale"], j["ff_bias"], j["w1"], j["b1"], j["w2"], j["b2"],
-        DH**-0.5, interpret=True, pin_w=j["pin_w"], pin_b=j["pin_b"],
+        dh**-0.5, interpret=True, pin_w=j["pin_w"], pin_b=j["pin_b"],
     )
     return np.asarray(out)
 
