@@ -14,9 +14,11 @@ Phases, each fatal (non-zero exit, no "ok" line):
    ``-Xptxas -v`` (registers, shared memory, spills of every kernel), and the
    counts of wgmma (HGMMA), TMA (UTMALDG), warp-level matrix (HMMA) and global
    reduction (REDG, 4-wide ones apart) instructions in each kernel of the
-   trunk's and the training trunk's binaries (``cuobjdump -sass``, function by
-   function): a kernel without HGMMA or UTMALDG fails, as does any HMMA in the
-   training trunk's or a backward without 4-wide REDG.
+   trunk's, the training trunk's and the fused FF's binaries (``cuobjdump
+   -sass``, function by function; the FF's D = 128 entry is the trunk
+   template's Mode::FF): a kernel without HGMMA or UTMALDG fails, as does any
+   HMMA in the training trunk's or the FF entry, or a backward without 4-wide
+   REDG; and the EMD kernel's special-function (MUFU) instructions.
 3. kernels: each kernel against its plain PyTorch version, with the stated
    tolerance, at the main paths' shapes and at ragged ones: the trunk in
    bf16 (also at the timed B = 256, N = 2048 with parts absent: 4096 tiles,
@@ -47,7 +49,9 @@ Phases, each fatal (non-zero exit, no "ok" line):
    and EMD at n = 2048 (8128 pairs). Launch counts are set to 0 just before
    and read just after; a 2 x 2 corner is recomputed on the CPU by the plain
    versions. Then FPS and the EMD kernel are timed on the protocol's own
-   clouds beside their plain versions and bounds.
+   clouds beside their plain versions and bounds, the EMD kernel at 132 pairs
+   (one per SM) and at 32, each also with ``auction_iters=0`` (the Sinkhorn
+   and one force-assignment sweep): the split between Sinkhorn and auction.
 7. training step, full width: the gen_chair model with ``gen=False``, bf16,
    denoiser dropout 0.2, Adam 2e-3 with LinearLR and ``max_norm=10``, batch
    128 x 2048 points, through ``build_optimizer_from_cfg``,
@@ -120,11 +124,12 @@ E2E_REL_L2 = 5e-3
 # bf16 at each of the five; a wrong kernel or mask gives O(1).
 UNET_REL_L2 = 5e-2
 TWO_ATTN_BATCH_TIMED, TWO_ATTN_ITERS, UNET_BATCH = 256, 2, 256
-# The EMD kernel and its plain version sum their log-sum-exp in another order,
-# so a near-tie may go to another object: assignments may differ (the share is
-# printed), the matched costs agree within 0.5 %. At n = 512 the kernel's cost
-# is held to 1.01 x the Hungarian optimum, as the JAX package's tests hold the
-# TPU kernel.
+# The EMD kernel sums its Sinkhorn in base 2 with the approximate square root
+# and exp of the special-function units, its plain version in base e with
+# exact ones and in another order, so a near-tie may go to another object:
+# assignments may differ (the share is printed), the matched costs agree
+# within 0.5 %. At n = 512 the kernel's cost is held to 1.01 x the Hungarian
+# optimum, as the JAX package's tests hold the TPU kernel.
 EMD_COST_RTOL, EMD_HUNGARIAN = 0.005, 1.01
 # Phase 6: the card's CD against the CPU's (f32 both, another summation order)
 # and the card's EMD kernel against the plain hybrid on the CPU (eps-optimal both).
@@ -444,11 +449,12 @@ def main():
                 print(f"  {name}: {line.strip()}")
     print(f"  fused_core: {fc.smem_bytes()} bytes of dynamic shared memory per block")
     print(f"  fused_core_train: {fct.smem_bytes()} bytes (forward, backward)")
-    # Every trunk kernel (B1, B6, B2, B3) is wgmma fed by TMA, each function
-    # counted on its own; the backward flushes its weight gradients with
-    # 4-wide reductions (REDG ... F32x4 in SASS) and the training trunk holds
-    # no warp-level (WMMA) product.
-    for lib in ("fused_core", "fused_core_train"):
+    # Every trunk kernel (B1, B6, B2, B3, and B7 at D = 128: the template's
+    # Mode::FF entry in fused_ff) is wgmma fed by TMA, each function counted on
+    # its own; the backward flushes its weight gradients with 4-wide
+    # reductions (REDG ... F32x4 in SASS) and neither the training trunk nor
+    # the FF entry holds a warp-level (WMMA) product.
+    for lib in ("fused_core", "fused_core_train", "fused_ff"):
         sass = subprocess.run([os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump"), "-sass",
                                str(_build.library_path(lib))],
                               capture_output=True, text=True, timeout=300).stdout
@@ -460,7 +466,8 @@ def main():
             funcs[fname.strip()] = ops
             print(f"  {lib} SASS {fname.strip()}: {ops}")
         want = {"fused_core": {"fused_core_kernel": 2},
-                "fused_core_train": {"fused_core_kernel": 1, "trunk_train_bwd_kernel": 1}}[lib]
+                "fused_core_train": {"fused_core_kernel": 1, "trunk_train_bwd_kernel": 1},
+                "fused_ff": {"fused_core_kernel": 1}}[lib]
         for kernel, n in want.items():
             if sum(kernel in f for f in funcs) != n:
                 fail(f"the binary of {lib} does not hold {n} {kernel}")
@@ -468,11 +475,20 @@ def main():
             ops = funcs[fname]
             if ops["HGMMA"] == 0 or ops["UTMALDG"] == 0:
                 fail(f"{fname} in {lib} holds no wgmma or no TMA load")
-            if lib == "fused_core_train" and ops["HMMA"]:
+            if lib in ("fused_core_train", "fused_ff") and ops["HMMA"]:
                 fail(f"{fname} in {lib} still holds warp-level (WMMA) products")
             if "trunk_train_bwd_kernel" in fname and ops["REDG x4"] == 0:
                 fail("the training backward flushes no weight gradient with a 4-wide reduction")
     print(f"  fused_ff: {ff.smem_bytes(128)} bytes at D = 128, {ff.smem_bytes(256)} at D = 256")
+    # The EMD kernel's special-function instructions (its bound counts a square
+    # root and an exp on them for each Sinkhorn element), for the record.
+    sass = subprocess.run([os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump"), "-sass",
+                           str(_build.library_path("emd_hybrid"))],
+                          capture_output=True, text=True, timeout=300).stdout
+    for part in sass.split("Function : ")[1:]:
+        fname, body = part.split("\n", 1)
+        mufu = {op: body.count(f"MUFU.{op}") for op in ("EX2", "SQRT", "RSQ", "LG2", "RCP")}
+        print(f"  emd_hybrid SASS {fname.strip()}: MUFU {mufu}")
 
     phase("3 kernels against their plain versions")
     max_err = 0.0
@@ -819,21 +835,28 @@ def main():
     ii = torch.arange(132, device=dev)
     a132, b132 = refs_n[ii % 32], gens_n[(ii + ii // 32) % 32]
     emd = {}
-    for B in (132, 32):
+    for B in (32, 132):
         a, b = a132[:B].contiguous(), b132[:B].contiguous()
         ms = cuda_ms(lambda: eh.emd_assignment_hybrid(a, b, auction_iters=AUCTION_ITERS), 2)
+        # The split: with no auction round the kernel runs the Sinkhorn and one
+        # force-assignment sweep; the difference is the auction.
+        sink_ms = cuda_ms(lambda: eh.emd_assignment_hybrid(a, b, auction_iters=0), 2)
         _, rounds, bids = eh.emd_assignment_hybrid(
             a, b, auction_iters=AUCTION_ITERS, return_work=True)
         bound, by = emd_bound_ms(2048, bids.tolist())
-        emd[B] = (ms, bound, by)
+        emd[B] = (ms, bound, by, sink_ms)
         print(f"emd_hybrid B={B} n=2048: {ms:.2f} ms ({ms / B:.3f} ms a pair), mean rounds "
               f"{rounds.float().mean().item():.1f}, mean bids {bids.float().mean().item():.0f} "
               f"({100 * bids.float().mean().item() / 2048 / (rounds.float().mean().item() + 1):.1f}% "
-              f"of rounds + 1 full sweeps), bound {bound:.3f} ms ({by}), "
-              f"{100 * bound / ms:.1f}% of roofline")
+              f"of rounds + 1 full sweeps), bound {bound:.3f} ms ({by}, {bound / B:.4f} ms a "
+              f"pair), {100 * bound / ms:.1f}% of roofline; split: Sinkhorn and one "
+              f"force-assignment sweep {sink_ms:.2f} ms, the auction {ms - sink_ms:.2f} ms "
+              f"({100 * (ms - sink_ms) / ms:.1f}%)")
     emd_plain_ms = cuda_ms(
         lambda: eh.emd_assignment_hybrid_reference(a, b, auction_iters=AUCTION_ITERS), 1)
-    print(f"emd_hybrid plain version B=32 n=2048: {emd_plain_ms:.1f} ms")
+    print(f"emd_hybrid plain version B=132 n=2048: {emd_plain_ms:.1f} ms")
+    del a, b, a132, b132
+    torch.cuda.empty_cache()
 
     phase("7 gen_chair training step, full width")
     from difffacto_torch.models import select_best_noise
@@ -1205,9 +1228,12 @@ def main():
     }, {
         "name": "emd_hybrid", "route": "cuda", "source": "difffacto_torch/csrc/emd_hybrid.cu",
         "replaces": "difffacto_tpu/ops/emd_pallas.py:51", "launches": counts["emd_hybrid"],
-        "max_abs_err": emd_diff, "ms": emd[32][0], "plain_ms": emd_plain_ms,
-        "bound_ms": emd[32][1], "bound_by": emd[32][2], "library_ms": None,
-        "ms_at_132_pairs": emd[132][0], "bound_ms_at_132_pairs": emd[132][1],
+        "max_abs_err": emd_diff, "ms": emd[132][0], "plain_ms": emd_plain_ms,
+        "bound_ms": emd[132][1], "bound_by": emd[132][2], "library_ms": None, "pairs": 132,
+        "ms_at_132_pairs": emd[132][0], "sinkhorn_ms_at_132_pairs": emd[132][3],
+        "auction_ms_at_132_pairs": emd[132][0] - emd[132][3],
+        "ms_at_32_pairs": emd[32][0], "bound_ms_at_32_pairs": emd[32][1],
+        "sinkhorn_ms_at_32_pairs": emd[32][3], "auction_ms_at_32_pairs": emd[32][0] - emd[32][3],
         "protocol_launches_pairs_ms": [[b, s.elapsed_time(e)] for s, e, b in emd_events],
     }, {
         "name": "fused_trunk_train_fwd", "route": "cuda",

@@ -16,75 +16,202 @@
 // Only the assignment comes out (and, for the bound, the rounds run and the
 // bids computed); matched distances are computed outside in f32 (ops/emd.py).
 //
-// What is not carried over from the TPU: its 8 MB bf16 distance cache, its
-// 128-lane tiles and per-tile fori_loops, the padded K = 8 matrix product and
-// the tile-skip counters. Distances are recomputed in f32 from coordinates
-// held on chip, as in the TPU kernel's own cache_dist=False branch, and rows
-// that are assigned simply do not bid.
+// What is not carried over from the TPU: its 8 MB bf16 distance cache (an SM
+// has 227 KB), its 128-lane tiles and per-tile fori_loops, the padded K = 8
+// matrix product and the tile-skip counters. Distances are recomputed in f32
+// from coordinates held on chip, as in the TPU kernel's own cache_dist=False
+// branch, and rows that are assigned simply do not bid.
 //
-// Layout: per pair, p1[i] = (x1_i, f_i) and p2[j] = (x2_j, g_j or price_j) as
-// float4, so a sweep reads one 16-byte broadcast word per element; then the
-// 64-bit per-object winner key, the assignment and the owner: 48 bytes a
-// point. Up to n = 4736 this is dynamic shared memory; beyond (n = 8192) the
-// same state lies in a global-memory workspace that the wrapper passes, and
-// L1/L2 serve the sweeps.
+// What bounds it on an H100: the Sinkhorn's 2 * iterations * m * n elements a
+// pair (1.26e9 at n = 2048), each a square root and an exp on the
+// special-function units (MUFU: 16 lanes an SM against 128 FMA lanes), so at
+// best 8 elements a clock an SM; the bids add n elements each (one square
+// root); the bytes (24 n read, 4 n written) are negligible. The design keeps
+// the sweep at about 11 instructions an element, so that the MUFU and
+// not the dispatch slots set its pace:
 //
-// A sweep gives each thread a row (or a column) and an online log-sum-exp
-// over the other axis in chunks of four. The per-object winner is one 64-bit
-// atomicMax on (bits of the bid, ~row): bids are positive, so their bits
-// order as unsigned integers, and ~row makes the lowest row win a tie; the
-// result does not depend on the order of the atomics.
+// - Base-2 log domain. The potentials are held scaled by c = log2(e) / eps in
+//   the .w of each point's float4 (rescaled when eps steps), so an element is
+//   z = fma(-c, d, w_other) + w_self and the term 2^z is one ex2.approx.
+// - d = sqrt.approx(dx^2 + dy^2 + dz^2): one MUFU.
+// - No running max. A point's sum is shifted by its own potential from the
+//   previous sweep (w_self above): with f_i + g_j - d_ij <= about 0 at every
+//   sweep of the annealed Sinkhorn the terms stay near 1 or below. A sum
+//   outside [2^-64, 2^64], or not finite, puts the point on a list that the
+//   warps then redo with the exact max (two passes, lanes over the other
+//   axis, shuffle reductions); new w = w_self - log2(sum), with the accurate
+//   log2f (once a point a sweep).
+// - Each thread sweeps four points against every point of the other axis: one
+//   shared-memory broadcast (16 bytes) feeds four independent accumulators
+//   (n / 4 threads up to 1024, so 512 at n = 2048). Two points a thread, or
+//   eight with 128 registers, ran slower.
 //
-// Bound: 2 * sinkhorn_iters * m * n Sinkhorn elements a pair and n elements
-// for every bid (only unassigned rows bid, so the kernel counts them: the
-// unassigned rows of each round plus the rows force-assigned at the end), each
-// element about 10 f32 operations and a square root, and in the Sinkhorn
-// sweeps one exp; the bytes (24 n read, 4 n written) are negligible. expf and
-// logf are the accurate ones, not the fast intrinsics.
+// What the approximations cost: sqrt.approx and ex2.approx (flush-to-zero)
+// are within about 2 ulp of the exact results (PTX ISA: relative error 2^-22
+// and 2^-22.5 for ex2 of an argument in range); a term below 2^-126 flushes to
+// 0, which inside the band is below 2^-51 of the sum. In the potentials that
+// is a few f32 ulp a sweep, far below eps; the plain version
+// (ops/emd_hybrid.py) computes exact square roots and exps with a max shift,
+// so near-ties may go to other objects: the matched costs agree within 0.5 %.
+// ops/emd_hybrid.py:sinkhorn_log2_reference models this sweep (shift, band,
+// redo) on the CPU.
+//
+// The auction's bids are a warp's job each: the unassigned rows of each
+// 32-row chunk (a ballot over the assignment), chunks striped over the
+// warps; lanes scan objects lane, lane + 32, ... and a shuffle reduction of
+// (best, second, lowest index) gives the serial scan's result exactly
+// (ops/emd_hybrid.py:best_two_strided models it). The per-object winner is one
+// 64-bit atomicMax on (bits of the bid, ~row): bids are positive, so their
+// bits order as unsigned integers, and ~row makes the lowest row win a tie;
+// the result does not depend on the order of the atomics. The
+// force-assignment sweep runs the same routine.
+//
+// Layout: per pair, p1[i] = (x1_i, w_i) and p2[j] = (x2_j, w_j or price_j) as
+// float4; then the 64-bit per-object winner key, the assignment (the redo
+// list during the Sinkhorn) and the owner: 48 bytes a point. Up to n = 4736
+// this is dynamic shared memory; beyond (n = 8192) the same state lies in a
+// global-memory workspace that the wrapper passes, and L1/L2 serve the sweeps.
 
 #include <cuda_runtime.h>
+#include <climits>
 #include <cstdint>
 
 namespace {
 
 constexpr int SMEM_LIMIT = 232448;   // what one Hopper thread block may use
 constexpr int STATE_BYTES = 48;      // per point: 2 float4, u64, 2 int
+constexpr int ROWS = 4;              // points a thread sweeps at once
 constexpr float NEG = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float SUM_LO = 0x1p-64f, SUM_HI = 0x1p64f;  // the shifted sum's band
+constexpr unsigned FULL = 0xffffffffu;
+
+__device__ __forceinline__ float sqrt_approx(float x) {
+  float y;
+  asm("sqrt.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
 
 __device__ __forceinline__ float dist(const float4& a, const float4& b) {
   const float dx = a.x - b.x, dy = a.y - b.y, dz = a.z - b.z;
-  return sqrtf(dx * dx + dy * dy + dz * dz);
+  return sqrt_approx(fmaf(dz, dz, fmaf(dy, dy, dx * dx)));
 }
 
-// -eps * log(sum_k exp((other[k].w - d(self, other[k])) / eps)); count % 4 == 0.
-__device__ __forceinline__ float soft_min(const float4 self, const float4* other, int count,
-                                          float eps, float inv_eps) {
-  float M = NEG, S = 0.0f;
-  for (int k = 0; k < count; k += 4) {
-    float z[4];
+// One half of a Sinkhorn iteration: every point of `self` (count of them)
+// against every point of `other`. With w the scaled potentials,
+// S = sum_k 2^(fma(-c, d, other[k].w) + self.w) and self.w -= log2(S); a sum
+// outside the band goes on the redo list instead.
+__device__ __forceinline__ void sweep_shifted(float4* self, int count, const float4* other,
+                                              int others, float c, int* redo, int* redo_count) {
+  const int tid = threadIdx.x, T = blockDim.x;
+  for (int base = 0; base < count; base += ROWS * T) {
+    float4 p[ROWS];
+    float S[ROWS];
 #pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const float4 q = other[k + u];
-      z[u] = (q.w - dist(self, q)) * inv_eps;
+    for (int r = 0; r < ROWS; ++r) {
+      p[r] = self[min(base + r * T + tid, count - 1)];
+      S[r] = 0.0f;
     }
-    const float cm = fmaxf(fmaxf(z[0], z[1]), fmaxf(z[2], z[3]));
-    if (cm > M) { S *= expf(M - cm); M = cm; }
-    S += (expf(z[0] - M) + expf(z[1] - M)) + (expf(z[2] - M) + expf(z[3] - M));
+#pragma unroll 4
+    for (int k = 0; k < others; ++k) {
+      const float4 q = other[k];
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) S[r] += exp2_approx(fmaf(-c, dist(p[r], q), q.w) + p[r].w);
+    }
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      const int i = base + r * T + tid;
+      if (i >= count) continue;
+      if (S[r] >= SUM_LO && S[r] <= SUM_HI) self[i].w = p[r].w - log2f(S[r]);
+      else redo[atomicAdd(redo_count, 1)] = i;
+    }
   }
-  return -eps * (logf(fmaxf(S, 1e-30f)) + M);
 }
 
-// A row's best object at the current prices: the largest -d - price (lowest
-// index among equals) and the largest value among the other objects.
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
+  return v;
+}
+
+// The points on the redo list, a warp each, with the exact max:
+// M = max_k z_k, S = sum_k 2^(z_k - M) >= 1, self.w = -(M + log2(S)).
+__device__ __forceinline__ void sweep_redo(float4* self, const float4* other, int others, float c,
+                                           const int* redo, int n_redo) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, W = blockDim.x >> 5;
+  for (int e = warp; e < n_redo; e += W) {
+    const int i = redo[e];
+    const float4 p = self[i];
+    float M = NEG;
+    for (int k = lane; k < others; k += 32) {
+      const float4 q = other[k];
+      M = fmaxf(M, fmaf(-c, dist(p, q), q.w));
+    }
+    M = warp_max(M);
+    float S = 0.0f;
+    for (int k = lane; k < others; k += 32) {
+      const float4 q = other[k];
+      S += exp2_approx(fmaf(-c, dist(p, q), q.w) - M);
+    }
+    S = warp_sum(S);
+    if (lane == 0) self[i].w = -(M + log2f(S));
+  }
+}
+
+// A whole half-iteration: the shifted sweep, then the redo list. `count` is
+// this half's list counter, `other_count` the other half's, which no thread
+// reads again before the next half (two barriers on).
+__device__ __forceinline__ void sinkhorn_half(float4* self, int count, const float4* other,
+                                              int others, float c, int* redo, int* redo_count,
+                                              int* other_count) {
+  if (threadIdx.x == 0) *other_count = 0;
+  sweep_shifted(self, count, other, others, c, redo, redo_count);
+  __syncthreads();
+  const int n_redo = *redo_count;
+  if (n_redo > 0) sweep_redo(self, other, others, c, redo, n_redo);
+  __syncthreads();
+}
+
+// A row's best object at the current prices, a warp's job: the largest
+// -d - price (lowest index among equals) and the largest value among the
+// other objects. Lanes scan objects lane, lane + 32, ... as the serial scan
+// does, then a butterfly merges (best, second, index); every lane ends with
+// the result, which equals the serial scan's over all n objects.
 __device__ __forceinline__ void best_two(const float4 self, const float4* p2, int n,
                                          float& best, float& second, int& bj) {
-  best = NEG; second = NEG; bj = 0;
-  for (int j = 0; j < n; ++j) {
+  const int lane = threadIdx.x & 31;
+  best = NEG; second = NEG; bj = INT_MAX;
+  for (int j = lane; j < n; j += 32) {
     const float4 q = p2[j];
     const float v = -dist(self, q) - q.w;
     if (v > best) { second = best; best = v; bj = j; }
     else if (v > second) { second = v; }
   }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const float ob = __shfl_xor_sync(FULL, best, o), os = __shfl_xor_sync(FULL, second, o);
+    const int oj = __shfl_xor_sync(FULL, bj, o);
+    if (ob > best || (ob == best && oj < bj)) {
+      second = fmaxf(os, best);
+      best = ob;
+      bj = oj;
+    } else {
+      second = fmaxf(second, ob);
+    }
+  }
+  if (bj == INT_MAX) bj = 0;  // no value above NEG: the serial scan keeps 0
 }
 
 template <bool SMEM>
@@ -96,6 +223,7 @@ emd_hybrid_kernel(const float* __restrict__ x1, const float* __restrict__ x2,
                   int n, int m, int sinkhorn_iters, int auction_iters, float eps) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ int unassigned;
+  __shared__ int redo_count[2];
 
   unsigned char* base = SMEM ? smem_raw
                              : workspace + (size_t)blockIdx.x * n * STATE_BYTES;
@@ -106,44 +234,61 @@ emd_hybrid_kernel(const float* __restrict__ x1, const float* __restrict__ x2,
   int* owner = assign + n;
 
   const int tid = threadIdx.x, T = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5, W = T >> 5;
   const float* a = x1 + (size_t)blockIdx.x * n * 3;
   const float* b = x2 + (size_t)blockIdx.x * n * 3;
   for (int i = tid; i < n; i += T) {
-    p1[i] = make_float4(a[3 * i], a[3 * i + 1], a[3 * i + 2], 0.0f);
+    p1[i] = make_float4(a[3 * i], a[3 * i + 1], a[3 * i + 2], 0.0f);  // f = 0
     p2[i] = make_float4(b[3 * i], b[3 * i + 1], b[3 * i + 2], 0.0f);  // g = 0
     win[i] = 0ull;
-    assign[i] = -1;
-    owner[i] = -1;
   }
-  if (tid == 0) unassigned = n;
+  if (tid == 0) {
+    unassigned = n;
+    redo_count[0] = redo_count[1] = 0;
+  }
   __syncthreads();
 
-  // ---- phase 1: Sinkhorn. Rows 0..m-1 carry f, every column carries g.
+  // ---- phase 1: Sinkhorn. Rows 0..m-1 carry c f, every column c g; the
+  // redo list lies in `assign` until the auction.
+  float c = sinkhorn_iters > 0 ? LOG2E / eps_table[0] : 1.0f;
   for (int k = 0; k < sinkhorn_iters; ++k) {
-    const float e = eps_table[k];
-    const float inv = 1.0f / e;
-    for (int i = tid; i < m; i += T) p1[i].w = soft_min(p1[i], p2, n, e, inv);
-    __syncthreads();
-    for (int j = tid; j < n; j += T) p2[j].w = soft_min(p2[j], p1, m, e, inv);
-    __syncthreads();
+    const float ck = LOG2E / eps_table[k];
+    if (ck != c) {  // eps stepped: both potentials to the new scale
+      const float ratio = ck / c;
+      for (int i = tid; i < m; i += T) p1[i].w *= ratio;
+      for (int j = tid; j < n; j += T) p2[j].w *= ratio;
+      c = ck;
+      __syncthreads();
+    }
+    sinkhorn_half(p1, m, p2, n, c, assign, &redo_count[0], &redo_count[1]);
+    sinkhorn_half(p2, n, p1, m, c, assign, &redo_count[1], &redo_count[0]);
   }
 
-  // ---- phase 2: auction from price = -g.
-  for (int j = tid; j < n; j += T) p2[j].w = -p2[j].w;
+  // ---- phase 2: auction from price = -g = -w / c.
+  for (int j = tid; j < n; j += T) {
+    p2[j].w = -p2[j].w / c;
+    assign[j] = -1;
+    owner[j] = -1;
+  }
   __syncthreads();
 
   int rounds = 0, bids = 0;  // the same in every thread
   while (rounds < auction_iters) {
     bids += unassigned;  // written next after the barrier below
-    for (int i = tid; i < n; i += T) {
-      if (assign[i] >= 0) continue;
-      float best, second;
-      int bj;
-      best_two(p1[i], p2, n, best, second, bj);
-      const float inc = best - second + eps;  // > 0
-      const unsigned long long key =
-          ((unsigned long long)__float_as_uint(inc) << 32) | (unsigned)(~(unsigned)i);
-      atomicMax(&win[bj], key);
+    for (int r0 = warp * 32; r0 < n; r0 += W * 32) {
+      unsigned todo = __ballot_sync(FULL, assign[r0 + lane] < 0);
+      while (todo) {
+        const int i = r0 + __ffs(todo) - 1;
+        todo &= todo - 1;
+        float best, second;
+        int bj;
+        best_two(p1[i], p2, n, best, second, bj);
+        if (lane == 0) {
+          const float inc = best - second + eps;  // > 0
+          atomicMax(&win[bj], ((unsigned long long)__float_as_uint(inc) << 32) |
+                                  (unsigned)(~(unsigned)i));
+        }
+      }
     }
     __syncthreads();
     // Each taken object: raise the price, evict the owner, seat the winner.
@@ -169,13 +314,18 @@ emd_hybrid_kernel(const float* __restrict__ x1, const float* __restrict__ x2,
   // ---- phase 3: stragglers take their best object at the final prices.
   bids += unassigned;
   int* o = out + (size_t)blockIdx.x * n;
-  for (int i = tid; i < n; i += T) {
-    int j = assign[i];
-    if (j < 0) {
+  for (int r0 = warp * 32; r0 < n; r0 += W * 32) {
+    const int j = assign[r0 + lane];
+    if (j >= 0) o[r0 + lane] = j;
+    unsigned todo = __ballot_sync(FULL, j < 0);
+    while (todo) {
+      const int i = r0 + __ffs(todo) - 1;
+      todo &= todo - 1;
       float best, second;
-      best_two(p1[i], p2, n, best, second, j);
+      int bj;
+      best_two(p1[i], p2, n, best, second, bj);
+      if (lane == 0) o[i] = bj;
     }
-    o[i] = j;
   }
   if (tid == 0 && rounds_out != nullptr) rounds_out[blockIdx.x] = rounds;
   if (tid == 0 && bids_out != nullptr) bids_out[blockIdx.x] = bids;
@@ -191,14 +341,15 @@ extern "C" long long difffacto_emd_hybrid_workspace_bytes(int n) {
 
 // x1, x2 (B, n, 3) f32 contiguous; eps_table (sinkhorn_iters,) f32; out (B, n)
 // int32; rounds, bids (B,) int32 or null; workspace B * workspace_bytes(n) bytes,
-// 16-byte aligned, or null where that is 0. n % 4 == 0 and m % 4 == 0, 0 < m <= n.
+// 16-byte aligned, or null where that is 0. n % 128 == 0 and 0 < m <= n.
 // Returns a cudaError_t.
 extern "C" int difffacto_emd_hybrid(const void* x1, const void* x2, const void* eps_table,
                                     void* out, void* rounds, void* bids, void* workspace,
                                     int B, int n, int m, int sinkhorn_iters,
                                     int auction_iters, float eps, void* stream) {
-  if (B <= 0 || n <= 0 || n % 4 || m <= 0 || m > n || m % 4) return (int)cudaErrorInvalidValue;
-  const int threads = n >= 1024 ? 1024 : (n + 31) / 32 * 32;
+  if (B <= 0 || n <= 0 || n % (32 * ROWS) || m <= 0 || m > n) return (int)cudaErrorInvalidValue;
+  // ROWS points a thread, whole warps: n / ROWS threads up to 1024.
+  const int threads = n / ROWS >= 1024 ? 1024 : n / ROWS;
   const size_t bytes = (size_t)n * STATE_BYTES;
   cudaStream_t s = (cudaStream_t)stream;
   if (bytes <= (size_t)SMEM_LIMIT) {

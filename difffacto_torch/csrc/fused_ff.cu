@@ -1,4 +1,4 @@
-// Fused LayerNorm -> GEGLU feed-forward -> residual, one kernel for sm_90a.
+// Fused LayerNorm -> GEGLU feed-forward -> residual, for sm_90a.
 //
 // Replaces the TPU kernel difffacto_tpu/ops/fused_ff.py:_kernel (the Pallas
 // program that FusedLNFF launches, difffacto_tpu/nn/layers.py:146). For every
@@ -15,21 +15,31 @@
 // Bound on an H100 (989 TFLOP/s bf16, 3.35 TB/s): 3 D FF = 12 D^2 MACs per
 // token, so 24 D^2 FLOP: 2.06e11 at T = 524,288 and D = 128 (0.21 ms), against
 // 4 T D bytes of activations plus 24 D^2 bytes of weights (0.08 ms): the
-// kernel is compute-bound.
+// kernel is compute-bound, so it has to run on the tensor cores' full rate
+// (wgmma) with the weights streamed behind the products.
 //
-// Design (simple first): one thread block of 8 warps per 64-token tile; the
-// ragged edge is zero-filled and not stored, so any T >= 1 is taken. The
-// tile's x and its LayerNorm stay in shared memory. The FF inner units are
-// walked in 64-wide chunks: the chunk's u and g columns of W1 are staged, the
-// two 64 x 64 products go to f32 shared memory, the GEGLU writes the chunk of
-// act in bf16, the chunk's 64 rows of W2 are staged where W1's were, and the
-// 64 x D output accumulates in WMMA registers over the chunks, so the
-// 64 x 2 FF intermediate never exists whole. Shared memory is 113 KB at
-// D = 128 and 181 KB at D = 256.
+// D = 128 (the two-attention denoiser, 500 launches a generation): the trunk
+// template of csrc/trunk.cuh in Mode::FF, the FF half of csrc/fused_core.cu's
+// blocks on its own. A persistent grid of one thread block per SM walks
+// 128-token tiles (ops/fused_core.py:schedule(1, T, sms), passed in by the
+// wrapper); the ragged tail is zero-filled and not stored. A producer thread
+// streams W1's u|g columns and W2's rows in 8 chunks of 64 inner units
+// through a 4-stage TMA ring that never drains between tiles; two consumer
+// warpgroups of 64 tokens each keep x, LN(x), the GEGLU activations and the
+// W2 accumulator in registers (wgmma with A from registers, B from the ring)
+// and apply the LayerNorm, GEGLU and residual epilogues on the fragments.
+// Each chunk fetched from L2 serves 128 tokens. The chunk loop stays unrolled
+// by 2 (the ptxas hazard noted in trunk.cuh).
 //
-// Like the trunk kernel (fused_core.cu), every tile re-reads all of W1 and W2
-// (24 D^2 bytes) from L2, the loads are synchronous and WMMA is not wgmma:
-// all later work.
+// D = 256 (the aligner, T = 4 B, 5 launches a generation): the first design,
+// in namespace `wide` below, WMMA over 64-token tiles with synchronous weight
+// staging. The trunk template is fixed at D = 128: at 256 its f32 output
+// accumulator (128 registers a thread) beside the packed x and LN(x) would not
+// fit in the consumers' 232 registers unless LN(x) were parked in shared
+// memory, which the ring leaves no room for. The aligner's launches take
+// about 0.8 ms a generation, so the wide instantiation is left for later.
+
+#include "trunk.cuh"
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -37,9 +47,9 @@
 #include <stdint.h>
 
 using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
 
 namespace {
+namespace wide {
 
 constexpr int TILE = 64;      // tokens per thread block
 constexpr int THREADS = 256;  // 8 warps
@@ -49,7 +59,8 @@ constexpr int LDU = CW + 4;   // f32 row stride of u and g
 
 constexpr int cmax(int a, int b) { return a > b ? a : b; }
 
-template <int D>
+constexpr int D = 256;        // the aligner's width (128 runs the trunk template)
+
 struct Smem {
   static constexpr int FF = 4 * D;
   static constexpr int LDX = D + 8;  // bf16 row stride of x, h and a chunk of W2
@@ -90,9 +101,8 @@ __device__ __forceinline__ float gelu_tanh(float v) {
   return 0.5f * v * (1.0f + tanhf(k0 * (v + 0.044715f * v * v * v)));
 }
 
-template <int D>
 __global__ void __launch_bounds__(THREADS, 1) fused_ff_kernel(const Args a) {
-  using S = Smem<D>;
+  using S = Smem;
   constexpr int FF = S::FF, LDX = S::LDX, LDO = S::LDO;
   constexpr int VEC = D / 8;    // 16-byte vectors in a row of x
   constexpr int PER = D / 32;   // LayerNorm columns per lane
@@ -241,31 +251,43 @@ __global__ void __launch_bounds__(THREADS, 1) fused_ff_kernel(const Args a) {
   }
 }
 
-template <int D>
 int launch(const Args& a, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      fused_ff_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<D>::BYTES);
+      fused_ff_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Smem::BYTES);
   if (err != cudaSuccess) return (int)err;
   const long long blocks = (a.T + TILE - 1) / TILE;
-  fused_ff_kernel<D><<<(unsigned)blocks, THREADS, Smem<D>::BYTES, stream>>>(a);
+  fused_ff_kernel<<<(unsigned)blocks, THREADS, Smem::BYTES, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
+}  // namespace wide
 }  // namespace
 
+// x, out (T, D) bf16; ln_scale, ln_bias (D,) bf16; w1 (D, 8 D), w2 (4 D, D)
+// bf16; b1 (8 D,), b2 (D,) f32. D = 128 walks `grid` blocks over
+// `tiles_per_row` tiles of 128 tokens (the wrapper's schedule); D = 256 takes
+// neither. Returns a cudaError_t.
 extern "C" int difffacto_fused_ff(const void* x, const void* ln_scale, const void* ln_bias,
                                   const void* w1, const void* b1, const void* w2, const void* b2,
-                                  void* out, long long T, int D, void* stream) {
-  if (T < 1 || (T + TILE - 1) / TILE > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  Args a;
+                                  void* out, long long T, int D, int grid, int tiles_per_row,
+                                  void* stream) {
+  if (T < 1 || T > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (D == 128) {
+    Params p = {};
+    p.x = (const bf16*)x;
+    p.ff_scale = (const bf16*)ln_scale; p.ff_bias = (const bf16*)ln_bias;
+    p.b1 = (const float*)b1; p.b2 = (const float*)b2;
+    p.out = (bf16*)out;
+    p.B = 1; p.N = (int)T; p.depth = 1;
+    return (int)launch<Mode::FF>(p, grid, tiles_per_row, nullptr, nullptr, w1, w2, s);
+  }
+  if (D != 256) return (int)cudaErrorInvalidValue;
+  wide::Args a;
   a.x = (const bf16*)x; a.ln_scale = (const bf16*)ln_scale; a.ln_bias = (const bf16*)ln_bias;
   a.w1 = (const bf16*)w1; a.b1 = (const float*)b1; a.w2 = (const bf16*)w2;
   a.b2 = (const float*)b2; a.out = (bf16*)out; a.T = T;
-  switch (D) {
-    case 128: return launch<128>(a, (cudaStream_t)stream);
-    case 256: return launch<256>(a, (cudaStream_t)stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return wide::launch(a, s);
 }
 
 extern "C" const char* difffacto_cuda_error_string(int code) {
@@ -274,5 +296,5 @@ extern "C" const char* difffacto_cuda_error_string(int code) {
 
 // Dynamic shared memory of one thread block at width D, for reports.
 extern "C" int difffacto_fused_ff_smem_bytes(int D) {
-  return D == 128 ? Smem<128>::BYTES : D == 256 ? Smem<256>::BYTES : 0;
+  return D == 128 ? SMEM_BYTES : D == 256 ? wide::Smem::BYTES : 0;
 }

@@ -1,7 +1,8 @@
 // The denoiser trunk's block math for sm_90a as one template, shared by the
-// generation trunk and the one-block entry (csrc/fused_core.cu) and by the
-// training trunk's forward (csrc/fused_core_train.cu); the design is
-// described at the top of csrc/fused_core.cu.
+// generation trunk and the one-block entry (csrc/fused_core.cu), the training
+// trunk's forward (csrc/fused_core_train.cu) and the fused LN-GEGLU FF at
+// D = 128 (csrc/fused_ff.cu); the design is described at the top of
+// csrc/fused_core.cu.
 //
 // Mode::TRUNK: proj_in, pre-LN, depth blocks, post-LN.
 // Mode::BLOCK: one block on x (B, N, 128) as it is, its residual stream out.
@@ -9,6 +10,10 @@
 //   (site 0) and on the GEGLU activations (site 1), post-LN; with p.acts set
 //   it also stores each block's input u and post-attention hidden up, and the
 //   hidden before the post-LN, for the backward kernel.
+// Mode::FF: the GEGLU feed-forward half alone on x (T, 128) as it is (B = 1,
+//   N = T): x + FF(LN(x)) with FF's LayerNorm and biases, no attention, no K
+//   or V, 16 weight chunks a tile (csrc/fused_ff.cu, the two-attention
+//   block's FusedLNFF).
 //
 // Dropout masks come from a 32-bit integer hash of (seed, batch row, global
 // token, block, site, column): a murmur3 finalizer chained over the fields,
@@ -33,7 +38,7 @@ namespace {
 
 using namespace hopper;
 
-enum class Mode { TRUNK, BLOCK, TRAIN };
+enum class Mode { TRUNK, BLOCK, TRAIN, FF };
 
 constexpr int D = 128;          // model width
 constexpr int CTX = 4;          // context (part) tokens
@@ -301,13 +306,14 @@ struct Ring {
   }
 };
 
-// The producer: every chunk of `passes` block passes, in the consumers' order.
+// The producer: the chunks from `first` on (2 skips Wq and Wout) of `passes`
+// block passes, in the consumers' order.
 __device__ __forceinline__ void produce(const Params& p, unsigned char* ring, uint64_t* full,
-                                        uint64_t* empty, int passes) {
+                                        uint64_t* empty, int passes, int first) {
   int it = 0;
   for (int pass = 0; pass < passes; ++pass) {
     const int i = pass % p.depth;
-    for (int c = 0; c < CHUNKS; ++c, ++it) {
+    for (int c = first; c < CHUNKS; ++c, ++it) {
       const int s = it % STAGES;
       mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
       unsigned char* dst = ring + s * STAGE_BYTES;
@@ -349,7 +355,7 @@ __device__ __forceinline__ void stage_kv(const Params& p, bf16* kv, float* mask,
   named_sync(1, CT);
 }
 
-// One of the three modes (see the note at the top).
+// One of the four modes (see the note at the top).
 template <Mode MODE>
 __device__ __forceinline__ void consume(const Params& p, unsigned char* smem, Ring ring) {
   const int tid = threadIdx.x, lane = tid & 31, g = lane >> 2, t = lane & 3;
@@ -359,7 +365,7 @@ __device__ __forceinline__ void consume(const Params& p, unsigned char* smem, Ri
   float* mask = reinterpret_cast<float*>(smem + OFF_MASK);
   uint32_t* stash = reinterpret_cast<uint32_t*>(smem + OFF_STASH) + tid;
 
-  constexpr bool TRUNK = MODE == Mode::TRUNK, TRAIN = MODE == Mode::TRAIN;
+  constexpr bool TRUNK = MODE == Mode::TRUNK, TRAIN = MODE == Mode::TRAIN, FFONLY = MODE == Mode::FF;
   const size_t slot = (size_t)p.B * p.N * D;  // elements of one saved-activation slot
   if constexpr (TRUNK) {
     for (int i = tid; i < MAX_IN * D; i += CT) {
@@ -373,7 +379,7 @@ __device__ __forceinline__ void consume(const Params& p, unsigned char* smem, Ri
     const int n0 = (tile - b * p.tiles_per_row) * TILE;
     // K and V of the row's first blocks, and its mask (the first barrier also
     // publishes the proj_in kernel).
-    stage_kv(p, kv, mask, b, 0, tid);
+    if constexpr (!FFONLY) stage_kv(p, kv, mask, b, 0, tid);
 
     // ---- the tile's rows in, zero past the last token
     uint32_t h[32];
@@ -422,21 +428,23 @@ __device__ __forceinline__ void consume(const Params& p, unsigned char* smem, Ri
     }
 
     for (int i = 0; i < p.depth; ++i) {
-      if (i > 0 && i % KV_GROUP == 0) stage_kv(p, kv, mask, b, i, tid);
-      const bf16* K = kv + (i % KV_GROUP) * 2 * CTX * D;
-      // ---- attention half
       uint32_t a[32];
       float acc[64];
-      layer_norm(h, a, p.n2_scale + i * D, p.n2_bias + i * D, t);
-      ring.product<8>(acc, a, false);                       // q = a Wq
-      attention(acc, K, K + CTX * D, mask, p.scale, t, a);  // a = attn
-      ring.product<8>(acc, a, false);                       // attn Wout
-      if constexpr (TRAIN) {
-        if (p.acts) store_rows(p.acts + 2 * i * slot, h, p, b, n0, row0, t);  // u
-        residual_add(h, acc, p.bout + i * D, t, Dropout(p, b, n0 + row0, i, 0));
-        if (p.acts) store_rows(p.acts + (2 * i + 1) * slot, h, p, b, n0, row0, t);  // up
-      } else {
-        residual_add(h, acc, p.bout + i * D, t);
+      if constexpr (!FFONLY) {
+        if (i > 0 && i % KV_GROUP == 0) stage_kv(p, kv, mask, b, i, tid);
+        const bf16* K = kv + (i % KV_GROUP) * 2 * CTX * D;
+        // ---- attention half
+        layer_norm(h, a, p.n2_scale + i * D, p.n2_bias + i * D, t);
+        ring.product<8>(acc, a, false);                       // q = a Wq
+        attention(acc, K, K + CTX * D, mask, p.scale, t, a);  // a = attn
+        ring.product<8>(acc, a, false);                       // attn Wout
+        if constexpr (TRAIN) {
+          if (p.acts) store_rows(p.acts + 2 * i * slot, h, p, b, n0, row0, t);  // u
+          residual_add(h, acc, p.bout + i * D, t, Dropout(p, b, n0 + row0, i, 0));
+          if (p.acts) store_rows(p.acts + (2 * i + 1) * slot, h, p, b, n0, row0, t);  // up
+        } else {
+          residual_add(h, acc, p.bout + i * D, t);
+        }
       }
 
       // ---- GEGLU feed-forward half, 8 chunks of 64 inner units
@@ -465,9 +473,9 @@ __device__ __forceinline__ void consume(const Params& p, unsigned char* smem, Ri
       residual_add(h, ff, p.b2 + i * D, t);
     }
 
-    // ---- post-LN (not for one block) and the store of the valid rows
+    // ---- post-LN (not for one block or the FF alone) and the store of the valid rows
     uint32_t y[32];
-    if constexpr (MODE == Mode::BLOCK) {
+    if constexpr (MODE == Mode::BLOCK || FFONLY) {
 #pragma unroll
       for (int w = 0; w < 32; ++w) y[w] = h[w];
     } else {
@@ -500,12 +508,15 @@ __global__ void __launch_bounds__(THREADS, 1) fused_core_kernel(const __grid_con
   if (warp >= 4 * CONSUMERS) {
     setmaxnreg_dec<PRODUCER_REGS>();
     if (threadIdx.x == CT) {
-      prefetch_tensormap(&p.wq);
-      prefetch_tensormap(&p.wout);
+      constexpr bool FFONLY = MODE == Mode::FF;  // no Wq, Wout maps
+      if (!FFONLY) {
+        prefetch_tensormap(&p.wq);
+        prefetch_tensormap(&p.wout);
+      }
       prefetch_tensormap(&p.w1);
       prefetch_tensormap(&p.w2);
       const int tiles = (p.total_tiles - blockIdx.x + gridDim.x - 1) / gridDim.x;
-      produce(p, smem + OFF_RING, full, empty, tiles * p.depth);
+      produce(p, smem + OFF_RING, full, empty, tiles * p.depth, FFONLY ? 2 : 0);
     }
   } else {
     setmaxnreg_inc<CONSUMER_REGS>();
@@ -550,7 +561,8 @@ cudaError_t weight_map(CUtensorMap* map, const void* w, int depth, int rows, int
 }
 
 // The wrapper's schedule: `grid` blocks walk B x tiles_per_row tiles. Refused
-// unless the tiles cover every token and every block has one.
+// unless the tiles cover every token and every block has one. Mode::FF takes
+// no Wq or Wout (null).
 template <Mode MODE>
 cudaError_t launch(Params& p, int grid, int tiles_per_row, const void* wq, const void* wout,
                    const void* w1, const void* w2, cudaStream_t stream) {
@@ -560,8 +572,11 @@ cudaError_t launch(Params& p, int grid, int tiles_per_row, const void* wq, const
     return cudaErrorInvalidValue;
   p.tiles_per_row = tiles_per_row;
   p.total_tiles = (int)total;
-  cudaError_t err = weight_map(&p.wq, wq, p.depth, D, D, D);
-  if (err == cudaSuccess) err = weight_map(&p.wout, wout, p.depth, D, D, D);
+  cudaError_t err = cudaSuccess;
+  if (MODE != Mode::FF) {
+    err = weight_map(&p.wq, wq, p.depth, D, D, D);
+    if (err == cudaSuccess) err = weight_map(&p.wout, wout, p.depth, D, D, D);
+  }
   if (err == cudaSuccess) err = weight_map(&p.w1, w1, p.depth, D, 2 * FF, D);
   if (err == cudaSuccess) err = weight_map(&p.w2, w2, p.depth, FF, D, FC);
   if (err == cudaSuccess)

@@ -12,10 +12,18 @@ caller in f32 (``ops/emd.py``).
 
 ``emd_assignment_hybrid`` launches the kernel for CUDA tensors and runs
 ``emd_assignment_hybrid_reference`` for CPU tensors. The plain version
-repeats the kernel's arithmetic (direct f32 distances, the same eps table,
-the same tie rules) but sums its log-sum-exp in another order, so on
-near-ties the two may choose other objects: their costs agree, their
-assignments need not.
+computes the same function the straightforward way: direct f32 distances
+with exact square roots, natural-log sums shifted by their max and exact
+exps, the same eps table and the same tie rules. The kernel works in base 2
+with the approximate square root and exp of the special-function units,
+shifts each sum by the point's own potential from the previous sweep and
+redoes a point with the exact max only when that sum leaves its band. So the
+two no longer agree bit for bit, and on near-ties they may choose other
+objects: their costs agree, their assignments need not.
+``sinkhorn_log2_reference`` models the kernel's sweep (the scaled base-2
+potentials, the shift, the band and the redo) and ``best_two_strided`` its
+warp-parallel bid (lanes over strided objects, then a butterfly of (best,
+second, lowest index)), for the CPU tests.
 """
 
 from __future__ import annotations
@@ -70,43 +78,80 @@ def _check(xyz1, xyz2):
         raise ValueError("emd_assignment_hybrid: the two clouds must share one device")
 
 
-def emd_assignment_hybrid_reference(
-    xyz1: torch.Tensor, xyz2: torch.Tensor, *, sinkhorn_iters: int = 150,
-    sinkhorn_inner: int = 30, auction_iters: int = 300, eps: float = 0.002,
-    eps_start: float = 0.05, eps_decay: float = 0.4, sinkhorn_rows: int = 0,
-    return_work: bool = False,
-):
-    """Plain PyTorch version of the kernel, on the device of its inputs.
-
-    (B, n, 3) x (B, n, 3) -> assignment (B, n) int32 (x1 point -> x2 index),
-    and with ``return_work`` the auction rounds each pair ran and the bids it
-    computed (the unassigned rows of every round plus the rows force-assigned
-    at the end), each (B,) int32.
-    It holds the (B, n, n) distance matrix, so it is for checks, not for size.
-    """
-    _check(xyz1, xyz2)
-    B, n, _ = xyz1.shape
-    x1, m, inv_perm = _sinkhorn_rows(xyz1.float(), sinkhorn_rows)
-    x2 = xyz2.float()
-    dev = x1.device
+def pair_distances(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
+    """(B, m, 3) x (B, n, 3) f32 -> (B, m, n) L2 distances from direct differences."""
     dx = x1[:, :, None, 0] - x2[:, None, :, 0]
     dy = x1[:, :, None, 1] - x2[:, None, :, 1]
     dz = x1[:, :, None, 2] - x2[:, None, :, 2]
-    d = (dx * dx + dy * dy + dz * dz).sqrt()  # (B, n, n)
-    del dx, dy, dz
+    return (dx * dx + dy * dy + dz * dz).sqrt()
 
-    g = torch.zeros((B, n), device=dev)
-    dm = d[:, :m]
-    for e in eps_schedule(sinkhorn_iters, sinkhorn_inner, eps, eps_start, eps_decay):
+
+def sinkhorn_reference(d: torch.Tensor, table) -> torch.Tensor:
+    """The plain Sinkhorn over d (B, m, n): for each eps of ``table``, f over
+    the rows, then g over the columns, each a natural-log sum shifted by its
+    max. Returns g (B, n)."""
+    g = torch.zeros((d.shape[0], d.shape[2]), device=d.device)
+    for e in table:
         inv, e = float(np.float32(1.0) / e), float(e)
-        z = (g[:, None, :] - dm) * inv
+        z = (g[:, None, :] - d) * inv
         zm = z.max(dim=2, keepdim=True).values
         f = -e * ((z - zm).exp().sum(dim=2).log() + zm[:, :, 0])  # (B, m)
-        z = (f[:, :, None] - dm) * inv
+        z = (f[:, :, None] - d) * inv
         zm = z.max(dim=1, keepdim=True).values
         g = -e * ((z - zm).exp().sum(dim=1).clamp_min(1e-30).log() + zm[:, 0])  # (B, n)
-    del dm, z, zm
+    return g
 
+
+LOG2E = np.float32(1.4426950408889634)
+SUM_BAND = (2.0**-64, 2.0**64)  # a shifted sum outside it is redone with the exact max
+
+
+def sinkhorn_log2_reference(d: torch.Tensor, table, force_redo=(), return_redone=False):
+    """The kernel's Sinkhorn sweep on the CPU, over d (B, m, n): returns g (B, n).
+
+    The potentials are held scaled by c = log2(e) / eps and rescaled when eps
+    steps. A half-iteration gives each point w <- w - log2(S) with
+    S = sum_k 2^(w_k - c d + w): the terms are shifted by the point's own
+    scaled potential w from the previous sweep, with no max. Where S lies
+    outside ``SUM_BAND`` or is not finite, the point is redone with the exact
+    max: w = -(M + log2 sum_k 2^(z_k - M)), z_k = w_k - c d, M = max z. Sweep
+    2 k is the row half of iteration k, 2 k + 1 its column half; the sweeps in
+    ``force_redo`` redo every point. With ``return_redone`` the number of
+    points redone in each sweep comes back too, as a list. The exps and
+    square roots here are exact in f32; the kernel's approximate ones differ
+    from them by a few ulp.
+    """
+    B, m, n = d.shape
+    w = [torch.zeros((B, m), device=d.device), torch.zeros((B, n), device=d.device)]
+    redone = []
+    c = None
+    for k, e in enumerate(table):
+        ck = float(LOG2E / np.float32(e))
+        if c is not None and ck != c:
+            ratio = float(np.float32(ck) / np.float32(c))
+            w = [w[0] * ratio, w[1] * ratio]
+        c = ck
+        for half, axis in ((0, 2), (1, 1)):  # rows sum over the columns, columns over the rows
+            other = w[1][:, None, :] if half == 0 else w[0][:, :, None]
+            z = other - c * d
+            S = torch.exp2(z + w[half].unsqueeze(axis)).sum(dim=axis)
+            redo = ~((S >= SUM_BAND[0]) & (S <= SUM_BAND[1]))
+            if 2 * k + half in force_redo:
+                redo = torch.ones_like(redo)
+            M = z.max(dim=axis).values
+            exact = -(M + torch.exp2(z - M.unsqueeze(axis)).sum(dim=axis).log2())
+            w[half] = torch.where(redo, exact, w[half] - S.log2())
+            redone.append(int(redo.sum()))
+    g = w[1] / c if c is not None else w[1]
+    return (g, redone) if return_redone else g
+
+
+def auction_reference(d: torch.Tensor, g: torch.Tensor, auction_iters: int, eps: float):
+    """The plain auction from price = -g over d (B, n, n): the assignment
+    (B, n) int64, the rounds run and the bids computed (the unassigned rows of
+    every round plus the rows force-assigned at the end), each (B,) int32."""
+    B, n, _ = d.shape
+    dev = d.device
     price = -g
     lane = torch.arange(n, device=dev, dtype=torch.int32)
     rows = torch.arange(n, device=dev)
@@ -143,6 +188,29 @@ def emd_assignment_hybrid_reference(
     bids += (assign < 0).sum(dim=1)
     if (assign < 0).any():
         assign = torch.where(assign < 0, _best_two(d, price, lane)[1], assign)
+    return assign, rounds, bids
+
+
+def emd_assignment_hybrid_reference(
+    xyz1: torch.Tensor, xyz2: torch.Tensor, *, sinkhorn_iters: int = 150,
+    sinkhorn_inner: int = 30, auction_iters: int = 300, eps: float = 0.002,
+    eps_start: float = 0.05, eps_decay: float = 0.4, sinkhorn_rows: int = 0,
+    return_work: bool = False,
+):
+    """Plain PyTorch version of the kernel, on the device of its inputs.
+
+    (B, n, 3) x (B, n, 3) -> assignment (B, n) int32 (x1 point -> x2 index),
+    and with ``return_work`` the auction rounds each pair ran and the bids it
+    computed (the unassigned rows of every round plus the rows force-assigned
+    at the end), each (B,) int32.
+    It holds the (B, n, n) distance matrix, so it is for checks, not for size.
+    """
+    _check(xyz1, xyz2)
+    x1, m, inv_perm = _sinkhorn_rows(xyz1.float(), sinkhorn_rows)
+    d = pair_distances(x1, xyz2.float())  # (B, n, n)
+    table = eps_schedule(sinkhorn_iters, sinkhorn_inner, eps, eps_start, eps_decay)
+    assign, rounds, bids = auction_reference(d, sinkhorn_reference(d[:, :m], table),
+                                             auction_iters, eps)
     assign = assign.to(torch.int32)
     if inv_perm is not None:
         assign = assign[:, inv_perm]
@@ -158,6 +226,43 @@ def _best_two(d, price, lane):
     bid = torch.where(value >= best, lane, n).min(dim=2).values.long()
     better = value.masked_fill(lane == bid[..., None], _NEG).max(dim=2).values
     return best[..., 0], bid, better
+
+
+_NO_INDEX = 2**31 - 1  # a lane that saw no value above -1e30 (INT_MAX in the kernel)
+
+
+def best_two_strided(d, price, lanes: int = 32):
+    """``_best_two`` as the kernel's warp computes it, for the CPU tests.
+
+    Lane l scans objects l, l + lanes, ... with the serial rule (best and
+    second start at -1e30; a value above the best makes the best the second,
+    a value above only the second replaces it), then a butterfly over the
+    lanes merges (best, second, index): the larger best wins, the lower index
+    among equal bests, and the merged second is the larger of the winner's
+    second and the loser's best. Returns (best, index, second) per row, as
+    ``_best_two`` does; n must be a multiple of ``lanes``.
+    """
+    value = -d - price[:, None, :]
+    B, R, n = value.shape
+    v = value.reshape(B, R, n // lanes, lanes)  # v[..., k, l] is object l + lanes k
+    neg = torch.tensor(_NEG, dtype=value.dtype)
+    best = torch.maximum(v.max(dim=2).values, neg)  # (B, R, lanes)
+    k = torch.arange(n // lanes)[:, None]
+    first = torch.where(v == best[:, :, None], k, n).min(dim=2).values  # lowest k at the best
+    lane = torch.arange(lanes)
+    idx = torch.where(best > neg, lane + lanes * first, _NO_INDEX)
+    rest = v.masked_fill(k == first[:, :, None], float("-inf"))
+    second = torch.maximum(rest.max(dim=2).values, neg)
+    o = lanes // 2
+    while o:
+        ob, os_, oj = best[..., lane ^ o], second[..., lane ^ o], idx[..., lane ^ o]
+        take = (ob > best) | ((ob == best) & (oj < idx))
+        second = torch.where(take, torch.maximum(os_, best), torch.maximum(second, ob))
+        best = torch.where(take, ob, best)
+        idx = torch.where(take, oj, idx)
+        o //= 2
+    idx = torch.where(idx == _NO_INDEX, 0, idx)  # no value above -1e30: the serial scan keeps 0
+    return best[..., 0], idx[..., 0].long(), second[..., 0]
 
 
 def emd_assignment_hybrid(

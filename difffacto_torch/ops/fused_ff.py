@@ -4,7 +4,10 @@ Replaces the TPU kernel ``difffacto_tpu/ops/fused_ff.py:_kernel`` with the
 hand-written CUDA kernel ``csrc/fused_ff.cu`` (see its note for the design and
 the bound): ``x + (a * gelu_tanh(g)) W2 + b2`` with ``[a | g] = LN(x) W1 + b1``
 for every token of x (T, D). ``fused_ln_geglu_ff`` launches the kernel for
-CUDA tensors and runs ``fused_ln_geglu_ff_reference`` for CPU tensors.
+CUDA tensors and runs ``fused_ln_geglu_ff_reference`` for CPU tensors. At
+D = 128 the kernel is the persistent trunk template (``csrc/trunk.cuh``,
+Mode::FF): it walks 128-token tiles by ``ops/fused_core.py:schedule(1, T,
+sms)``, which the wrapper passes in.
 """
 
 from __future__ import annotations
@@ -69,7 +72,8 @@ def example_inputs(T: int, D: int, seed: int = 0):
 def fused_ln_geglu_ff(x, ln_scale, ln_bias, w1, b1, w2, b2) -> torch.Tensor:
     """x (T, D) -> x + FF(LN(x)): the CUDA kernel for tensors on the card, the
     plain version for tensors on the CPU. On the card every operand is bf16
-    except b1 and b2, which are f32; D is 128 or 256 and any T >= 1 is taken."""
+    except b1 and b2, which are f32; D is 128 or 256 and any T from 1 to 2^31 - 1
+    is taken."""
     global launches
     args = (x, ln_scale, ln_bias, w1, b1, w2, b2)
     if x.device.type == "cpu":
@@ -86,11 +90,15 @@ def fused_ln_geglu_ff(x, ln_scale, ln_bias, w1, b1, w2, b2) -> torch.Tensor:
              ("w1", (D, 8 * D), bf), ("b1", (8 * D,), f32), ("w2", (4 * D, D), bf),
              ("b2", (D,), f32))
     _build.check_operands("fused_ff", specs, args)
+    from .fused_core import launch_schedule  # fused_core imports this module
+
+    grid, tiles_per_row = launch_schedule(1, T, x.device) if D == 128 else (0, 0)
     lib = _library()
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.difffacto_fused_ff(*(t.data_ptr() for t in args), out.data_ptr(), T, D, stream)
+        rc = lib.difffacto_fused_ff(*(t.data_ptr() for t in args), out.data_ptr(), T, D, grid,
+                                    tiles_per_row, stream)
     _build.check_launch(lib, "fused_ff", rc)
     launches += 1
     return out
@@ -100,7 +108,8 @@ def _library() -> ctypes.CDLL:
     lib = _build.load("fused_ff")
     fn = lib.difffacto_fused_ff
     if not fn.argtypes:
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_longlong] + [ctypes.c_int] * 3
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         lib.difffacto_cuda_error_string.argtypes = [ctypes.c_int]
         lib.difffacto_cuda_error_string.restype = ctypes.c_char_p

@@ -138,6 +138,57 @@ def test_emd_hybrid_matches_plain_version(cuda, n):
             assert cg[i].item() <= 1.01 * d[ri, ci].mean()
 
 
+def _hold_emd(a, b, label):
+    """The kernel against its plain version with the gates above: in range,
+    matched cost within 0.5 %, the bids invariant; the share of equal
+    assignments is printed, not held."""
+    before = eh.launches
+    got, rounds, bids = eh.emd_assignment_hybrid(a, b, auction_iters=150, return_work=True)
+    torch.cuda.synchronize()
+    assert eh.launches == before + 1
+    want, rounds_w, bids_w = eh.emd_assignment_hybrid_reference(
+        a, b, auction_iters=150, return_work=True)
+    n = a.shape[1]
+    assert got.dtype == torch.int32 and got.shape == want.shape
+    assert (got >= 0).all() and (got < n).all()
+    cg, cw = _mean_cost(a, b, got), _mean_cost(a, b, want)
+    rel = ((cg - cw).abs() / cw).max().item()
+    print(f"emd_hybrid {label}: equal share {(got == want).float().mean().item():.4f}, mean "
+          f"rounds {rounds.float().mean().item():.1f} vs plain {rounds_w.float().mean().item():.1f}, "
+          f"mean bids {bids.float().mean().item():.0f} vs plain {bids_w.float().mean().item():.0f}, "
+          f"cost off by at most {rel:.3e}")
+    assert ((cg - cw).abs() <= 0.005 * cw).all()
+    assert ((n + rounds - 1 <= bids) & (bids <= n * (rounds + 1))).all()
+    return rounds, bids
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 32, 132])
+def test_emd_hybrid_pairs_per_launch(cuda, B):
+    """n = 2048 with one pair, 32 pairs, and 132 (one pair on every SM of an
+    H100, the protocol's full-card shape), clouds scaled per axis."""
+    rng = np.random.RandomState(B)
+    scale = torch.as_tensor(rng.uniform(0.2, 0.5, (B, 1, 3)).astype(np.float32))
+    a = (_clouds(B, 2048, seed=B) * scale).to(cuda)
+    b = (_clouds(B, 2048, seed=B + 1) * scale).to(cuda)
+    _hold_emd(a, b, f"B={B} n=2048")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [2048, 512])
+def test_emd_hybrid_few_bidders(cuda, n):
+    """The second cloud is the first, permuted and moved by 1e-3, with 8 of
+    its points put onto 8 others: after the first round only the rows whose
+    object was taken bid, about 2 a round for all 150 rounds (the plain
+    version's count on the CPU), far fewer than the kernel's n / 64 warps."""
+    a = (_clouds(2, n, seed=n) * 0.3).to(cuda)
+    perm = torch.as_tensor(np.random.RandomState(n).permutation(n), device=cuda)
+    b = a[:, perm] + 1e-3 * _clouds(2, n, seed=n + 7).to(cuda)
+    b[:, :8] = b[:, 8:16]
+    rounds, bids = _hold_emd(a, b.contiguous(), f"few bidders n={n}")
+    assert (rounds >= 2).all() and (bids - n < (n // 64) * (rounds - 1)).all()
+
+
 @pytest.mark.gpu
 def test_emd_hybrid_global_state_at_8192(cuda):
     """n = 8192 does not fit in shared memory: the state lies in the global
@@ -253,10 +304,14 @@ def _ff_operands(D, T, device, seed=0):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("D, T", [(128, 16 * 2048), (256, 1024), (256, 384), (128, 100)])
+@pytest.mark.parametrize("D, T", [(128, 16 * 2048), (256, 1024), (256, 384), (128, 100),
+                                  (128, 128), (128, 256 * 2048), (256, 100), (256, 128),
+                                  (256, 16 * 2048), (256, 256 * 2048)])
 def test_fused_ff_matches_plain_version(cuda, D, T):
-    """The denoiser's shape at batch 16, the aligner's at batch 256, a
-    smaller aligner T, and a T that is not a multiple of the 64-token tile."""
+    """The denoiser's shape at batch 16 and 256 (T = 524,288: 4096 tiles, 31
+    or 32 for each block of the persistent grid at D = 128), the aligner's at
+    batch 256, a smaller aligner T, T = 128 (one tile), and T = 100, shorter
+    than a tile at both widths (128 tokens at D = 128, 64 at D = 256)."""
     args = _ff_operands(D, T, cuda, seed=T)
     before = ff.launches
     got = ff.fused_ln_geglu_ff(*args)
