@@ -16,18 +16,22 @@ Phases, each fatal (non-zero exit, no "ok" line):
    reduction (REDG, 4-wide ones apart) instructions in each kernel of the
    trunk's, the training trunk's and the fused FF's binaries (``cuobjdump
    -sass``, function by function; the FF's D = 128 entry is the trunk
-   template's Mode::FF): a kernel without HGMMA or UTMALDG fails, as does any
-   HMMA in the training trunk's or the FF entry, or a backward without 4-wide
-   REDG; and the EMD kernel's special-function (MUFU) instructions.
+   template's Mode::FF, its D = 256 entry the cluster kernel): a kernel
+   without HGMMA or UTMALDG fails, as does any HMMA in the training trunk's
+   or either FF entry, a backward without 4-wide REDG, or a source under
+   ``difffacto_torch/csrc`` that still names WMMA; and the EMD kernel's
+   special-function (MUFU) instructions.
 3. kernels: each kernel against its plain PyTorch version, with the stated
    tolerance, at the main paths' shapes and at ragged ones: the trunk in
    bf16 (also at the timed B = 256, N = 2048 with parts absent: 4096 tiles,
    31 or 32 for each block of the persistent grid), the training trunk's forward and its backward (dx, dK, dV and the 15
-   parameter gradients) at p = 0 and p = 0.2, FPS index for index, the EMD
-   assignment by its matched cost, the fused LN-GEGLU FF at the denoiser's
-   (T = 256 x 2048, D = 128) and the aligner's (T = 1024, D = 256) shapes and
-   at T = 384, the one-block kernel at B = 256, N = 2048 with parts absent and
-   at N = 384.
+   parameter gradients) at p = 0 and p = 0.2, FPS index for index (at
+   shapes where ``ops/fps.py:plan`` picks each cluster size 1, 2, 4 and 8,
+   clouds past one block's registers, and 400 clouds of 8192), the EMD assignment by its
+   matched cost, the fused LN-GEGLU FF at the denoiser's (T = 256 x 2048,
+   D = 128) shape and at T = 384, and at D = 256 at the aligner's T = 1024
+   and at T = 100, 128 and 32,768, the one-block kernel at B = 256, N = 2048
+   with parts absent and at N = 384.
 4. generation: ``configs/gen_chair.py`` at full width (2048 points, T=100,
    denoiser depth 5 at width 128, 4 x 14 flows, aligner depth 5,
    ``cimle_sample_num=1``, bf16), seeded random weights, through
@@ -49,7 +53,10 @@ Phases, each fatal (non-zero exit, no "ok" line):
    and EMD at n = 2048 (8128 pairs). Launch counts are set to 0 just before
    and read just after; a 2 x 2 corner is recomputed on the CPU by the plain
    versions. Then FPS and the EMD kernel are timed on the protocol's own
-   clouds beside their plain versions and bounds, the EMD kernel at 132 pairs
+   clouds beside their plain versions and bounds, FPS at 64, 32 and 400
+   clouds (the 400 v 400 protocol's references), at the plan's cluster size
+   and at 1, beside its latency floor (the kernel's steps with no
+   distance sweep, ``ops/fps.py:latency_floor_probe``), the EMD kernel at 132 pairs
    (one per SM) and at 32, each also with ``auction_iters=0`` (the Sinkhorn
    and one force-assignment sweep): the split between Sinkhorn and auction.
 7. training step, full width: the gen_chair model with ``gen=False``, bf16,
@@ -81,8 +88,10 @@ Phases, each fatal (non-zero exit, no "ok" line):
    with the gen_chair denoiser's widths (3 channels, 8 x 16, depth 5, part
    tokens (B, 4, 522) with parts absent): 5 one-block launches, and at batch 2
    against the CPU. The fused FF and the one-block kernel are timed with CUDA
-   events beside their plain versions and bounds. One JSON line then gives
-   every kernel's numbers.
+   events beside their plain versions and bounds; the FF at D = 256 and
+   T = 1024, whose launch takes less device time than the wrapper's host
+   time, as a CUDA graph of 20 launches. One JSON line then gives every
+   kernel's numbers.
 
 The last line is {"ok": true, "device": {...}}.
 """
@@ -170,6 +179,31 @@ def cuda_ms(fn, iters):
     start.record()
     for _ in range(iters):
         fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters):
+    """Mean device time of fn() in ms over ``iters`` calls captured in one
+    CUDA graph and replayed: for kernels shorter than their wrapper's host
+    time, where back-to-back launches would time the host."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
@@ -449,11 +483,12 @@ def main():
                 print(f"  {name}: {line.strip()}")
     print(f"  fused_core: {fc.smem_bytes()} bytes of dynamic shared memory per block")
     print(f"  fused_core_train: {fct.smem_bytes()} bytes (forward, backward)")
-    # Every trunk kernel (B1, B6, B2, B3, and B7 at D = 128: the template's
-    # Mode::FF entry in fused_ff) is wgmma fed by TMA, each function counted on
-    # its own; the backward flushes its weight gradients with 4-wide
-    # reductions (REDG ... F32x4 in SASS) and neither the training trunk nor
-    # the FF entry holds a warp-level (WMMA) product.
+    # Every trunk kernel (B1, B6, B2, B3, and B7: at D = 128 the template's
+    # Mode::FF entry in fused_ff, at D = 256 its cluster kernel) is wgmma fed
+    # by TMA, each function counted on its own; the backward flushes its
+    # weight gradients with 4-wide reductions (REDG ... F32x4 in SASS) and
+    # neither the training trunk nor the FF entries hold a warp-level (WMMA)
+    # product. No source of the port names WMMA any more.
     for lib in ("fused_core", "fused_core_train", "fused_ff"):
         sass = subprocess.run([os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump"), "-sass",
                                str(_build.library_path(lib))],
@@ -467,7 +502,7 @@ def main():
             print(f"  {lib} SASS {fname.strip()}: {ops}")
         want = {"fused_core": {"fused_core_kernel": 2},
                 "fused_core_train": {"fused_core_kernel": 1, "trunk_train_bwd_kernel": 1},
-                "fused_ff": {"fused_core_kernel": 1}}[lib]
+                "fused_ff": {"fused_core_kernel": 1, "ff_wide_kernel": 1}}[lib]
         for kernel, n in want.items():
             if sum(kernel in f for f in funcs) != n:
                 fail(f"the binary of {lib} does not hold {n} {kernel}")
@@ -480,6 +515,10 @@ def main():
             if "trunk_train_bwd_kernel" in fname and ops["REDG x4"] == 0:
                 fail("the training backward flushes no weight gradient with a 4-wide reduction")
     print(f"  fused_ff: {ff.smem_bytes(128)} bytes at D = 128, {ff.smem_bytes(256)} at D = 256")
+    csrc = os.path.join(ROOT, "difffacto_torch", "csrc")
+    wmma = [f for f in sorted(os.listdir(csrc)) if "wmma" in open(os.path.join(csrc, f)).read().lower()]
+    if wmma:
+        fail(f"WMMA is still named in {wmma}")
     # The EMD kernel's special-function instructions (its bound counts a square
     # root and an exp on them for each Sinkhorn element), for the record.
     sass = subprocess.run([os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump"), "-sass",
@@ -570,7 +609,8 @@ def main():
     # the aligner's (batch 256) and a smaller T; the one-block kernel at UNet's
     # shape with parts absent and at an N that pick_tile takes.
     ff_err = 0.0
-    for D, T in ((128, BATCH_TIMED * 2048), (256, 4 * BATCH_TIMED), (128, 384)):
+    for D, T in ((128, BATCH_TIMED * 2048), (256, 4 * BATCH_TIMED), (128, 384), (256, 100),
+                 (256, 128), (256, 32768)):
         args = ff_operands(D, T, dev, seed=T)
         got = ff.fused_ln_geglu_ff(*args)
         torch.cuda.synchronize()
@@ -588,19 +628,33 @@ def main():
         del args, got
     torch.cuda.empty_cache()
 
-    # FPS index for index: the protocol's shape, a ragged N, and 16 distinct
-    # points repeated to 256 (all remaining distances 0: index 0 repeats).
+    # FPS index for index: the protocol's points (plan: clusters of 4 at 4
+    # clouds, of 2 at 64), a ragged N, 16 distinct points repeated to 256
+    # (all remaining distances 0: index 0 repeats), a cluster of 8 (one cloud
+    # of 16,384), clusters grown to 2 to hold 10,000 points at 70 clouds and
+    # 14,528 at 132, and the 400 v 400 protocol's refs.
     fps_diff = 0.0
-    for B, N, m, distinct in ((4, 8192, 2048, None), (3, 1000, 64, None), (2, 256, 32, 16)):
+    fps_clusters = set()
+    for B, N, m, distinct in ((4, 8192, 2048, None), (3, 1000, 64, None), (2, 256, 32, 16),
+                              (64, 8192, 2048, None), (1, 16384, 512, None),
+                              (70, 10000, 64, None), (132, 14528, 128, None),
+                              (400, 8192, 2048, None)):
         x = seeded_clouds(B, N, seed=N, distinct=distinct).to(dev)
+        pl = fpsm.plan(B, N, sms)
         got = fpsm.furthest_point_sample(x, m)
         torch.cuda.synchronize()
         want = fpsm.furthest_point_sample_reference(x, m)
         share = (got != want).float().mean().item()
-        print(f"fps B={B} N={N} m={m}: share of differing indices {share:.6f} (must be 0)")
+        fps_clusters.add(pl["cluster"])
+        print(f"fps B={B} N={N} m={m} (cluster {pl['cluster']}, "
+              f"{pl['threads']} threads x {pl['points_per_thread']} points): share of differing "
+              f"indices {share:.6f} (must be 0)")
         if got.dtype != torch.int32 or tuple(got.shape) != (B, m) or share != 0.0:
             fail(f"fps disagrees with its plain version at B={B} N={N} m={m}")
         fps_diff = max(fps_diff, share)
+        del x, got, want
+    if fps_clusters != {1, 2, 4, 8}:
+        fail(f"the FPS checks met the cluster sizes {sorted(fps_clusters)}, not 1, 2, 4 and 8")
 
     # EMD assignment: in range, cost against the plain version's, and at
     # n = 512 against the Hungarian optimum. n = 8192 is the variant whose
@@ -819,17 +873,35 @@ def main():
         fail("the card's corner of the CD/EMD matrices disagrees with the CPU plain path")
 
     # FPS and the EMD kernel on the protocol's own clouds.
-    # FPS at the protocol's launch (all R clouds) and at 32 clouds.
+    # FPS at the protocol's launch (all R clouds), at 32 clouds and at 400
+    # (the 400 v 400 protocol's references: the 64 refs and seeded clouds of
+    # the same shape), each at the plan's cluster size and at 1, beside the
+    # operations bound and the latency floor: the kernel's 2047 steps
+    # with no distance sweep.
     x = torch.as_tensor(refs, device=dev)
-    fps_ms = cuda_ms(lambda: fpsm.furthest_point_sample(x, 2048), 5)
+    rng400 = np.random.RandomState(6)
+    more = (rng400.randn(400 - R, REF_POINTS, 3)
+            * rng400.uniform(0.3, 1.0, (400 - R, 1, 3))).astype(np.float32)
+    x400 = torch.cat([x, torch.as_tensor(more, device=dev)])
+    fps_t = {}
+    for B, xb in ((R, x), (32, x[:32].contiguous()), (400, x400)):
+        pl = fpsm.plan(B, REF_POINTS, sms)
+        ms = cuda_ms(lambda: fpsm.furthest_point_sample(xb, 2048), 5)
+        ms1 = cuda_ms(lambda: fpsm._launch(xb, 2048, 1), 5)
+        floor = cuda_ms(lambda: fpsm.latency_floor_probe(xb, 2048), 5)
+        floor1 = cuda_ms(lambda: fpsm.latency_floor_probe(xb, 2048, cluster=1), 5)
+        bound, by = fps_bound_ms(B, REF_POINTS, 2048)
+        fps_t[B] = dict(ms=ms, ms_c1=ms1, floor=floor, floor_c1=floor1, bound=bound, by=by,
+                        cluster=pl["cluster"])
+        print(f"fps B={B} N={REF_POINTS} m=2048: {ms:.3f} ms at the plan's cluster of "
+              f"{pl['cluster']} ({pl['threads']} threads x {pl['points_per_thread']} points), "
+              f"{ms1:.3f} ms at 1; latency floor {floor:.3f} ms (at 1: {floor1:.3f}); "
+              f"operations bound {bound:.4f} ms ({by}), {100 * bound / ms:.1f}% of it")
+    fps_ms, fps_bound, fps_by = fps_t[R]["ms"], fps_t[R]["bound"], fps_t[R]["by"]
     fps_plain_ms = cuda_ms(lambda: fpsm.furthest_point_sample_reference(x, 2048), 1)
-    fps_bound, fps_by = fps_bound_ms(R, REF_POINTS, 2048)
-    print(f"fps B={R} N={REF_POINTS} m=2048: {fps_ms:.3f} ms, bound {fps_bound:.4f} ms ({fps_by}; "
-          f"2047 dependent steps put a latency floor under it), plain version {fps_plain_ms:.1f} ms")
+    print(f"fps plain version B={R}: {fps_plain_ms:.1f} ms")
+    del x400
     x = x[:32].contiguous()
-    fps_ms_32 = cuda_ms(lambda: fpsm.furthest_point_sample(x, 2048), 5)
-    print(f"fps B=32 N={REF_POINTS} m=2048: {fps_ms_32:.3f} ms, bound "
-          f"{fps_bound_ms(32, REF_POINTS, 2048)[0]:.4f} ms")
     refs_n = torch.as_tensor(bbox_normalize(fps(x, 2048).cpu().numpy()), device=dev)
     gens_n = torch.as_tensor(bbox_normalize(gen[:32]), device=dev)
     ii = torch.arange(132, device=dev)
@@ -1197,12 +1269,17 @@ def main():
     ff_plain_ms = cuda_ms(lambda: ff.fused_ln_geglu_ff_reference(*args), 3)
     args256 = ff_operands(256, 4 * TWO_ATTN_BATCH_TIMED, dev, seed=6)
     ff_ms_256 = cuda_ms(lambda: ff.fused_ln_geglu_ff(*args256), 20)
+    ff_graph_ms_256 = graph_ms(lambda: ff.fused_ln_geglu_ff(*args256), 20)
+    ff_plain_ms_256 = cuda_ms(lambda: ff.fused_ln_geglu_ff_reference(*args256), 20)
+    ff_bound_256 = ff_bound_ms(args256, args256[0].numel() * 2)[0]
     ff.launches = before
     print(f"fused_ff T={args[0].shape[0]} D=128: {ff_ms:.3f} ms, bound {ff_bound:.3f} ms "
           f"({ff_by}), {100 * ff_bound / ff_ms:.1f}% of roofline; plain version "
           f"{ff_plain_ms:.3f} ms; 500 launches are "
           f"{100 * 500 * ff_ms / (1e3 * two_dt):.1f}% of a batch's generation; "
-          f"T=1024 D=256: {ff_ms_256:.3f} ms, bound {ff_bound_ms(args256, args256[0].numel() * 2)[0]:.4f} ms")
+          f"T=1024 D=256: {ff_ms_256:.4f} ms ({ff_graph_ms_256:.4f} as a CUDA graph of 20 "
+          f"launches), bound "
+          f"{ff_bound_256:.4f} ms, plain version {ff_plain_ms_256:.3f} ms")
     del args, args256
     mask = np.ones((UNET_BATCH, fb.CTX), np.float32)
     mask[::3, 1] = 0.0
@@ -1224,7 +1301,12 @@ def main():
         "name": "fps", "route": "cuda", "source": "difffacto_torch/csrc/fps.cu",
         "replaces": "difffacto_tpu/ops/fps_pallas.py:27", "launches": counts["fps"],
         "max_abs_err": fps_diff, "ms": fps_ms, "plain_ms": fps_plain_ms, "bound_ms": fps_bound,
-        "bound_by": fps_by, "library_ms": None, "ms_at_32_clouds": fps_ms_32,
+        "bound_by": fps_by, "library_ms": None, "cluster": fps_t[R]["cluster"],
+        "ms_cluster_1": fps_t[R]["ms_c1"], "latency_floor_ms": fps_t[R]["floor"],
+        "latency_floor_ms_cluster_1": fps_t[R]["floor_c1"], "ms_at_32_clouds": fps_t[32]["ms"],
+        "ms_at_32_clouds_cluster_1": fps_t[32]["ms_c1"], "ms_at_400_clouds": fps_t[400]["ms"],
+        "bound_ms_at_400_clouds": fps_t[400]["bound"],
+        "latency_floor_ms_at_400_clouds": fps_t[400]["floor"],
     }, {
         "name": "emd_hybrid", "route": "cuda", "source": "difffacto_torch/csrc/emd_hybrid.cu",
         "replaces": "difffacto_tpu/ops/emd_pallas.py:51", "launches": counts["emd_hybrid"],
@@ -1235,6 +1317,7 @@ def main():
         "ms_at_32_pairs": emd[32][0], "bound_ms_at_32_pairs": emd[32][1],
         "sinkhorn_ms_at_32_pairs": emd[32][3], "auction_ms_at_32_pairs": emd[32][0] - emd[32][3],
         "protocol_launches_pairs_ms": [[b, s.elapsed_time(e)] for s, e, b in emd_events],
+        "protocol_s": t_eval,
     }, {
         "name": "fused_trunk_train_fwd", "route": "cuda",
         "source": "difffacto_torch/csrc/fused_core_train.cu",
@@ -1263,6 +1346,8 @@ def main():
         "replaces": "difffacto_tpu/ops/fused_ff.py:26", "launches": two_counts["fused_ff"],
         "max_abs_err": ff_err, "ms": ff_ms, "plain_ms": ff_plain_ms, "bound_ms": ff_bound,
         "bound_by": ff_by, "library_ms": None, "ms_at_t1024_d256": ff_ms_256,
+        "graph_ms_at_t1024_d256": ff_graph_ms_256,
+        "bound_ms_at_t1024_d256": ff_bound_256, "plain_ms_at_t1024_d256": ff_plain_ms_256,
         "two_attn_shapes_per_s": TWO_ATTN_BATCH_TIMED / two_dt, "two_attn_peak_gib": two_peak,
     }]}))
     print(json.dumps({"ok": True, "device": {

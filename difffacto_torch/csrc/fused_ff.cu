@@ -31,232 +31,292 @@
 // Each chunk fetched from L2 serves 128 tokens. The chunk loop stays unrolled
 // by 2 (the ptxas hazard noted in trunk.cuh).
 //
-// D = 256 (the aligner, T = 4 B, 5 launches a generation): the first design,
-// in namespace `wide` below, WMMA over 64-token tiles with synchronous weight
-// staging. The trunk template is fixed at D = 128: at 256 its f32 output
-// accumulator (128 registers a thread) beside the packed x and LN(x) would not
-// fit in the consumers' 232 registers unless LN(x) were parked in shared
-// memory, which the ring leaves no room for. The aligner's launches take
-// about 0.8 ms a generation, so the wide instantiation is left for later.
+// D = 256 (the aligner, T = 4 B, 5 launches a generation at batch 256, T =
+// 1024), namespace `wide` below. The trunk template does not hold D = 256 in
+// its registers, and at T = 1024 a persistent grid of 128-token tiles would
+// use 8 of the 132 SMs, so the FF's hidden width is split across a thread
+// block cluster instead (ops/fused_ff.py:wide_plan states the plan):
+// - a cluster of 8 blocks takes 64 tokens, block r the GEGLU units
+//   [128 r, 128 r + 128) (u and g), so T = 1024 is 16 clusters: 128 blocks;
+// - every block loads its slice of W1 (256 x 256, 128 KB) and W2 (128 x 256,
+//   64 KB) with TMA at its start, each part on its own mbarrier, and meanwhile
+//   computes LN(x) of the tile (redundantly in each block, f32 statistics)
+//   into shared memory as a K-major, 128-byte-swizzled wgmma operand;
+// - two warpgroups each take 64 of the slice's units: [u | g] = LN(x) W1 with
+//   wgmma (both operands from shared memory, 16 k-steps over the two halves
+//   of K as they arrive), then bf16(u gelu_tanh(g)) in registers into shared
+//   memory (over LN(x), which both are done with), then the block's f32
+//   partial of the output, 128 columns a warpgroup, against its W2 rows;
+// - the block's f32 partial (64 x 256) goes to shared memory band by band,
+//   where its W1 slice was; block q owns the output band [32 q, 32 q + 32),
+//   and one bulk copy (cp.async.bulk shared::cta -> shared::cluster) sends
+//   each band to its owner, counted on the owner's mbarrier. A split cluster
+//   barrier, arrived at after the W1 product and waited on after the W2
+//   product, keeps the copies behind every block's last read of W1. Block q
+//   sums the 8 partials of its band in rank order and writes
+//   x + bf16(sum + b2).
+// Shared memory: 32 KB (LN(x), then the activations) + 128 KB (W1's slice,
+// then the partial and the bands received) + 64 KB (W2's slice).
+// The bound at T = 1024 is 1.63 us of tensor-core operations; the kernel
+// takes far longer, bound by latency and by the exchange of the partials
+// (56 KB leave each block), not by its products. tools/fps_ff_ab_torch.py
+// --probe times copies of this kernel cut after the weights and LN(x),
+// after the products, or after the exchange.
 
 #include "trunk.cuh"
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
-
-using namespace nvcuda;
 
 namespace {
 namespace wide {
 
-constexpr int TILE = 64;      // tokens per thread block
-constexpr int THREADS = 256;  // 8 warps
-constexpr int CW = 64;        // inner units per chunk
-constexpr int LDC = CW + 8;   // bf16 row stride of a chunk (act, W1's columns)
-constexpr int LDU = CW + 4;   // f32 row stride of u and g
+constexpr int D = 256;               // the aligner's width (128 runs the trunk template)
+constexpr int FF = 4 * D;            // GEGLU units
+constexpr int TILE = 64;             // tokens a cluster
+constexpr int CLUSTER = 8;           // blocks a tile
+constexpr int SLICE = FF / CLUSTER;  // GEGLU units a block
+constexpr int BAND = D / CLUSTER;    // output columns a block sums over the cluster
+constexpr int THREADS = 256;         // two warpgroups, 64 of the slice's units each
+constexpr int BOX = 128 * 128;       // bytes of a weight box: 128 rows x 64 columns
+constexpr int A_BOX = TILE * 128;    // bytes of an operand box: 64 rows x 64 columns
+constexpr int BAND_BYTES = TILE * BAND * 4;  // one band of a partial, f32
 
-constexpr int cmax(int a, int b) { return a > b ? a : b; }
+constexpr int OFF_A = 0;                   // LN(x), 4 boxes; then the activations, 2
+constexpr int OFF_W1 = OFF_A + 4 * A_BOX;  // [K half][warpgroup][u | g]; then the partials
+constexpr int OFF_W2 = OFF_W1 + 8 * BOX;   // [warpgroup][64-column box]
+constexpr int OFF_BAR = OFF_W2 + 4 * BOX;  // W1's halves, W2, the partials received
+constexpr int BYTES = OFF_BAR + 4 * 8 + 1024;  // room to align to 1024
+static_assert(BYTES <= 232448, "over the 227 KB a block may use");
+static_assert(2 * CLUSTER * BAND_BYTES <= 8 * BOX, "the partials fit where W1's slice was");
 
-constexpr int D = 256;        // the aligner's width (128 runs the trunk template)
-
-struct Smem {
-  static constexpr int FF = 4 * D;
-  static constexpr int LDX = D + 8;  // bf16 row stride of x, h and a chunk of W2
-  static constexpr int LDO = D + 4;  // f32 row stride of the output
-  static constexpr int SZ_X = TILE * LDX * 2;
-  static constexpr int SZ_ACT = TILE * LDC * 2;
-  static constexpr int SZ_U = TILE * LDU * 4;
-  // One region holds the chunk's W1 columns (u and g), then its W2 rows, and
-  // at the end the f32 output.
-  static constexpr int SZ_W = cmax(cmax(2 * D * LDC * 2, CW * LDX * 2), TILE * LDO * 4);
-  static constexpr int OFF_X = 0;
-  static constexpr int OFF_H = OFF_X + SZ_X;
-  static constexpr int OFF_ACT = OFF_H + SZ_X;
-  static constexpr int OFF_U = OFF_ACT + SZ_ACT;
-  static constexpr int OFF_G = OFF_U + SZ_U;
-  static constexpr int OFF_W = OFF_G + SZ_U;
-  static constexpr int BYTES = OFF_W + SZ_W;
-  static_assert(BYTES <= 232448, "over the 227 KB a block may use");
-};
+// Float pair p (of 16) of a band's row `row`, XOR-swizzled so that a warp's
+// pair stores spread over the banks; pairs 2k and 2k + 1 stay side by side.
+__device__ __forceinline__ int band_pair(int row, int p) { return p ^ ((row & 7) << 1); }
+static_assert(SLICE == 2 * 64 && BAND * CLUSTER == D, "two warpgroups of 64 units");
 
 struct Args {
+  CUtensorMap w1, w2;  // (256, 2048) and (1024, 256), boxes of 128 rows x 64 columns
   const bf16* x; const bf16* ln_scale; const bf16* ln_bias;
-  const bf16* w1; const float* b1; const bf16* w2; const float* b2;
+  const float* b1; const float* b2;
   bf16* out;
   long long T;
 };
 
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> Acc;
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragB;
+__global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(THREADS, 1)
+ff_wide_kernel(const __grid_constant__ Args a) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + OFF_BAR);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, wg = tid >> 7;
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = (warp & 3) * 16 + g;  // the thread's fragment rows: row0, row0 + 8
+  const int rank = (int)cluster_rank();
+  const long long t0 = (long long)(blockIdx.x / CLUSTER) * TILE;
 
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16(v));
-}
-
-__device__ __forceinline__ float gelu_tanh(float v) {
-  const float k0 = 0.7978845608028654f;  // sqrt(2 / pi)
-  return 0.5f * v * (1.0f + tanhf(k0 * (v + 0.044715f * v * v * v)));
-}
-
-__global__ void __launch_bounds__(THREADS, 1) fused_ff_kernel(const Args a) {
-  using S = Smem;
-  constexpr int FF = S::FF, LDX = S::LDX, LDO = S::LDO;
-  constexpr int VEC = D / 8;    // 16-byte vectors in a row of x
-  constexpr int PER = D / 32;   // LayerNorm columns per lane
-  constexpr int NO = D / 32;    // output fragments per warp (16 x D/2)
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* xs = reinterpret_cast<bf16*>(smem + S::OFF_X);
-  bf16* hs = reinterpret_cast<bf16*>(smem + S::OFF_H);
-  bf16* act = reinterpret_cast<bf16*>(smem + S::OFF_ACT);
-  float* us = reinterpret_cast<float*>(smem + S::OFF_U);
-  float* gs = reinterpret_cast<float*>(smem + S::OFF_G);
-  bf16* w1u = reinterpret_cast<bf16*>(smem + S::OFF_W);
-  bf16* w1g = w1u + D * LDC;
-  bf16* w2s = reinterpret_cast<bf16*>(smem + S::OFF_W);
-  float* outs = reinterpret_cast<float*>(smem + S::OFF_W);
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const long long t0 = (long long)blockIdx.x * TILE;
-
-  // ---- the x tile, zero past the last token
-  for (int i = tid; i < TILE * VEC; i += THREADS) {
-    const int r = i / VEC, c = i % VEC;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (t0 + r < a.T) val = reinterpret_cast<const uint4*>(a.x + (t0 + r) * D)[c];
-    reinterpret_cast<uint4*>(xs + r * LDX)[c] = val;
-  }
-  __syncthreads();
-
-  // ---- LayerNorm: one warp per row, two-pass f32 statistics
-  {
-    float s[PER], b[PER];
-#pragma unroll
-    for (int j = 0; j < PER; ++j) {
-      s[j] = __bfloat162float(a.ln_scale[lane * PER + j]);
-      b[j] = __bfloat162float(a.ln_bias[lane * PER + j]);
+  // ---- the slice's weights, by TMA, behind the LayerNorm
+  if (tid == 0) {
+    for (int i = 0; i < 4; ++i) mbar_init(&bar[i], 1);
+    mbar_init_fence();
+    mbar_expect_tx(&bar[3], (CLUSTER - 1) * BAND_BYTES);
+    prefetch_tensormap(&a.w1);
+    prefetch_tensormap(&a.w2);
+    for (int h = 0; h < 2; ++h) {
+      mbar_expect_tx(&bar[h], 4 * BOX);
+      for (int w = 0; w < 2; ++w) {
+        unsigned char* dst = smem + OFF_W1 + (2 * h + w) * 2 * BOX;
+        const int u0 = rank * SLICE + 64 * w;
+        tma_load_3d(dst, &a.w1, &bar[h], u0, 128 * h, 0);            // u columns
+        tma_load_3d(dst + BOX, &a.w1, &bar[h], FF + u0, 128 * h, 0);  // g columns
+      }
     }
-    for (int r = warp; r < TILE; r += THREADS / 32) {
-      float v[PER], sum = 0.0f;
+    mbar_expect_tx(&bar[2], 4 * BOX);
+    for (int w = 0; w < 2; ++w)
+      for (int c = 0; c < 2; ++c)
+        tma_load_3d(smem + OFF_W2 + (2 * w + c) * BOX, &a.w2, &bar[2], 128 * w + 64 * c,
+                    rank * SLICE, 0);
+  }
+
+  // ---- LN(x): a warp a row, a lane 8 columns (one 16-byte swizzle chunk); 0 past T
+  {
+    float sc[8], bi[8];
 #pragma unroll
-      for (int j = 0; j < PER; ++j) {
-        v[j] = __bfloat162float(xs[r * LDX + lane * PER + j]);
-        sum += v[j];
+    for (int k = 0; k < 4; ++k) {
+      const float2 s2 = ldg_bf16x2(a.ln_scale + 8 * lane + 2 * k);
+      const float2 b2 = ldg_bf16x2(a.ln_bias + 8 * lane + 2 * k);
+      sc[2 * k] = s2.x; sc[2 * k + 1] = s2.y;
+      bi[2 * k] = b2.x; bi[2 * k + 1] = b2.y;
+    }
+    constexpr int ROWS = TILE / (THREADS / 32);  // rows a warp
+    uint4 raw[ROWS];  // all of the warp's rows in flight at once
+#pragma unroll
+    for (int k = 0; k < ROWS; ++k) {
+      const int r = warp + k * (THREADS / 32);
+      raw[k] = make_uint4(0u, 0u, 0u, 0u);
+      if (t0 + r < a.T) raw[k] = __ldg(reinterpret_cast<const uint4*>(a.x + (t0 + r) * D) + lane);
+    }
+#pragma unroll
+    for (int k = 0; k < ROWS; ++k) {
+      const int r = warp + k * (THREADS / 32);
+      const uint32_t w4[4] = {raw[k].x, raw[k].y, raw[k].z, raw[k].w};
+      float v[8], sum = 0.0f;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 f = unpack_bf16(w4[i]);
+        v[2 * i] = f.x; v[2 * i + 1] = f.y;
+        sum += f.x + f.y;
       }
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
       const float mu = sum * (1.0f / D);
       float sq = 0.0f;
 #pragma unroll
-      for (int j = 0; j < PER; ++j) sq += (v[j] - mu) * (v[j] - mu);
+      for (int i = 0; i < 8; ++i) sq += (v[i] - mu) * (v[i] - mu);
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1) sq += __shfl_xor_sync(0xffffffffu, sq, o);
       const float inv = rsqrtf(sq * (1.0f / D) + 1e-5f);
-#pragma unroll
-      for (int j = 0; j < PER; ++j)
-        hs[r * LDX + lane * PER + j] = __float2bfloat16((v[j] - mu) * inv * s[j] + b[j]);
+      uint4 y;
+      y.x = pack_bf16((v[0] - mu) * inv * sc[0] + bi[0], (v[1] - mu) * inv * sc[1] + bi[1]);
+      y.y = pack_bf16((v[2] - mu) * inv * sc[2] + bi[2], (v[3] - mu) * inv * sc[3] + bi[3]);
+      y.z = pack_bf16((v[4] - mu) * inv * sc[4] + bi[4], (v[5] - mu) * inv * sc[5] + bi[5]);
+      y.w = pack_bf16((v[6] - mu) * inv * sc[6] + bi[6], (v[7] - mu) * inv * sc[7] + bi[7]);
+      *reinterpret_cast<uint4*>(smem + OFF_A + (lane >> 3) * A_BOX + r * 128 +
+                                (((lane & 7) ^ (r & 7)) << 4)) = y;
     }
   }
+  fence_proxy_async();
+  __syncthreads();  // also publishes the initialised mbarriers
+
+  // The residual and b2 of the thread's 8 output columns of its band, for the end.
+  const int out_row = tid >> 2, out_col = rank * BAND + (tid & 3) * 8;
+  uint4 x_res = make_uint4(0u, 0u, 0u, 0u);
+  if (t0 + out_row < a.T) x_res = __ldg(reinterpret_cast<const uint4*>(a.x + (t0 + out_row) * D + out_col));
+  const float4 b2_lo = __ldg(reinterpret_cast<const float4*>(a.b2 + out_col));
+  const float4 b2_hi = __ldg(reinterpret_cast<const float4*>(a.b2 + out_col + 4));
+
+  // ---- [u | g] of the warpgroup's 64 units: 16 k-steps, each K half as it lands
+  const uint32_t a_base = smem_addr(smem + OFF_A);
+  float acc[64];
+  fence_regs(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mbar_wait(&bar[h], 0);
+    const uint32_t b = smem_addr(smem + OFF_W1 + (2 * h + wg) * 2 * BOX);
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      const int k = 8 * h + kk;
+      wgmma_m64n128k16_ss<0, 1>(acc, desc_k_sw128(a_base + (k >> 2) * A_BOX + 32 * (k & 3)),
+                                desc_mn_sw128(b + 2048u * kk, BOX, 1024u), k > 0);
+    }
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(acc);
+  __syncthreads();  // both warpgroups are done with LN(x)
+  cluster_arrive();  // ... and with W1's slice, where the cluster's partials will land
+
+  // ---- act = bf16(u gelu_tanh(g)) over LN(x): the warpgroup's units are box wg
+  {
+    const float* b1 = a.b1 + rank * SLICE + 64 * wg;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 bu = __ldg(reinterpret_cast<const float2*>(b1 + 8 * j + 2 * t));
+      const float2 bg = __ldg(reinterpret_cast<const float2*>(b1 + FF + 8 * j + 2 * t));
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = row0 + 8 * r;
+        const float u0 = acc[4 * j + 2 * r] + bu.x, u1 = acc[4 * j + 2 * r + 1] + bu.y;
+        const float g0 = acc[4 * (j + 8) + 2 * r] + bg.x, g1 = acc[4 * (j + 8) + 2 * r + 1] + bg.y;
+        *reinterpret_cast<uint32_t*>(smem + OFF_A + wg * A_BOX + row * 128 +
+                                     ((j ^ (row & 7)) << 4) + 4 * t) =
+            pack_bf16(u0 * gelu_tanh(g0), u1 * gelu_tanh(g1));
+      }
+    }
+  }
+  fence_proxy_async();
   __syncthreads();
 
-  // A warp owns 16 rows: 32 of a chunk's 64 columns, and D/2 output columns.
-  const int row0 = (warp >> 1) * 16;
-  const int ucol0 = (warp & 1) * 32;
-  const int ocol0 = (warp & 1) * (D / 2);
-  Acc out[NO];
+  // ---- the block's partial: act (64 x 128) x W2's slice rows, 128 columns a warpgroup
+  mbar_wait(&bar[2], 0);
+  {
+    const uint32_t b = smem_addr(smem + OFF_W2 + wg * 2 * BOX);
+    fence_regs(acc);
+    wgmma_fence();
 #pragma unroll
-  for (int j = 0; j < NO; ++j) wmma::fill_fragment(out[j], 0.0f);
-
-  for (int ch = 0; ch < FF / CW; ++ch) {
-    // ---- the chunk's u and g columns of W1 (row stride 2 FF)
-    const bf16* w1 = a.w1 + ch * CW;
-    for (int i = tid; i < D * (CW / 8); i += THREADS) {
-      const int r = i / (CW / 8), c = i % (CW / 8);
-      reinterpret_cast<uint4*>(w1u + r * LDC)[c] =
-          reinterpret_cast<const uint4*>(w1 + (size_t)r * 2 * FF)[c];
-      reinterpret_cast<uint4*>(w1g + r * LDC)[c] =
-          reinterpret_cast<const uint4*>(w1 + FF + (size_t)r * 2 * FF)[c];
-    }
-    __syncthreads();
-    {
-      Acc u[2], g[2];
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        wmma::fill_fragment(u[j], 0.0f);
-        wmma::fill_fragment(g[j], 0.0f);
-      }
-#pragma unroll 4
-      for (int kk = 0; kk < D; kk += 16) {
-        FragA fa;
-        wmma::load_matrix_sync(fa, hs + row0 * LDX + kk, LDX);
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          FragB fb;
-          wmma::load_matrix_sync(fb, w1u + kk * LDC + ucol0 + j * 16, LDC);
-          wmma::mma_sync(u[j], fa, fb, u[j]);
-          wmma::load_matrix_sync(fb, w1g + kk * LDC + ucol0 + j * 16, LDC);
-          wmma::mma_sync(g[j], fa, fb, g[j]);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        wmma::store_matrix_sync(us + row0 * LDU + ucol0 + j * 16, u[j], LDU, wmma::mem_row_major);
-        wmma::store_matrix_sync(gs + row0 * LDU + ucol0 + j * 16, g[j], LDU, wmma::mem_row_major);
-      }
-    }
-    __syncthreads();
-
-    // ---- GEGLU into act; the chunk's rows of W2 where W1's columns were
-    const float* b1 = a.b1 + ch * CW;
-    for (int i = tid; i < TILE * CW; i += THREADS) {
-      const int r = i / CW, c = i % CW;
-      const float uu = us[r * LDU + c] + b1[c];
-      const float gg = gs[r * LDU + c] + b1[FF + c];
-      act[r * LDC + c] = __float2bfloat16(uu * gelu_tanh(gg));
-    }
-    const bf16* w2 = a.w2 + (size_t)ch * CW * D;
-    for (int i = tid; i < CW * VEC; i += THREADS) {
-      const int r = i / VEC, c = i % VEC;
-      reinterpret_cast<uint4*>(w2s + r * LDX)[c] =
-          reinterpret_cast<const uint4*>(w2 + (size_t)r * D)[c];
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < CW; kk += 16) {
-      FragA fa;
-      wmma::load_matrix_sync(fa, act + row0 * LDC + kk, LDC);
-#pragma unroll
-      for (int j = 0; j < NO; ++j) {
-        FragB fb;
-        wmma::load_matrix_sync(fb, w2s + kk * LDX + ocol0 + j * 16, LDX);
-        wmma::mma_sync(out[j], fa, fb, out[j]);
-      }
-    }
-    __syncthreads();
+    for (int kk = 0; kk < 8; ++kk)
+      wgmma_m64n128k16_ss<0, 1>(acc, desc_k_sw128(a_base + (kk >> 2) * A_BOX + 32 * (kk & 3)),
+                                desc_mn_sw128(b + 2048u * kk, BOX, 1024u), kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
   }
-
-  // ---- x + bf16(out + b2), the valid rows only
+  // The partial, band by band ([band][row][32 f32], pairs swizzled), where
+  // W1's slice was; band q goes to block q's slot `rank` behind it.
+  float* part = reinterpret_cast<float*>(smem + OFF_W1);
+  float* recv = part + CLUSTER * TILE * BAND;  // [sender][row][32]
 #pragma unroll
-  for (int j = 0; j < NO; ++j)
-    wmma::store_matrix_sync(outs + row0 * LDO + ocol0 + j * 16, out[j], LDO, wmma::mem_row_major);
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r, band = 4 * wg + (j >> 2);
+      *reinterpret_cast<float2*>(part + (band * TILE + row) * BAND +
+                                 2 * band_pair(row, 4 * (j & 3) + t)) =
+          make_float2(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+    }
+  fence_proxy_async();
   __syncthreads();
-  for (int i = tid; i < TILE * D; i += THREADS) {
-    const int r = i / D, c = i % D;
-    if (t0 + r < a.T) {
-      const float o = round_bf16(outs[r * LDO + c] + a.b2[c]);
-      a.out[(t0 + r) * D + c] = __float2bfloat16(__bfloat162float(xs[r * LDX + c]) + o);
+  cluster_wait();  // every block of the cluster is done with its W1 slice
+  if (tid < CLUSTER && tid != rank)
+    bulk_copy_to_cluster(cluster_map(recv + rank * TILE * BAND, tid), part + tid * TILE * BAND,
+                         BAND_BYTES, cluster_map(&bar[3], tid));
+
+  // ---- block r: x + bf16(sum of the 8 partials + b2) on columns [32 r, 32 r + 32)
+  mbar_wait_cluster(&bar[3], 0);
+  cluster_arrive();  // every band this block is owed has landed
+  {
+    const int c = (tid & 3) * 8;
+    float sum[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) sum[k] = 0.0f;
+#pragma unroll
+    for (int q = 0; q < CLUSTER; ++q) {  // in rank order
+      const float* src = (q == rank ? part + rank * TILE * BAND : recv + q * TILE * BAND) +
+                         out_row * BAND;
+      const float4 v0 = *reinterpret_cast<const float4*>(src + 2 * band_pair(out_row, c / 2));
+      const float4 v1 = *reinterpret_cast<const float4*>(src + 2 * band_pair(out_row, c / 2 + 2));
+      sum[0] += v0.x; sum[1] += v0.y; sum[2] += v0.z; sum[3] += v0.w;
+      sum[4] += v1.x; sum[5] += v1.y; sum[6] += v1.z; sum[7] += v1.w;
     }
+    const float b[8] = {b2_lo.x, b2_lo.y, b2_lo.z, b2_lo.w, b2_hi.x, b2_hi.y, b2_hi.z, b2_hi.w};
+    const uint32_t w4[4] = {x_res.x, x_res.y, x_res.z, x_res.w};
+    uint32_t y[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float2 xv = unpack_bf16(w4[k]);
+      y[k] = pack_bf16(xv.x + round_bf16(sum[2 * k] + b[2 * k]),
+                       xv.y + round_bf16(sum[2 * k + 1] + b[2 * k + 1]));
+    }
+    if (t0 + out_row < a.T)
+      *reinterpret_cast<uint4*>(a.out + (t0 + out_row) * D + out_col) =
+          make_uint4(y[0], y[1], y[2], y[3]);
   }
+  cluster_wait();  // no block leaves while its bands may still be read from it
 }
 
-int launch(const Args& a, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_ff_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Smem::BYTES);
+// The plan of ops/fused_ff.py:wide_plan: `tiles` clusters of CLUSTER blocks.
+int launch(Args& a, const void* w1, const void* w2, int grid, int tiles, cudaStream_t stream) {
+  if (tiles < 1 || (long long)tiles * TILE < a.T || (long long)(tiles - 1) * TILE >= a.T ||
+      (long long)grid != (long long)tiles * CLUSTER)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = weight_map(&a.w1, w1, 1, D, 2 * FF, 128);
+  if (err == cudaSuccess) err = weight_map(&a.w2, w2, 1, FF, D, 128);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(ff_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, BYTES);
   if (err != cudaSuccess) return (int)err;
-  const long long blocks = (a.T + TILE - 1) / TILE;
-  fused_ff_kernel<<<(unsigned)blocks, THREADS, Smem::BYTES, stream>>>(a);
+  ff_wide_kernel<<<grid, THREADS, BYTES, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -265,8 +325,9 @@ int launch(const Args& a, cudaStream_t stream) {
 
 // x, out (T, D) bf16; ln_scale, ln_bias (D,) bf16; w1 (D, 8 D), w2 (4 D, D)
 // bf16; b1 (8 D,), b2 (D,) f32. D = 128 walks `grid` blocks over
-// `tiles_per_row` tiles of 128 tokens (the wrapper's schedule); D = 256 takes
-// neither. Returns a cudaError_t.
+// `tiles_per_row` tiles of 128 tokens (the wrapper's schedule); D = 256 runs
+// `tiles_per_row` clusters of 64 tokens, `grid` = 8 tiles_per_row blocks
+// (ops/fused_ff.py:wide_plan). Returns a cudaError_t.
 extern "C" int difffacto_fused_ff(const void* x, const void* ln_scale, const void* ln_bias,
                                   const void* w1, const void* b1, const void* w2, const void* b2,
                                   void* out, long long T, int D, int grid, int tiles_per_row,
@@ -283,11 +344,10 @@ extern "C" int difffacto_fused_ff(const void* x, const void* ln_scale, const voi
     return (int)launch<Mode::FF>(p, grid, tiles_per_row, nullptr, nullptr, w1, w2, s);
   }
   if (D != 256) return (int)cudaErrorInvalidValue;
-  wide::Args a;
+  wide::Args a = {};
   a.x = (const bf16*)x; a.ln_scale = (const bf16*)ln_scale; a.ln_bias = (const bf16*)ln_bias;
-  a.w1 = (const bf16*)w1; a.b1 = (const float*)b1; a.w2 = (const bf16*)w2;
-  a.b2 = (const float*)b2; a.out = (bf16*)out; a.T = T;
-  return wide::launch(a, s);
+  a.b1 = (const float*)b1; a.b2 = (const float*)b2; a.out = (bf16*)out; a.T = T;
+  return wide::launch(a, w1, w2, grid, tiles_per_row, s);
 }
 
 extern "C" const char* difffacto_cuda_error_string(int code) {
@@ -296,5 +356,5 @@ extern "C" const char* difffacto_cuda_error_string(int code) {
 
 // Dynamic shared memory of one thread block at width D, for reports.
 extern "C" int difffacto_fused_ff_smem_bytes(int D) {
-  return D == 128 ? SMEM_BYTES : D == 256 ? wide::Smem::BYTES : 0;
+  return D == 128 ? SMEM_BYTES : D == 256 ? wide::BYTES : 0;
 }

@@ -1,7 +1,8 @@
 // Hopper building blocks shared by the port's kernels (sm_90a only):
 // mbarriers, TMA tensor loads, warpgroup matrix multiply (wgmma) with A in
 // registers or in shared memory and B in shared memory, vector reductions into
-// global memory, and register rebalancing.
+// global memory, register rebalancing, and thread block clusters (rank,
+// distributed shared memory, the cluster barrier).
 //
 // Conventions. A bf16 weight W (K, N) with N contiguous is fetched by TMA in
 // boxes of K' rows x 64 columns (128 bytes a row) with the 128-byte swizzle;
@@ -265,6 +266,83 @@ __device__ __forceinline__ void red_add_v4(float* dst, float a, float b, float c
 
 __device__ __forceinline__ void red_add_v2(float* dst, float a, float b) {
   atomicAdd(reinterpret_cast<float2*>(dst), make_float2(a, b));
+}
+
+// ---- thread block clusters: rank, distributed shared memory, the split barrier
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+
+// The shared::cluster address of `p` (this block's shared memory) in the
+// shared memory of the cluster's block `rank`.
+__device__ __forceinline__ uint32_t cluster_map(const void* p, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(out) : "r"(smem_addr(p)), "r"(rank));
+  return out;
+}
+
+// Asynchronous stores into the shared memory of a block of the cluster that
+// count their bytes on that block's mbarrier (both addresses from
+// cluster_map); its threads see the data once they see the phase complete
+// (mbar_wait_cluster).
+__device__ __forceinline__ void st_async_u32x2(uint32_t addr, uint32_t a, uint32_t b,
+                                               uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.u32 [%0], {%1, %2}, [%3];" ::"r"(
+          addr),
+      "r"(a), "r"(b), "r"(bar)
+      : "memory");
+}
+
+// A bulk copy of `bytes` (a multiple of 16) from this block's shared memory
+// to the shared memory of a block of the cluster, counted on that block's
+// mbarrier (dst and bar from cluster_map). The source must stay until the
+// receiver has seen the phase complete.
+__device__ __forceinline__ void bulk_copy_to_cluster(uint32_t dst, const void* src,
+                                                     uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::
+          "r"(dst),
+      "r"(smem_addr(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// mbar_wait with acquire at cluster scope: for phases that other blocks of
+// the cluster complete.
+__device__ __forceinline__ bool mbar_try_wait_cluster(uint32_t addr, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n .reg .pred p;\n mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+      " selp.u32 %0, 1, 0, p;\n}"
+      : "=r"(done)
+      : "r"(addr), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_addr(bar);
+  if (mbar_try_wait_cluster(addr, parity)) return;
+  const unsigned long long t0 = global_ns();
+  while (!mbar_try_wait_cluster(addr, parity)) {
+    if (global_ns() - t0 > kWaitLimitNs) __trap();
+  }
+}
+
+// Every thread of every block of the cluster arrives (releasing its earlier
+// shared-memory writes) and then waits for all of them (acquiring theirs).
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_sync() {
+  cluster_arrive();
+  cluster_wait();
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {

@@ -7,7 +7,8 @@ for every token of x (T, D). ``fused_ln_geglu_ff`` launches the kernel for
 CUDA tensors and runs ``fused_ln_geglu_ff_reference`` for CPU tensors. At
 D = 128 the kernel is the persistent trunk template (``csrc/trunk.cuh``,
 Mode::FF): it walks 128-token tiles by ``ops/fused_core.py:schedule(1, T,
-sms)``, which the wrapper passes in.
+sms)``, which the wrapper passes in. At D = 256 it splits the hidden width
+over a cluster of thread blocks by ``wide_plan``.
 """
 
 from __future__ import annotations
@@ -41,6 +42,42 @@ def pick_tile(T: int, preferred: int = 1024) -> int:
             return t
         t //= 2
     return 0
+
+
+WIDE_TILE, WIDE_CLUSTER = 64, 8  # D = 256: tokens a cluster, blocks a cluster
+
+
+def wide_plan(T: int, D: int = 256) -> dict:
+    """The D = 256 kernel's launch: ``tiles`` clusters of ``WIDE_CLUSTER``
+    blocks, cluster i taking tokens [64 i, 64 i + 64) (the last one masked).
+    Block b of the grid is tile b // 8 and rank r = b % 8: it computes the
+    GEGLU units [r slice, (r + 1) slice) of its tile (slice = 4 D / 8 = 128,
+    u and g), and its f32 partial of all D output columns against those rows
+    of W2; it receives the other 7 blocks' partials of its band of columns
+    [r band, (r + 1) band) (band = D / 8 = 32) and sums the 8 in rank order."""
+    tiles = -(-T // WIDE_TILE)
+    return dict(tile=WIDE_TILE, cluster=WIDE_CLUSTER, tiles=tiles, grid=tiles * WIDE_CLUSTER,
+                slice=4 * D // WIDE_CLUSTER, band=D // WIDE_CLUSTER)
+
+
+def fused_ln_geglu_ff_sliced(x, ln_scale, ln_bias, w1, b1, w2, b2, cluster=WIDE_CLUSTER):
+    """The D = 256 kernel's arithmetic in plain PyTorch: LN(x) rounded to x's
+    dtype, each slice of 4 D / cluster GEGLU units computed on its own into
+    an f32 partial of the output, the partials summed in slice order, then
+    b2, the rounding and the residual as in ``fused_ln_geglu_ff_reference``."""
+    dt = x.dtype
+    FF = w2.shape[0]
+    h = ln_affine(x, ln_scale, ln_bias).float()
+    w1f, b1f, w2f = w1.float(), b1.float(), w2.float()
+    sl = FF // cluster
+    total = None
+    for r in range(cluster):
+        u = h @ w1f[:, r * sl:(r + 1) * sl] + b1f[r * sl:(r + 1) * sl]
+        g = h @ w1f[:, FF + r * sl:FF + (r + 1) * sl] + b1f[FF + r * sl:FF + (r + 1) * sl]
+        part = (u * gelu(g)).to(dt).float() @ w2f[r * sl:(r + 1) * sl]
+        total = part if total is None else total + part
+    out = (total + b2.float()).to(dt)
+    return (x.float() + out.float()).to(dt)
 
 
 def fused_ln_geglu_ff_reference(x, ln_scale, ln_bias, w1, b1, w2, b2) -> torch.Tensor:
@@ -92,7 +129,11 @@ def fused_ln_geglu_ff(x, ln_scale, ln_bias, w1, b1, w2, b2) -> torch.Tensor:
     _build.check_operands("fused_ff", specs, args)
     from .fused_core import launch_schedule  # fused_core imports this module
 
-    grid, tiles_per_row = launch_schedule(1, T, x.device) if D == 128 else (0, 0)
+    if D == 128:
+        grid, tiles_per_row = launch_schedule(1, T, x.device)
+    else:
+        plan = wide_plan(T, D)
+        grid, tiles_per_row = plan["grid"], plan["tiles"]
     lib = _library()
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):

@@ -82,11 +82,20 @@ def _clouds(B, N, seed, distinct=None):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("B, N, m, distinct", [(2, 8192, 2048, None), (3, 1000, 64, None),
-                                               (2, 256, 32, 16)])
+                                               (2, 256, 32, 16), (1, 8192, 512, None),
+                                               (32, 8192, 256, None), (64, 8192, 256, None),
+                                               (132, 8192, 128, None), (400, 8192, 64, None),
+                                               (70, 10000, 64, None), (132, 14528, 64, None),
+                                               (1, 16384, 256, None), (4, 19198, 64, None)])
 def test_fps_matches_plain_version_index_for_index(cuda, B, N, m, distinct):
     """The real shape, a ragged N, and fewer distinct points than samples (all
-    remaining distances are 0, so index 0 repeats). Both sides compute
-    (dx*dx + dy*dy) + dz*dz in f32 without FMA, so the indices are equal."""
+    remaining distances are 0, so index 0 repeats); then 1, 32, 64, 132 and
+    400 clouds of 8192 (``ops/fps.py:plan``: clusters of 4, 4, 2, 1 and 1),
+    N above one block's registers at 70 and 132 clouds (the plan grows the
+    cluster to 2), a cluster of 8, and the largest cloud the kernel takes
+    (each block's shared copy of 19,198 points fills its shared memory).
+    Both sides compute (dx*dx + dy*dy) + dz*dz in f32 without FMA, so the
+    indices are equal."""
     x = _clouds(B, N, seed=N, distinct=distinct).to(cuda)
     before = fps_mod.launches
     got = fps_mod.furthest_point_sample(x, m)
@@ -97,6 +106,30 @@ def test_fps_matches_plain_version_index_for_index(cuda, B, N, m, distinct):
     assert torch.equal(got, want)
     if distinct:
         assert (got[:, distinct:] == 0).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+def test_fps_each_cluster_size(cuda, cluster):
+    """Every cluster size, set by hand (runs of 32 points a thread at 1, of 16
+    at 2, 4 and 8), on a ragged N with duplicated points (exact ties in every
+    step)."""
+    x = _clouds(3, 5000, seed=11)
+    x[:, 2500:] = x[:, :2500]
+    x = x.to(cuda)
+    got = fps_mod._launch(x, 300, cluster)
+    torch.cuda.synchronize()
+    assert torch.equal(got, fps_mod.furthest_point_sample_reference(x, 300))
+
+
+@pytest.mark.gpu
+def test_fps_latency_floor_probe_runs_and_is_not_counted(cuda):
+    x = _clouds(4, 8192, seed=12).to(cuda)
+    before = fps_mod.launches
+    idx = fps_mod.latency_floor_probe(x, 2048)
+    torch.cuda.synchronize()
+    assert fps_mod.launches == before
+    assert idx.shape == (4, 2048) and int(idx.min()) >= 0 and int(idx.max()) < 8192
 
 
 def _mean_cost(a, b, assign):
