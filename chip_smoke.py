@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Run the PyTorch port on one CUDA card and check it: gen_chair generation,
 the eval protocol that scores what was generated, the gen_chair training
-step, and gen_chair generation with two-attention blocks beside the UNet
-denoiser.
+step, gen_chair generation with two-attention blocks beside the UNet
+denoiser, and the training loop users run (the runner and its CLI).
 
     python3 chip_smoke.py
 
@@ -90,8 +90,25 @@ Phases, each fatal (non-zero exit, no "ok" line):
    against the CPU. The fused FF and the one-block kernel are timed with CUDA
    events beside their plain versions and bounds; the FF at D = 256 and
    T = 1024, whose launch takes less device time than the wrapper's host
-   time, as a CUDA graph of 20 launches. One JSON line then gives every
-   kernel's numbers.
+   time, as a CUDA graph of 20 launches.
+9. runner, full width: the training loop as a user runs it,
+   ``runner/cli.py:main`` on ``configs/bench_train_tpu.py`` (gen_chair at
+   full width, SyntheticPart at batch 32 x 2048) for 3 epochs: CIMLE caches
+   at epochs 0 and 2, val at epoch 3, checkpoints at epochs 2 and 3. Launch
+   counts are set to 0 just before each run and read just after: one
+   training forward and backward launch per step, 100 trunk launches per
+   generation batch of val and of val_gen, EMD launches in both. Every logged
+   loss is finite and no step is skipped; the CIMLE table holds one finite
+   noise of the aligner's width per training shape; a second runner on the
+   same work_dir resumes at epoch 3 with every parameter, buffer, moment and
+   the step equal bit for bit; ``--task val_gen --gen_num 64`` gives 12
+   finite metrics. Then a ``CroppingDataLoader`` over SyntheticPart at 8192
+   points, batch 32, crop [2048, 6144): partial and missing of (32, 2048,
+   3), each point one of its input cloud, 2 FPS launches a batch, each held
+   index for index against the plain FPS. Seconds per epoch, training
+   shapes/s, the cache, val and val_gen seconds, a later epoch's device idle
+   share and the peak memory are printed. One JSON line then gives every
+   kernel's numbers, with its launches in phase 9 (``launches_runner``).
 
 The last line is {"ok": true, "device": {...}}.
 """
@@ -443,6 +460,246 @@ def unet_inputs(B, device, seed):
     return [torch.as_tensor(a, device=device) for a in (
         rng.randn(B, 2048, 3).astype(np.float32), rng.randint(0, 100, B),
         rng.randn(B, 4, 522).astype(np.float32), valid)]
+
+
+RUNNER_CONFIG = os.path.join("configs", "bench_train_tpu.py")
+# Phase 9: 3 epochs of 2 steps at batch 32, CIMLE caches at epochs 0 and 2,
+# val at epoch 3 (its 64 shapes in 2 batches), checkpoints at epochs 2 and 3.
+RUNNER_OVERRIDES = dict(max_epoch=3, cimle_cache_interval=2, eval_interval=3,
+                        checkpoint_interval=2, log_interval=1)
+RUNNER_GEN_NUM = 64
+CROP_POINTS, CROP_BATCH, CROP_SHAPES, CROP_RANGE = 8192, 32, 64, [2048, 6144]
+
+
+def runner_state(r):
+    """Every tensor a checkpoint holds, by name: parameters, buffers, Adam's
+    moments and count, and the step."""
+    names = [n for n, _ in r.model.named_parameters()]
+    out = {f"param {n}": p.detach() for n, p in r.model.named_parameters()}
+    out.update({f"buffer {n}": b for n, b in r.model.named_buffers()})
+    for key in ("mu", "nu"):
+        out.update({f"{key} {n}": t for n, t in zip(names, r.state.opt_state[key])})
+    out["count"] = r.state.opt_state["count"]
+    out["step"] = torch.tensor(r.state.step)
+    return out
+
+
+def runner_phase(dev, fc, fct, fpsm, eh, ff, fb):
+    """Phase 9: the port's training loop as a user runs it, through
+    ``runner/cli.py:main`` on ``configs/bench_train_tpu.py``; then the
+    cropping loader. Returns the launch counts of each kernel and the times."""
+    import tempfile
+    import warnings
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from difffacto_torch.config import Config, get_cfg
+    from difffacto_torch.data import CroppingDataLoader, SyntheticPart
+    from difffacto_torch.ops import points
+    from difffacto_torch.ops.fps import furthest_point_sample_reference
+    from difffacto_torch.runner import Runner
+    from difffacto_torch.runner.cli import main as cli_main
+    from difffacto_torch.runner.runner import device_batch
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    times = {"train": [], "cache_noise": [], "val": []}
+    originals = {name: getattr(Runner, name) for name in times}
+
+    def timed(name):
+        def run(self, *a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = originals[name](self, *a, **k)
+            torch.cuda.synchronize()
+            times[name].append(time.perf_counter() - t0)
+            return out
+        return run
+
+    def zero():
+        fc.launches = fct.launches_fwd = fct.launches_bwd = 0
+        fpsm.launches = eh.launches = ff.launches = fb.launches = 0
+
+    def read():
+        return dict(fused_core=fc.launches, fused_trunk_train_fwd=fct.launches_fwd,
+                    fused_trunk_train_bwd=fct.launches_bwd, fps=fpsm.launches,
+                    emd_hybrid=eh.launches, fused_ff=ff.launches, fused_block=fb.launches)
+
+    with tempfile.TemporaryDirectory() as work:
+        overrides = dict(RUNNER_OVERRIDES, work_dir=os.path.join(work, "bench_train"))
+        argv = ["--config-file", os.path.join(ROOT, RUNNER_CONFIG)]
+        print(f"{RUNNER_CONFIG} --task train, overrides {overrides}")
+        for name in times:
+            setattr(Runner, name, timed(name))
+        try:
+            zero()
+            t0 = time.perf_counter()
+            run = cli_main(argv + ["--task", "train"], overrides=overrides)
+            torch.cuda.synchronize()
+            train_wall = time.perf_counter() - t0
+            train_counts = read()
+        finally:
+            for name, fn in originals.items():
+                setattr(Runner, name, fn)
+        cfg = get_cfg()
+        B = int(cfg.dataset.train.batch_size)
+        steps = RUNNER_OVERRIDES["max_epoch"] * len(run.train_loader)
+        val_batches = len(run.val_loader)
+        print(f"train: {train_wall:.2f} s for {steps} steps at batch {B} x "
+              f"{cfg.dataset.train.npoints}, launches {train_counts}")
+        want = dict(fused_trunk_train_fwd=steps, fused_trunk_train_bwd=steps,
+                    fused_core=100 * val_batches)
+        if any(train_counts[k] != v for k, v in want.items()) or train_counts["emd_hybrid"] == 0:
+            fail(f"the runner's training run launched {train_counts}: expected {want} and "
+                 "EMD launches in its val")
+        recs = [json.loads(line) for line in open(os.path.join(run.work_dir, "scalars.jsonl"))]
+        losses = [r for r in recs if "total_loss" in r]
+        if len(losses) != steps or not all(np.isfinite(r["total_loss"]) for r in losses):
+            fail(f"logged training losses {[r.get('total_loss') for r in losses]}")
+        if any(r["skipped_nonfinite"] != 0 for r in losses):
+            fail("a training step was skipped as non-finite")
+        print("total_loss by step: " + ", ".join(f"{r['total_loss']:.4f}" for r in losses))
+        table = run.train_loader.dataset.noises
+        width = run.model.encoder_mod.noise_dim
+        if sorted(table) != list(range(len(run.train_loader.dataset))) or not all(
+                v.shape == (width,) and np.isfinite(v).all() for v in table.values()):
+            fail(f"the CIMLE table holds {len(table)} entries, not one finite noise of width "
+                 f"{width} for each of the {len(run.train_loader.dataset)} training shapes")
+        val_metrics = [r for r in recs if any(k.endswith("1-NN-CD-acc") for k in r)]
+        if len(val_metrics) != 1 or not all(np.isfinite(v) for k, v in val_metrics[0].items()
+                                            if "/" in k):
+            fail(f"val logged {val_metrics}")
+        ckpts = sorted(os.listdir(os.path.join(run.work_dir, "checkpoints")))
+        if ckpts != ["ckpt_2.meta.json", "ckpt_2.pt", "ckpt_3.meta.json", "ckpt_3.pt"]:
+            fail(f"checkpoints written: {ckpts}")
+
+        # A second runner on the same work_dir resumes at epoch 3, bit for bit.
+        zero()
+        again = Runner(cfg=cfg, device=dev)
+        if again.epoch != 3 or again.state.step != steps:
+            fail(f"the second runner resumed at epoch {again.epoch}, step {again.state.step}")
+        want_state, got_state = runner_state(run), runner_state(again)
+        differ = [k for k in want_state if not torch.equal(want_state[k], got_state[k])]
+        if differ or want_state.keys() != got_state.keys():
+            fail(f"the resumed runner differs from the one that saved: {differ[:5]}")
+        if sorted(again.train_loader.dataset.noises) != sorted(table):
+            fail("the resumed runner lost the CIMLE table")
+        print(f"resume: epoch {again.epoch}, step {again.state.step}, {len(want_state)} tensors "
+              "equal bit for bit")
+        # Later epochs of the resumed runner with the configuration's own log
+        # interval (the host reads the metrics, and so waits for the card,
+        # once every that many steps): one to warm it up, one timed and one
+        # traced (device_busy), one traced for the device operations a step;
+        # then the loader alone (collation and the copies to the card).
+        again.log_interval = Config(os.path.join(ROOT, RUNNER_CONFIG)).log_interval
+        again.train()
+        wall, busy = device_busy(again.train)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")  # each call that waits for the card warns
+                try:
+                    again.train()
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+        n_steps = len(again.train_loader)
+        ops = sum(e.device_type == DeviceType.CUDA for e in prof.events()) / n_steps
+        waits = [w for w in caught if "synchroniz" in str(w.message)]
+        syncs = len(waits) / n_steps
+        sites = sorted({f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}" for w in waits})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in again.train_loader:
+            device_batch(b, dev, again._slim_train)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        print(f"one later epoch: {wall:.1f} ms wall, device busy {busy:.1f} ms, "
+              f"idle {100 * (1 - busy / wall):.1f}%; {ops:.0f} device operations and "
+              f"{syncs:.1f} waits for the card a step (at {sites}); the loader alone "
+              f"{1e3 * load_s:.1f} ms an epoch")
+        del again
+
+        zero()
+        t0 = time.perf_counter()
+        metrics = cli_main(argv + ["--task", "val_gen", "--gen_num", str(RUNNER_GEN_NUM)],
+                           overrides=overrides)
+        torch.cuda.synchronize()
+        val_gen_s = time.perf_counter() - t0
+        gen_counts = read()
+        print(f"val_gen --gen_num {RUNNER_GEN_NUM}: {val_gen_s:.2f} s (runner built), "
+              f"launches {gen_counts}")
+        if len(metrics) != 12 or not all(np.isfinite(v) for v in metrics.values()):
+            fail(f"val_gen gave {metrics}")
+        gen_batches = -(-RUNNER_GEN_NUM // 128)
+        if gen_counts["fused_core"] != 100 * gen_batches or gen_counts["emd_hybrid"] == 0:
+            fail(f"val_gen launched {gen_counts}: expected {100 * gen_batches} trunk launches "
+                 "and EMD launches")
+        del run
+
+    # The cropping loader: ShapeNet-55's training crop at 8192 points. Each
+    # FPS call is recorded, to hold its indices against the plain version.
+    loader, _ = SyntheticPart(batch_size=CROP_BATCH, npoints=CROP_POINTS, size=CROP_SHAPES)
+    crop = CroppingDataLoader(loader, crop=CROP_RANGE, seed=0, device=dev)
+    calls = []
+    real_fps = points.fps
+
+    def recording_fps(data, number, ret_id=False):
+        out, idx = real_fps(data, number, ret_id=True)
+        calls.append((data.clone(), idx))
+        return (out, idx) if ret_id else out
+
+    points.fps = recording_fps
+    try:
+        zero()
+        t0 = time.perf_counter()
+        batches = list(crop)
+        torch.cuda.synchronize()
+        crop_s = time.perf_counter() - t0
+        crop_counts = read()
+    finally:
+        points.fps = real_fps
+    if crop_counts["fps"] != 2 * len(batches) or len(batches) != CROP_SHAPES // CROP_BATCH:
+        fail(f"{len(batches)} cropping batches launched {crop_counts}: expected 2 FPS each")
+    for b in batches:
+        inp = torch.as_tensor(b["input"], device=dev)
+        for key in ("partial", "missing"):
+            half = b[key]
+            if tuple(half.shape) != (CROP_BATCH, 2048, 3):
+                fail(f"{key} has shape {tuple(half.shape)}")
+            near = torch.cdist(half, inp, compute_mode="donot_use_mm_for_euclid_dist")
+            if near.min(-1).values.max().item() != 0.0:
+                fail(f"a {key} point is not a point of its input cloud")
+    fps_diff = 0
+    for data, idx in calls:
+        plain = furthest_point_sample_reference(data, 2048)
+        fps_diff = max(fps_diff, int((plain != idx).sum().item()))
+    if fps_diff:
+        fail(f"FPS in the cropping loader differs from the plain version at {fps_diff} indices")
+    print(f"cropping loader: {len(batches)} batches of {CROP_BATCH} x {CROP_POINTS}, crop "
+          f"{CROP_RANGE}, {crop_s:.2f} s, launches {crop_counts}; {len(calls)} FPS calls equal "
+          "the plain version index for index")
+
+    launches = {k: train_counts[k] + gen_counts[k] + crop_counts[k] for k in train_counts}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    epochs = times["train"][:RUNNER_OVERRIDES["max_epoch"]]
+    later = sum(epochs[1:]) / len(epochs[1:])
+    result = dict(
+        launches=launches, epoch_s_first=epochs[0], epoch_s_later=later,
+        shapes_per_s=B * steps / RUNNER_OVERRIDES["max_epoch"] / later,
+        cache_noise_s=times["cache_noise"], val_s=times["val"], val_gen_s=val_gen_s,
+        idle_share=1 - busy / wall, later_epoch_ms=wall, device_busy_ms=busy,
+        device_ops_per_step=ops, syncs_per_step=syncs, loader_epoch_s=load_s, peak_gib=peak,
+        crop_s=crop_s,
+    )
+    print(f"seconds per epoch: first {epochs[0]:.3f}, later {later:.3f} (each {epochs}); "
+          f"training {result['shapes_per_s']:.1f} shapes/s at batch {B} (host clock, "
+          "synchronized)")
+    print(f"cache_noise {times['cache_noise']} s, val {times['val']} s, val_gen {val_gen_s:.2f} s, "
+          f"peak {peak:.2f} GiB; launches over phase 9 {launches}")
+    print(f"phase 9: {time.perf_counter() - t_phase:.1f} s")
+    return result
 
 
 def main():
@@ -1296,7 +1553,12 @@ def main():
     del args
     print(f"phase 8: {time.perf_counter() - t_phase:.1f} s")
 
+    phase("9 runner, full width")
+    run9 = runner_phase(dev, fc, fct, fpsm, eh, ff, fb)
+    on_path = run9["launches"]
+
     print(card)
+    trunk["launches_runner"] = on_path["fused_core"]
     print(json.dumps({"kernels": [trunk, {
         "name": "fps", "route": "cuda", "source": "difffacto_torch/csrc/fps.cu",
         "replaces": "difffacto_tpu/ops/fps_pallas.py:27", "launches": counts["fps"],
@@ -1307,6 +1569,7 @@ def main():
         "ms_at_32_clouds_cluster_1": fps_t[32]["ms_c1"], "ms_at_400_clouds": fps_t[400]["ms"],
         "bound_ms_at_400_clouds": fps_t[400]["bound"],
         "latency_floor_ms_at_400_clouds": fps_t[400]["floor"],
+        "launches_runner": on_path["fps"], "crop_loader_s": run9["crop_s"],
     }, {
         "name": "emd_hybrid", "route": "cuda", "source": "difffacto_torch/csrc/emd_hybrid.cu",
         "replaces": "difffacto_tpu/ops/emd_pallas.py:51", "launches": counts["emd_hybrid"],
@@ -1317,7 +1580,7 @@ def main():
         "ms_at_32_pairs": emd[32][0], "bound_ms_at_32_pairs": emd[32][1],
         "sinkhorn_ms_at_32_pairs": emd[32][3], "auction_ms_at_32_pairs": emd[32][0] - emd[32][3],
         "protocol_launches_pairs_ms": [[b, s.elapsed_time(e)] for s, e, b in emd_events],
-        "protocol_s": t_eval,
+        "protocol_s": t_eval, "launches_runner": on_path["emd_hybrid"],
     }, {
         "name": "fused_trunk_train_fwd", "route": "cuda",
         "source": "difffacto_torch/csrc/fused_core_train.cu",
@@ -1325,6 +1588,7 @@ def main():
         "launches": train_counts["fused_trunk_train_fwd"], "max_abs_err": train_fwd_err,
         "ms": fwd_ms, "plain_ms": plain_fwd_ms, "bound_ms": bounds["fwd"][0],
         "bound_by": bounds["fwd"][1], "library_ms": None,
+        "launches_runner": on_path["fused_trunk_train_fwd"],
     }, {
         "name": "fused_trunk_train_bwd", "route": "cuda",
         "source": "difffacto_torch/csrc/fused_core_train.cu",
@@ -1335,12 +1599,22 @@ def main():
         "bound_ms_jax_inputs": bounds["bwd_jax_inputs"][0], "train_step_ms": step_ms,
         "train_step_host_ms": host_ms,
         "train_shapes_per_s": 1e3 * TRAIN_BATCH / step_ms, "train_peak_gib": train_peak_gib,
+        "launches_runner": on_path["fused_trunk_train_bwd"],
+        "runner_epoch_s_first": run9["epoch_s_first"],
+        "runner_epoch_s_later": run9["epoch_s_later"],
+        "runner_shapes_per_s": run9["shapes_per_s"], "runner_cache_noise_s": run9["cache_noise_s"],
+        "runner_val_s": run9["val_s"], "runner_val_gen_s": run9["val_gen_s"],
+        "runner_idle_share": run9["idle_share"], "runner_later_epoch_ms": run9["later_epoch_ms"],
+        "runner_device_busy_ms": run9["device_busy_ms"],
+        "runner_device_ops_per_step": run9["device_ops_per_step"],
+        "runner_syncs_per_step": run9["syncs_per_step"],
+        "runner_loader_epoch_s": run9["loader_epoch_s"], "runner_peak_gib": run9["peak_gib"],
     }, {
         "name": "fused_block", "route": "cuda", "source": "difffacto_torch/csrc/fused_core.cu",
         "replaces": "difffacto_tpu/ops/fused_block.py:24", "launches": unet_launches,
         "max_abs_err": block_err, "ms": block_ms, "plain_ms": block_plain_ms,
         "bound_ms": block_bound, "bound_by": block_by, "library_ms": None,
-        "unet_forward_ms": unet_ms,
+        "unet_forward_ms": unet_ms, "launches_runner": on_path["fused_block"],
     }, {
         "name": "fused_ff", "route": "cuda", "source": "difffacto_torch/csrc/fused_ff.cu",
         "replaces": "difffacto_tpu/ops/fused_ff.py:26", "launches": two_counts["fused_ff"],
@@ -1349,6 +1623,7 @@ def main():
         "graph_ms_at_t1024_d256": ff_graph_ms_256,
         "bound_ms_at_t1024_d256": ff_bound_256, "plain_ms_at_t1024_d256": ff_plain_ms_256,
         "two_attn_shapes_per_s": TWO_ATTN_BATCH_TIMED / two_dt, "two_attn_peak_gib": two_peak,
+        "launches_runner": on_path["fused_ff"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

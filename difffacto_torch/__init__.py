@@ -15,6 +15,12 @@ Slice 4 is generation with two-attention blocks (``single_attn=False``),
 whose fused LayerNorm -> GEGLU feed-forward is a CUDA kernel
 (``csrc/fused_ff.cu``), and the ``UNet`` denoiser's forward, whose flat
 blocks run one block per launch (a second entry point of ``fused_core.cu``).
+Slice 9 is the training loop users run: the datasets and loaders
+(``data/``: ``SyntheticPart``, ``ShapeNetSegPart``, ``DataLoader``, and
+``CroppingDataLoader``, which crops on the device and resamples by FPS),
+checkpoints and loggers (``utils/``), the ``Runner`` (train with the CIMLE
+re-cache, val, val_gen, auto-resume) and its command line
+(``runner/cli.py``, ``tools/run_net_torch.py``).
 The package imports torch, numpy, scipy and yaml, never JAX or the JAX
 package. Entry points run on the card (``device="cuda"``) unless the caller
 asks for the CPU.
@@ -23,6 +29,7 @@ asks for the CPU.
 from .config import Config
 from .models import AnchorDiffAE, decode, sample_generation, select_best_noise
 from .parallel import build_optimizer_from_cfg, init_train_state, make_train_step
+from .runner import Runner
 from .utils.jax_params import load_jax_params
 from .utils.registry import MODELS, build_from_cfg
 

@@ -228,8 +228,12 @@ class PartEncoderForTransformerDecoder(nn.Module):
         raise NotImplementedError(t)
 
     def _kl_weight(self, epoch, device):
-        epoch = torch.as_tensor(epoch, dtype=torch.float32, device=device)
-        kl = torch.as_tensor(self.kl_weight, dtype=torch.float32, device=device)
+        # torch.full fills on the device; as_tensor of a Python number would
+        # copy it from the host and wait for the card at every step
+        f32 = torch.float32
+        epoch = (epoch.to(device, f32) if isinstance(epoch, torch.Tensor)
+                 else torch.full((), float(epoch), dtype=f32, device=device))
+        kl = torch.full((), float(self.kl_weight), dtype=f32, device=device)
         if self.kl_weight_annealing:
             end = float(self.kl_weight_annealing_end_epoch)
             w = self.min_kl_weight + (self.kl_weight - self.min_kl_weight) * epoch / end

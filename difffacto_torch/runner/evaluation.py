@@ -1,8 +1,8 @@
 """The val_gen protocol as plain functions: generate, then score.
 
 The bodies of ``Runner.generate_samples`` and ``Runner.evaluate_gen`` of the
-JAX package (``difffacto_tpu/runner/runner.py``). The ``Runner`` class itself
-comes with the training slice.
+JAX package (``difffacto_tpu/runner/runner.py``); the port's ``Runner``
+(``runner/runner.py``) calls them with its model, val set and device.
 """
 
 from __future__ import annotations

@@ -80,3 +80,5 @@ DIFFUSIONS = Registry("DIFFUSIONS")
 NETS = Registry("NETS")
 SAMPLERS = Registry("SAMPLERS")
 SCHEDULERS = Registry("SCHEDULERS")
+DATASETS = Registry("DATASETS")
+HOOKS = Registry("HOOKS")
