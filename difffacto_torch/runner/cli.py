@@ -5,8 +5,8 @@ The peer of ``tools/run_net.py`` with the same flags (``--config-file``,
 ``--task``, ``--seed``, ``--no_eval``, ``--short_val``, ``--gen_num``,
 ``--prefix``, ``--save_dir``), run on the card unless ``--cpu`` is given.
 ``main(argv)`` returns what it ran: the ``Runner`` after ``train``, the
-metric dict after ``val`` and ``val_gen``; ``overrides`` merges a dict into
-the loaded config, for callers in the same process.
+metric dict after ``val`` and ``val_gen``. A caller that changes a few keys
+writes a config whose ``_base_`` names the original by its absolute path.
 """
 
 from __future__ import annotations
@@ -42,8 +42,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     return p.parse_args(argv)
 
 
-def main(argv: Optional[Sequence[str]] = None, overrides: Optional[dict] = None):
-    from ..config import Config, get_cfg, init_cfg
+def main(argv: Optional[Sequence[str]] = None):
+    from ..config import get_cfg, init_cfg
     from ..utils.device import resolve_device
     from .runner import Runner
 
@@ -51,8 +51,6 @@ def main(argv: Optional[Sequence[str]] = None, overrides: Optional[dict] = None)
     device = resolve_device("cpu" if args.cpu else "cuda")
     init_cfg(args.config_file)
     cfg = get_cfg()
-    if overrides:
-        Config.merge_dict_b2a(cfg, cfg.dfs(overrides))
     if args.prefix:
         cfg.work_dir = os.path.join("work_dirs", cfg.name + "_" + args.prefix)
 

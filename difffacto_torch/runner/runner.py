@@ -34,7 +34,7 @@ from ..models import sample_generation, select_best_noise
 from ..parallel.optim import build_optimizer_from_cfg
 from ..parallel.train import init_train_state, make_train_step
 from ..utils import loggers  # noqa: F401  (registers RunLogger)
-from ..utils.checkpoint import load_checkpoint, read_noise_table, save_checkpoint, search_ckpt
+from ..utils.checkpoint import load_checkpoint, save_checkpoint, search_ckpt
 from ..utils.device import resolve_device
 from ..utils.registry import DATASETS, HOOKS, MODELS, build_from_cfg
 from .evaluation import evaluate_gen, generate_samples
@@ -188,9 +188,8 @@ class Runner:
         if not model_only:
             self.epoch = int(meta.get("epoch", 0))
             self.iter = int(meta.get("iter", self.epoch * self.iters_per_epoch))
-            table = read_noise_table(path)
-            if table is not None:
-                self.train_loader.dataset.noises = table
+            if meta["noise_table"] is not None:
+                self.train_loader.dataset.noises = meta["noise_table"]
         self.logger.print_log(f"resumed from {path} (epoch {self.epoch})")
 
     def save(self):

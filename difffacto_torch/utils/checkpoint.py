@@ -93,14 +93,6 @@ def search_ckpt(work_dir: str) -> Optional[str]:
     return max(files, key=lambda p: int(re.search(r"ckpt_(\d+)\.pt$", p).group(1)))
 
 
-def read_noise_table(path: str) -> Optional[Dict[int, np.ndarray]]:
-    """The CIMLE table a checkpoint holds, {training id: noise}, or None."""
-    table = torch.load(path, map_location="cpu", weights_only=True).get("noise_table")
-    if table is None:
-        return None
-    return {int(i): n.numpy() for i, n in zip(table["ids"], table["noise"])}
-
-
 def _merge_partial(target, loaded, path="") -> List[str]:
     """Copy ``loaded`` into ``target`` in place where names AND shapes match;
     returns what was skipped. Entries of ``loaded`` that ``target`` lacks are
@@ -124,7 +116,8 @@ def _merge_partial(target, loaded, path="") -> List[str]:
 def load_checkpoint(path: str, state: TrainState, model_only: bool = False,
                     strict: bool = False) -> Tuple[TrainState, Dict]:
     """Restore ``path`` into ``state`` (its model in place); returns
-    (state, meta)."""
+    (state, meta). Unless ``model_only``, ``meta["noise_table"]`` is the CIMLE
+    table the checkpoint holds, {training id: noise}, or None."""
     raw = torch.load(path, map_location="cpu", weights_only=True)
     meta_path = path[: -len(".pt")] + ".meta.json"
     meta = {}
@@ -151,6 +144,9 @@ def load_checkpoint(path: str, state: TrainState, model_only: bool = False,
         print(f"[checkpoint] skipped {len(skipped)} entries, e.g. {skipped[:5]}")
     if model_only:
         return state, meta
+    table = raw.get("noise_table")
+    meta["noise_table"] = None if table is None else {
+        int(i): n.numpy() for i, n in zip(table["ids"], table["noise"])}
     opt = target["opt_state"]
     new_opt = {"count": opt["count"]}
     for key in ("mu", "nu"):

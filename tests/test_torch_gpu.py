@@ -570,7 +570,7 @@ def test_checkpoint_round_trip_of_a_card_model(cuda, tmp_path):
     path = save_checkpoint(str(tmp_path), 2, state, meta={"iter": 2})
     fresh = build(1)
     restored, meta = load_checkpoint(path, init_train_state(fresh, tx), strict=True)
-    assert meta == {"epoch": 2, "iter": 2} and restored.step == 2
+    assert meta == {"epoch": 2, "iter": 2, "noise_table": None} and restored.step == 2
     want, got = state_dict(state), state_dict(restored)
     for group in ("params", "batch_stats"):
         for name, t in want[group].items():
