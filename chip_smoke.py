@@ -2,7 +2,9 @@
 """Run the PyTorch port on one CUDA card and check it: gen_chair generation,
 the eval protocol that scores what was generated, the gen_chair training
 step, gen_chair generation with two-attention blocks beside the UNet
-denoiser, and the training loop users run (the runner and its CLI).
+denoiser, the training loop users run (the runner and its CLI), and
+reconstruction and part-level editing on weights read from a reference
+``.pth``.
 
     python3 chip_smoke.py
 
@@ -116,8 +118,31 @@ Phases, each fatal (non-zero exit, no "ok" line):
    most of 12 later epochs at the configuration's log interval and the
    training shapes/s from that median; the cache, val and val_gen seconds; a
    later epoch's device idle share; 5 passes of the loader alone; the peak
-   memory. One JSON line then gives every kernel's numbers, with its
-   launches in phase 9 (``launches_runner``).
+   memory.
+10. reconstruction and editing, full width: ``configs/gen_chair.py`` (zdim
+   256, T = 100, 2048 points, the aligner at D = 256, the 5-block denoiser)
+   through a config whose ``_base_`` it is, with SyntheticPart at batch 32
+   and ``resume_path`` a reference-layout ``.pth`` written with the torch
+   modules of ``tools/reference_layout_torch.py`` and read by
+   ``Runner.load``. Paths, each with the launch counts set to 0 just before
+   and read just after, and its wall time and device idle share: the
+   runner's val of a reconstruction model (the loaded model with
+   ``gen=False``: ``cimle_sample_num`` candidates a shape, ``reconstruct``,
+   the trajectory kept, the ``ae`` protocol's paired CD and EMD),
+   ``reconstruct``, ``--task mixing`` and ``--task interpolation`` through
+   ``runner/cli.py:main``, ``combine_latent``, ``interpolate_latent``,
+   ``sample_one_part`` (32 shapes x 10 variants, an aligner search over 100
+   noises each: 32,000 rows) and ``shape_edit`` (100 Adam steps); then
+   ``sample_one_part`` and ``shape_edit`` again with the aligner in its
+   two-attention form (``single_attn=False``, seeded; the rest loaded), whose
+   FF at D = 256 is the fused FF kernel: 5 launches in the search, 5 in the
+   edit's decode and none in its 100 steps under autograd. Each path
+   launches the trunk 100 times. The first launch of the trunk, the fused
+   FF and the EMD assignment on these paths is held against its plain
+   version, and one ``shape_edit`` step's z-gradient on the card (float32)
+   against the CPU's. One JSON line then gives every kernel's numbers, with
+   its launches in phase 9 (``launches_runner``) and phase 10
+   (``launches_editing``).
 
 The last line is {"ok": true, "device": {...}}.
 """
@@ -542,37 +567,41 @@ def runner_state(r):
 
 
 class KernelRecorder:
-    """While entered, wraps the two trunk functions where the denoiser calls
-    them and records the first trunk launch at each (B, N) (its inputs and
-    output) and the first training-trunk launch (its inputs, output, the
-    cotangent the step gave it and the 18 gradients it returned), so that
-    ``hold`` can hold what the main path computed against the plain versions."""
+    """While entered, wraps each kernel wrapper at its (module, name) site,
+    where the model calls it, and keeps the first launch of each at each
+    input shape (its inputs and output), so that what a path computed can be
+    held against the plain versions afterwards. The training trunk's first
+    launch also keeps the cotangent the step gave it and the 18 gradients it
+    returned."""
 
-    def __init__(self):
-        from difffacto_torch.models import denoiser
-
-        self.module = denoiser
-        self.real_core, self.real_train = denoiser.fused_core, denoiser.fused_trunk_train
-        self.core, self.train = {}, None
+    def __init__(self, *sites):
+        self.sites = sites
+        self.real = {name: getattr(mod, name) for mod, name in sites}
+        self.first, self.train = {}, None
 
     def __enter__(self):
-        self.module.fused_core, self.module.fused_trunk_train = self._core, self._train
+        for mod, name in self.sites:
+            setattr(mod, name, self._train if name == "fused_trunk_train" else self._wrap(name))
         return self
 
     def __exit__(self, *exc):
-        self.module.fused_core = self.real_core
-        self.module.fused_trunk_train = self.real_train
+        for mod, name in self.sites:
+            setattr(mod, name, self.real[name])
 
-    def _core(self, *args):
-        out = self.real_core(*args)
-        key = tuple(args[0].shape[:2])
-        if key not in self.core:
-            self.core[key] = ([a.clone() if torch.is_tensor(a) else a for a in args], out.clone())
-        return out
+    def _wrap(self, name):
+        def call(*args, **kwargs):
+            out = self.real[name](*args, **kwargs)
+            key = (name, tuple(args[0].shape[:2]))
+            if key not in self.first:
+                keep = lambda a: a.clone() if torch.is_tensor(a) else a
+                self.first[key] = ([keep(a) for a in args], dict(kwargs), keep(out))
+            return out
+        return call
 
     def _train(self, *args):
+        real = self.real["fused_trunk_train"]
         if self.train is not None:
-            return self.real_train(*args)
+            return real(*args)
         # A view of each input that takes a gradient: its hook sees what this
         # call's backward returns for it, and nothing of later steps.
         args = [a.view_as(a) if torch.is_tensor(a) and a.requires_grad else a for a in args]
@@ -581,29 +610,41 @@ class KernelRecorder:
         for i, a in enumerate(args):
             if torch.is_tensor(a) and a.requires_grad:
                 a.register_hook(lambda g, i=i: rec["grads"].__setitem__(i, g.detach().clone()))
-        out = self.real_train(*args)
+        out = real(*args)
         rec["y"] = out.detach().clone()
         out.register_hook(lambda g: rec.__setitem__("dy", g.detach().clone()))
         return out
 
-    def hold(self):
-        """Fail unless every recorded launch agrees with its plain version on
-        the same inputs (the trunk by hold_bf16, the training trunk's forward
-        and 18 gradients by hold_train); returns the largest absolute
-        differences (trunk, training forward, training backward)."""
-        from difffacto_torch.ops import fused_core as fc
-        from difffacto_torch.ops import fused_core_train as fct
+    def launches(self, name, label):
+        """The kept launches of ``name`` by input shape; fails if there are none."""
+        got = sorted((key[1], v) for key, v in self.first.items() if key[0] == name)
+        if not got:
+            fail(f"{label} recorded no launch of {name}")
+        return got
 
-        core_err = 0.0
-        for (B, N), (args, out) in sorted(self.core.items()):
+    def hold_core(self, label):
+        """Fail unless every kept trunk launch agrees with fused_core_reference
+        on the same inputs (hold_bf16); returns the largest difference."""
+        from difffacto_torch.ops import fused_core as fc
+
+        err = 0.0
+        for (B, N), (args, _, out) in self.launches("fused_core", label):
             with torch.inference_mode():
                 want = fc.fused_core_reference(*args)
-            core_err = max(core_err, hold_bf16(f"fused_core as phase 9 launched it, B={B} N={N}",
-                                               out, want))
+            err = max(err, hold_bf16(f"fused_core as {label} launched it, B={B} N={N}", out, want))
+        return err
+
+    def hold_train(self, label):
+        """Fail unless the first training-trunk launch's forward and 18
+        gradients agree with the plain version's on the same inputs and
+        cotangent (hold_train); returns the largest differences (forward,
+        backward)."""
+        from difffacto_torch.ops import fused_core_train as fct
+
         rec = self.train
         grads = [1, 2, 3] + list(range(5, 20))  # x, k, v and the 15 parameters
-        if not self.core or rec is None or "dy" not in rec or sorted(rec["grads"]) != grads:
-            fail("phase 9 recorded no trunk launch, or no whole training-trunk launch")
+        if rec is None or "dy" not in rec or sorted(rec["grads"]) != grads:
+            fail(f"{label} recorded no whole training-trunk launch")
         seed, x, k, v, mask = rec["args"][:5]
         params, (scale, p) = rec["args"][5:20], rec["args"][20:22]
         leaves = [t.clone().requires_grad_(True) for t in (x, k, v, *params)]
@@ -611,11 +652,10 @@ class KernelRecorder:
             yr = fct.fused_trunk_train_reference(seed, *leaves[:3], mask, *leaves[3:], scale, p)
             yr.backward(rec["dy"])
         B, N = x.shape[:2]
-        fe, be = hold_train(
-            f"as phase 9 launched it, B={B} N={N} p={p} (the first step's own cotangent)",
+        return hold_train(
+            f"as {label} launched it, B={B} N={N} p={p} (the first step's own cotangent)",
             rec["y"].float(), [rec["grads"][i].float() for i in grads], yr.detach().float(),
             [t.grad.float() for t in leaves])
-        return core_err, fe, be
 
 
 def runner_step_against_cpu(card, cfg):
@@ -718,7 +758,9 @@ def runner_phase(dev, fc, fct, fpsm, eh, ff, fb):
                     fused_trunk_train_bwd=fct.launches_bwd, fps=fpsm.launches,
                     emd_hybrid=eh.launches, fused_ff=ff.launches, fused_block=fb.launches)
 
-    recorder = KernelRecorder()
+    from difffacto_torch.models import denoiser
+
+    recorder = KernelRecorder((denoiser, "fused_core"), (denoiser, "fused_trunk_train"))
     with tempfile.TemporaryDirectory() as work:
         cfg_file, keys = write_runner_config(work)
         argv = ["--config-file", cfg_file]
@@ -859,7 +901,8 @@ def runner_phase(dev, fc, fct, fpsm, eh, ff, fb):
     # val_gen (batch 64), and the first training step's forward and backward.
     # (The peak memory is the path's: read before, and reset after, the holds.)
     peak = torch.cuda.max_memory_allocated() / 2**30
-    core_err, train_fwd_err, train_bwd_err = recorder.hold()
+    core_err = recorder.hold_core("phase 9")
+    train_fwd_err, train_bwd_err = recorder.hold_train("phase 9")
     del recorder
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -928,6 +971,309 @@ def runner_phase(dev, fc, fct, fpsm, eh, ff, fb):
           f"peak {peak:.2f} GiB; launches over phase 9 {launches}")
     print(f"phase 9: {time.perf_counter() - t_phase:.1f} s")
     return result
+
+
+# Phase 10: reconstruction and editing at gen_chair's widths, on weights
+# loaded from a reference-layout .pth. The val batch is 32 shapes of 2048
+# points; K = cimle_sample_num (1 in gen_chair) noise candidates a shape.
+EDIT_CONFIG = os.path.join("configs", "gen_chair.py")
+EDIT_BATCH, EDIT_POINTS, EDIT_STEPS, EDIT_SEARCH, EDIT_VARIANTS = 32, 2048, 100, 100, 10
+EDIT_GRAD_BATCH = 4
+# One shape_edit step's z-gradient, float32 models on the card and on the CPU
+# from the same .pth (the gradient runs through PointNet and the aligner, not
+# the denoiser), TF32 off: sums in another order only, so the gradients agree
+# far below a relative L2 of 1e-3; a wrong kernel path or layout gives O(1).
+EDIT_GRAD_REL_L2 = 1e-3
+EDIT_EMD_PAIRS = 4  # pairs of the recorded EMD launch held against the plain version
+
+
+def write_editing_config(work, pth):
+    """A config under ``work`` whose ``_base_`` is EDIT_CONFIG by its absolute
+    path: SyntheticPart (batch 32 x 2048; gen_chair's ShapeNet is absent) and
+    ``resume_path`` the reference-layout .pth. Returns (path, keys set)."""
+    ds = dict(type="SyntheticPart", batch_size=EDIT_BATCH, size=EDIT_BATCH, npoints=EDIT_POINTS)
+    keys = dict(work_dir=os.path.join(work, "gen_chair_editing"), resume_path=pth,
+                dataset=dict(_cover_=True, train=dict(ds, split="train", eval_mode="gen"),
+                             val=dict(ds, split="test", shuffle=False, eval_mode="ae")))
+    path = os.path.join(work, "gen_chair_editing.py")
+    with open(path, "w") as f:
+        f.write(f"_base_ = [{os.path.join(ROOT, EDIT_CONFIG)!r}]\n")
+        f.write("".join(f"{k} = {v!r}\n" for k, v in keys.items()))
+    return path, keys
+
+
+def hold_editing_launches(recorder):
+    """Fail unless the kernels phase 10 launched agree with their plain
+    versions. The trunk: each kept launch by hold_bf16. The EMD assignment:
+    its first launch's matched cost on its first EDIT_EMD_PAIRS pairs within
+    EMD_COST_RTOL. The FF: at each (T, D) the paths gave it, the kernel on
+    ff_operands (|4|-scale, where KERNEL_MAX_ABS and KERNEL_MEAN_ABS are set)
+    by hold_bf16; the path's own launch is compared and reported beside its
+    FF branch, but not held: the two-attention aligner's residual stream
+    reaches the hundreds, where one bf16 step (1.0 at 200) is larger than the
+    FF branch the kernel adds. Returns the largest differences by kernel
+    name and what the path's FF launches showed."""
+    from difffacto_torch.ops import emd_hybrid as eh
+    from difffacto_torch.ops import fused_ff as ff
+
+    errs = dict(fused_core=recorder.hold_core("phase 10"), fused_ff=0.0)
+    ff_path = []
+    for (T, D), (args, _, out) in recorder.launches("fused_ln_geglu_ff", "phase 10"):
+        ops = ff_operands(D, T, out.device, seed=T)
+        with torch.inference_mode():
+            got = ff.fused_ln_geglu_ff(*ops)
+            errs["fused_ff"] = max(errs["fused_ff"], hold_bf16(
+                f"fused_ff at phase 10's T={T} D={D} on |4|-scale operands", got,
+                ff.fused_ln_geglu_ff_reference(*ops)))
+            want = ff.fused_ln_geglu_ff_reference(*args).float()
+            err = (out.float() - want).abs()
+            seen = dict(tokens=T, max_abs_err=err.max().item(), mean_abs_err=err.mean().item(),
+                        mean_abs_ff_branch=(want - args[0].float()).abs().mean().item(),
+                        max_abs_out=want.abs().max().item())
+        print(f"fused_ff as phase 10 launched it, T={T} D={D} (reported, not held): max abs err "
+              f"{seen['max_abs_err']:.4e}, mean {seen['mean_abs_err']:.4e}; mean |FF branch| "
+              f"{seen['mean_abs_ff_branch']:.4e}, largest |output| {seen['max_abs_out']:.4g}")
+        if not torch.isfinite(out.float()).all():
+            fail(f"fused_ff as phase 10 launched it at T={T} gave non-finite values")
+        ff_path.append(seen)
+    (_, n), (args, kw, got) = recorder.launches("emd_assignment_hybrid", "phase 10")[0]
+    pairs = args[0].shape[0]
+    a, b, got = args[0][:EDIT_EMD_PAIRS], args[1][:EDIT_EMD_PAIRS], got[:EDIT_EMD_PAIRS]
+    with torch.inference_mode():
+        want = eh.emd_assignment_hybrid_reference(a, b, **kw)
+    cg, cw = matched_cost(a, b, got), matched_cost(a, b, want)
+    rel = ((cg - cw).abs() / cw).max().item()
+    share = (got != want).float().mean().item()
+    print(f"emd_hybrid as phase 10 launched it, first {EDIT_EMD_PAIRS} of {pairs} pairs at "
+          f"n={n}: matched cost off by {rel:.3e} (tol {EMD_COST_RTOL}), share of differing "
+          f"indices {share:.6f}")
+    if not rel <= EMD_COST_RTOL:
+        fail("the EMD launch of phase 10 disagrees with its plain version")
+    errs["emd_hybrid"] = share
+    return errs, ff_path
+
+
+def editing_phase(dev, fc, fct, fpsm, eh, ff, fb):
+    """Phase 10: reconstruction and editing at gen_chair's widths. Returns
+    the launches of each kernel over the phase, the first launches'
+    differences and each path's wall time and idle share."""
+    import tempfile
+
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import reference_layout_torch as ref
+
+    from difffacto_torch import MODELS, build_from_cfg
+    from difffacto_torch.config import get_cfg, init_cfg
+    from difffacto_torch.models import denoiser, reconstruct
+    from difffacto_torch.nn import layers
+    from difffacto_torch.runner import Runner
+    from difffacto_torch.runner import editing
+    from difffacto_torch.runner.cli import main as cli_main
+    from difffacto_torch.runner.runner import device_batch
+    from difffacto_torch.utils.torch_ingest import load_reference_checkpoint
+
+    t_phase = time.perf_counter()
+    counters = dict(fused_core=(fc, "launches"), fused_trunk_train_fwd=(fct, "launches_fwd"),
+                    fused_trunk_train_bwd=(fct, "launches_bwd"), fps=(fpsm, "launches"),
+                    emd_hybrid=(eh, "launches"), fused_ff=(ff, "launches"),
+                    fused_block=(fb, "launches"))
+    total = {k: 0 for k in counters}
+    paths = {}
+
+    def drive(name, fn, expect, idle=True):
+        """Run fn with every count set to 0 just before and read just after;
+        fail unless the counts are ``expect`` (a value, or a predicate); then
+        time it again with device_busy for the idle share."""
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
+        for k, v in counts.items():
+            total[k] += v
+        bad = {k: (counts[k], want) for k, want in expect.items()
+               if not (want(counts[k]) if callable(want) else counts[k] == want)}
+        if bad:
+            fail(f"phase 10 {name}: launches {counts}, not as expected {bad}")
+        paths[name] = dict(s=wall, launches={k: v for k, v in counts.items() if v})
+        if idle:
+            w, busy = device_busy(fn)
+            paths[name].update(idle_share=1 - busy / w, wall_ms=w, busy_ms=busy)
+        p = paths[name]
+        print(f"{name}: {wall:.2f} s, launches {p['launches']}"
+              + (f", idle {100 * p['idle_share']:.1f}% ({p['busy_ms']:.1f} ms busy of "
+                 f"{p['wall_ms']:.1f} ms, a second run)" if idle else ""))
+        return out
+
+    def finite(name, arrays):
+        for k, v in arrays.items():
+            if isinstance(v, np.ndarray) and not np.isfinite(v).all():
+                fail(f"phase 10 {name}: {k} is not finite")
+
+    recorder = KernelRecorder((denoiser, "fused_core"), (layers, "fused_ln_geglu_ff"),
+                              (eh, "emd_assignment_hybrid"))
+    with tempfile.TemporaryDirectory() as work, recorder:
+        # The reference's layout at full width: PointNetV2 with grouped
+        # per-part heads, the 5-block aligner, 4 x 14 flows, the 5-block
+        # denoiser; written as the reference saves it, read by Runner.load.
+        t0 = time.perf_counter()
+        pth = os.path.join(work, "gen_chair_reference_layout.pth")
+        ref.save_pth(ref.build_modules(seed=0), pth)
+        cfg_file, keys = write_editing_config(work, pth)
+        init_cfg(cfg_file)
+        cfg = get_cfg()
+        runner = Runner(cfg=cfg, device=dev)
+        model = runner.model
+        print(f"{EDIT_CONFIG} with {sorted(keys)} set: the reference-layout .pth written and "
+              f"loaded through Runner.load in {time.perf_counter() - t0:.1f} s "
+              f"({os.path.getsize(pth) / 2**20:.1f} MiB)")
+        T = model.num_timesteps
+        batch = device_batch(next(iter(runner.val_loader)), dev, runner._slim_val)
+        B = batch["ref"].shape[0]
+        gen = torch.Generator(device=dev).manual_seed(10)
+
+        # Reconstruction: the runner's val of a reconstruction model (the
+        # loaded gen_chair with gen=False): cimle_sample_num candidates a
+        # shape by select_best_noise, reconstruct, the ae protocol (paired
+        # CD and EMD in world coordinates).
+        model.gen = False
+        metrics = drive("reconstruction val (batch 32, K = cimle_sample_num)", runner.val,
+                        dict(fused_core=T, emd_hybrid=lambda n: n > 0), idle=False)
+        model.gen = True
+        print(f"reconstruction metrics: {metrics}")
+        if sorted(metrics) != ["sample/MMD-CD", "sample/MMD-EMD"] or not all(
+                np.isfinite(v) for v in metrics.values()):
+            fail(f"the reconstruction val gave {metrics}")
+        saved = np.load(os.path.join(cfg.work_dir, "val", "sample_0.npz"))
+        finite("reconstruction", dict(saved))
+        if saved["pred"].shape != (B, EDIT_POINTS, 3):
+            fail(f"reconstruction pred {saved['pred'].shape}")
+        traj = sorted(int(k[5:]) for k in saved.files if k.startswith("traj_"))
+        if traj != list(range(0, T, model.ret_interval)):
+            fail(f"reconstruction val kept the steps {traj}")
+        noise = torch.randn(B, model.cimle_sample_num, 32, generator=gen, device=dev)
+        drive("reconstruct (batch 32)", lambda: reconstruct(
+            model, batch, noise=noise, generator=gen), dict(fused_core=T))
+
+        # The CLI tasks, each through its own runner (the .pth loaded again).
+        for task, key in (("mixing", "pred_sample_0"), ("interpolation", "interpolate sample 9")):
+            out = drive(f"--task {task}", lambda: cli_main(
+                ["--config-file", cfg_file, "--task", task, "--part_id", "1"]),
+                dict(fused_core=T), idle=False)
+            finite(task, out)
+            if out[key].shape != (B, EDIT_POINTS, 3):
+                fail(f"--task {task}: {key} has shape {out[key].shape}")
+        drive("combine_latent (batch 32)", lambda: editing.combine_latent(
+            model, batch, generator=gen), dict(fused_core=T))
+        drive("interpolate_latent (batch 32 x 10 steps)", lambda: editing.interpolate_latent(
+            model, batch, part_id=1, generator=gen), dict(fused_core=T))
+
+        # One part resampled, the aligner searching EDIT_SEARCH noises for each
+        # of 32 x EDIT_VARIANTS variants (32,000 rows of 4 part tokens).
+        b = editing.ensure_attn_maps(batch)
+        with torch.inference_mode():
+            codes = model.encode_part_code(b["input"], b["attn_map"], False).float()
+        one_part = dict(
+            codes=codes.cpu().numpy(), valid_id=b["present"].float().cpu().numpy(),
+            gt_mean=b["part_shift"].float().cpu().numpy(),
+            gt_logvar=2 * np.log(np.clip(b["part_scale"].float().cpu().numpy(), 1e-3, None)),
+            seg_mask=b["ref_seg_mask"].cpu().numpy(), part_id=1,
+            sample_num_each=EDIT_VARIANTS, noise_search=EDIT_SEARCH)
+        out = drive("sample_one_part (32 x 10 variants, search 100)",
+                    lambda: editing.sample_one_part(model, **one_part, generator=gen),
+                    dict(fused_core=T, fused_ff=0))
+        finite("sample_one_part", out)
+        kept = np.repeat(one_part["codes"][:, None, 0], EDIT_VARIANTS, 1)
+        if out["pred"].shape != (B, EDIT_VARIANTS, EDIT_POINTS, 3) or not np.allclose(
+                out["codes"][:, :, 0], kept, atol=1e-2):
+            fail("sample_one_part changed a part it keeps, or its output's shape")
+
+        target = np.zeros((B, 3), np.float32)
+        target[:, 1] = 0.5
+        out = drive("shape_edit (batch 32, 100 steps)", lambda: editing.shape_edit(
+            model, batch, 1, edit_part_mean=target, steps=EDIT_STEPS, generator=gen),
+            dict(fused_core=T))
+        finite("shape_edit", out)
+        edit_loss = out["loss"]
+
+        # The aligner as shipped takes no kernel (single attention, no context:
+        # BasicTransformerBlock's unfused math, in both packages). Its
+        # two-attention form (single_attn=False, configs/_base_/anchordiff.py:30)
+        # runs its FF through B7 at D = 256: the same search and edit with it.
+        mcfg = cfg.model.dump()
+        loaded = {k: v for k, v in model.state_dict().items()
+                  if not k.startswith("encoder_mod.aligner.")}
+        for noise_scale in (100, 1):
+            two_cfg = dict(mcfg, dtype=torch.bfloat16)
+            two_cfg["encoder"] = dict(mcfg["encoder"], part_aligner=dict(
+                mcfg["encoder"]["part_aligner"], single_attn=False, noise_scale=noise_scale))
+            two = build_from_cfg(two_cfg, MODELS, device=dev, seed=0)
+            two.load_state_dict(loaded, strict=False)  # all but the aligner from the .pth
+            depth = len(two.encoder_mod.aligner.blocks)
+            out = drive(f"sample_one_part, two-attention aligner (noise_scale {noise_scale})",
+                        lambda: editing.sample_one_part(two, **one_part, generator=gen),
+                        dict(fused_core=T, fused_ff=depth))
+            if np.isfinite(out["pred"]).all():
+                break
+            print(f"two-attention aligner: non-finite samples at noise_scale {noise_scale} with "
+                  "seeded weights; lowering it to 1 as phase 8 does")
+        else:
+            fail("two-attention aligner: non-finite samples")
+        finite("sample_one_part, two-attention aligner", out)
+        # 100 steps under autograd take the unfused FF (no launch); the
+        # decode's aligner call under inference_mode launches it.
+        out = drive("shape_edit, two-attention aligner", lambda: editing.shape_edit(
+            two, batch, 1, edit_part_mean=target, steps=EDIT_STEPS, generator=gen),
+            dict(fused_core=T, fused_ff=depth))
+        finite("shape_edit, two-attention aligner", out)
+        del two, runner
+
+        # One shape_edit step's z-gradient on the card against the CPU's, both
+        # float32, from the same .pth.
+        small = {k: v[:EDIT_GRAD_BATCH] for k, v in editing.ensure_attn_maps(batch).items()}
+        z0 = torch.randn(EDIT_GRAD_BATCH, 32, generator=torch.Generator().manual_seed(11))
+        grads = []
+        for where in (dev, torch.device("cpu")):
+            m = build_from_cfg(dict(mcfg), MODELS, device=where, seed=0)
+            load_reference_checkpoint(pth, m)
+            bt = {k: v.to(where) for k, v in small.items()}
+            fix = torch.ones(EDIT_GRAD_BATCH, 4, device=where)
+            fix[:, 1] = 0
+            t0 = time.perf_counter()
+            loss, g = editing.edit_loss_and_grad(
+                m, z0.to(where), bt["input"], bt["attn_map"], bt["present"].float(),
+                bt["part_shift"].float(), bt["part_scale"].float() ** 2, fix, 1,
+                torch.as_tensor(target[:EDIT_GRAD_BATCH], device=where))
+            grads.append((float(loss), g.float().cpu()))
+            print(f"shape_edit z-gradient on {where.type} (float32, batch {EDIT_GRAD_BATCH}): "
+                  f"loss {float(loss):.6f}, {time.perf_counter() - t0:.2f} s")
+        (lc, gc), (lh, gh) = grads
+        grad_rel = ((gc - gh).norm() / gh.norm()).item()
+        print(f"shape_edit z-gradient, card against CPU: relative L2 {grad_rel:.3e} (tol "
+              f"{EDIT_GRAD_REL_L2}), loss {lc:.6f} vs {lh:.6f}")
+        if not np.isfinite(lc) or not grad_rel <= EDIT_GRAD_REL_L2:
+            fail("the shape_edit z-gradient on the card disagrees with the CPU's")
+    errs, ff_path = hold_editing_launches(recorder)
+    # The FF at the search's size (128,000 tokens at D = 256), far past the
+    # T = 1024 of phase 8: its launch as recorded, timed with its plain version
+    # and its bound.
+    ff_args, _, ff_out = recorder.launches("fused_ln_geglu_ff", "phase 10")[-1][1]
+    search_ff = dict(tokens=ff_args[0].shape[0],
+                     ms=cuda_ms(lambda: ff.fused_ln_geglu_ff(*ff_args), 20),
+                     plain_ms=cuda_ms(lambda: ff.fused_ln_geglu_ff_reference(*ff_args), 3))
+    search_ff["bound_ms"], search_ff["bound_by"] = ff_bound_ms(
+        ff_args, ff_out.numel() * ff_out.element_size())
+    print(f"fused_ff at T={search_ff['tokens']} D=256 (the search's launch): "
+          f"{search_ff['ms']:.4f} ms, plain {search_ff['plain_ms']:.3f} ms, bound "
+          f"{search_ff['bound_ms']:.4f} ms ({search_ff['bound_by']})")
+    del recorder, ff_args, ff_out
+    torch.cuda.empty_cache()
+    print(f"launches over phase 10 {total}; phase 10: {time.perf_counter() - t_phase:.1f} s")
+    return dict(launches=total, errs=errs, paths=paths, edit_loss=edit_loss, grad_rel=grad_rel,
+                search_ff=search_ff, ff_path=ff_path)
 
 
 def main():
@@ -1765,9 +2111,16 @@ def main():
     run9 = runner_phase(dev, fc, fct, fpsm, eh, ff, fb)
     on_path = run9["launches"]
 
+    phase("10 reconstruction and editing, full width")
+    run10 = editing_phase(dev, fc, fct, fpsm, eh, ff, fb)
+    editing_launches = run10["launches"]
+
     print(card)
     trunk["launches_runner"] = on_path["fused_core"]
-    trunk["max_abs_err"] = max(trunk["max_abs_err"], run9["core_err"])
+    trunk["launches_editing"] = editing_launches["fused_core"]
+    trunk["max_abs_err"] = max(trunk["max_abs_err"], run9["core_err"], run10["errs"]["fused_core"])
+    trunk["editing_paths"] = run10["paths"]
+    trunk["editing_z_grad_rel_l2"] = run10["grad_rel"]
     print(json.dumps({"kernels": [trunk, {
         "name": "fps", "route": "cuda", "source": "difffacto_torch/csrc/fps.cu",
         "replaces": "difffacto_tpu/ops/fps_pallas.py:27", "launches": counts["fps"],
@@ -1779,10 +2132,12 @@ def main():
         "bound_ms_at_400_clouds": fps_t[400]["bound"],
         "latency_floor_ms_at_400_clouds": fps_t[400]["floor"],
         "launches_runner": on_path["fps"], "crop_loader_s": run9["crop_s"],
+        "launches_editing": editing_launches["fps"],
     }, {
         "name": "emd_hybrid", "route": "cuda", "source": "difffacto_torch/csrc/emd_hybrid.cu",
         "replaces": "difffacto_tpu/ops/emd_pallas.py:51", "launches": counts["emd_hybrid"],
-        "max_abs_err": emd_diff, "ms": emd[132][0], "plain_ms": emd_plain_ms,
+        "max_abs_err": max(emd_diff, run10["errs"]["emd_hybrid"]), "ms": emd[132][0],
+        "plain_ms": emd_plain_ms,
         "bound_ms": emd[132][1], "bound_by": emd[132][2], "library_ms": None, "pairs": 132,
         "ms_at_132_pairs": emd[132][0], "sinkhorn_ms_at_132_pairs": emd[132][3],
         "auction_ms_at_132_pairs": emd[132][0] - emd[132][3],
@@ -1790,6 +2145,7 @@ def main():
         "sinkhorn_ms_at_32_pairs": emd[32][3], "auction_ms_at_32_pairs": emd[32][0] - emd[32][3],
         "protocol_launches_pairs_ms": [[b, s.elapsed_time(e)] for s, e, b in emd_events],
         "protocol_s": t_eval, "launches_runner": on_path["emd_hybrid"],
+        "launches_editing": editing_launches["emd_hybrid"],
     }, {
         "name": "fused_trunk_train_fwd", "route": "cuda",
         "source": "difffacto_torch/csrc/fused_core_train.cu",
@@ -1799,6 +2155,7 @@ def main():
         "ms": fwd_ms, "plain_ms": plain_fwd_ms, "bound_ms": bounds["fwd"][0],
         "bound_by": bounds["fwd"][1], "library_ms": None,
         "launches_runner": on_path["fused_trunk_train_fwd"],
+        "launches_editing": editing_launches["fused_trunk_train_fwd"],
     }, {
         "name": "fused_trunk_train_bwd", "route": "cuda",
         "source": "difffacto_torch/csrc/fused_core_train.cu",
@@ -1811,6 +2168,7 @@ def main():
         "train_step_host_ms": host_ms,
         "train_shapes_per_s": 1e3 * TRAIN_BATCH / step_ms, "train_peak_gib": train_peak_gib,
         "launches_runner": on_path["fused_trunk_train_bwd"],
+        "launches_editing": editing_launches["fused_trunk_train_bwd"],
         "runner_epoch_s_first": run9["epoch_s_first"],
         "runner_epoch_s_later": run9["epoch_s_later"],
         "runner_epoch_s_later_min": run9["epoch_s_later_min"],
@@ -1830,15 +2188,22 @@ def main():
         "max_abs_err": block_err, "ms": block_ms, "plain_ms": block_plain_ms,
         "bound_ms": block_bound, "bound_by": block_by, "library_ms": None,
         "unet_forward_ms": unet_ms, "launches_runner": on_path["fused_block"],
+        "launches_editing": editing_launches["fused_block"],
     }, {
         "name": "fused_ff", "route": "cuda", "source": "difffacto_torch/csrc/fused_ff.cu",
         "replaces": "difffacto_tpu/ops/fused_ff.py:26", "launches": two_counts["fused_ff"],
-        "max_abs_err": ff_err, "ms": ff_ms, "plain_ms": ff_plain_ms, "bound_ms": ff_bound,
+        "max_abs_err": max(ff_err, run10["errs"]["fused_ff"]), "ms": ff_ms,
+        "plain_ms": ff_plain_ms, "bound_ms": ff_bound,
         "bound_by": ff_by, "library_ms": None, "ms_at_t1024_d256": ff_ms_256,
         "graph_ms_at_t1024_d256": ff_graph_ms_256,
         "bound_ms_at_t1024_d256": ff_bound_256, "plain_ms_at_t1024_d256": ff_plain_ms_256,
         "two_attn_shapes_per_s": TWO_ATTN_BATCH_TIMED / two_dt, "two_attn_peak_gib": two_peak,
-        "launches_runner": on_path["fused_ff"],
+        "launches_runner": on_path["fused_ff"], "launches_editing": editing_launches["fused_ff"],
+        "ms_at_search_d256": run10["search_ff"]["ms"],
+        "plain_ms_at_search_d256": run10["search_ff"]["plain_ms"],
+        "bound_ms_at_search_d256": run10["search_ff"]["bound_ms"],
+        "search_tokens": run10["search_ff"]["tokens"],
+        "editing_path_launches_reported": run10["ff_path"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

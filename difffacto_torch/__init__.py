@@ -20,14 +20,19 @@ Slice 9 is the training loop users run: the datasets and loaders
 ``CroppingDataLoader``, which crops on the device and resamples by FPS),
 checkpoints and loggers (``utils/``), the ``Runner`` (train with the CIMLE
 re-cache, val, val_gen, auto-resume) and its command line
-(``runner/cli.py``, ``tools/run_net_torch.py``).
+(``runner/cli.py``, ``tools/run_net_torch.py``). Slice 10 is reconstruction
+(``models.reconstruct``, and the val of a reconstruction model), the
+reference ``.pth`` loader (``utils/torch_ingest.py``) and part-level editing
+(``runner/editing.py``: mixing, interpolation, one-part resampling,
+transformation editing, noise optimisation; ``--task mixing`` and
+``--task interpolation``, ``tools/run_editing_torch.py``).
 The package imports torch, numpy, scipy and yaml, never JAX or the JAX
 package. Entry points run on the card (``device="cuda"``) unless the caller
 asks for the CPU.
 """
 
 from .config import Config
-from .models import AnchorDiffAE, decode, sample_generation, select_best_noise
+from .models import AnchorDiffAE, decode, reconstruct, sample_generation, select_best_noise
 from .parallel import build_optimizer_from_cfg, init_train_state, make_train_step
 from .runner import Runner
 from .utils.jax_params import load_jax_params

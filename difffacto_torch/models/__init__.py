@@ -2,7 +2,7 @@
 
 from .aligner import PartAlignerTransformer
 from .anchor_diff import (AnchorDiffAE, build_diffusion, decode, ensure_attn_maps,
-                          sample_generation, select_best_noise)
+                          reconstruct, sample_generation, select_best_noise)
 from .denoiser import TransformerNet, UNet
 from .diffusion import AnchoredDiffusion
 from .flow import PerPartFlow

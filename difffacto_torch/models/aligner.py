@@ -23,15 +23,19 @@ from ..utils.registry import ENCODERS
 
 @ENCODERS.register_module()
 class PartAlignerTransformer(nn.Module):
-    """part_code (B, K, C) -> mean (B, K, 3), logvar (B, K, 3)."""
+    """part_code (B, K, C) -> mean (B, K, 3), logvar (B, K, 3).
+
+    ``use_checkpoint`` and ``use_linear`` are kept and read nowhere, as in the
+    JAX module (``aligner.py:35``, ``:45``): it neither rematerialises the
+    blocks nor has another layout."""
 
     def __init__(self, in_channels: int, n_heads: int, d_head: int, out_channels: int,
                  depth: int = 1, dropout: float = 0.0, n_class: int = 4,
-                 single_attn: bool = False, class_cond: bool = True,
+                 use_checkpoint: bool = False, single_attn: bool = False, class_cond: bool = True,
                  mask_out_unreferenced_code: bool = True, cimle: bool = False,
                  noise_dim: int = 32, noise_scale: float = 10.0, cimle_start_epoch: int = 0,
                  add_class_cond: bool = False, cond_noise_type: int = 0,
-                 *, dtype=None, device="cuda", generator=None):
+                 use_linear: bool = True, *, dtype=None, device="cuda", generator=None):
         super().__init__()
         device = resolve_device(device)
         if cimle and cond_noise_type != 0:
@@ -43,6 +47,7 @@ class PartAlignerTransformer(nn.Module):
         self.class_cond, self.add_class_cond, self.cimle = class_cond, add_class_cond, cimle
         self.cimle_start_epoch = cimle_start_epoch
         self.mask_out_unreferenced_code = mask_out_unreferenced_code
+        self.use_checkpoint, self.use_linear = use_checkpoint, use_linear
         inner = n_heads * d_head
         in_ch = in_channels + (n_class if class_cond and not add_class_cond else 0)
         in_ch += noise_dim if cimle else 0

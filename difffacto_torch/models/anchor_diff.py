@@ -4,12 +4,16 @@ Port of ``difffacto_tpu/models/anchor_diff.py``: ``loss`` (the whole training
 forward: encoder, prior and fit losses, q_sample, denoiser, mse),
 ``prepare_generation`` (flow prior -> CIMLE aligner -> per-point params and
 ctx), ``decode`` (the reverse chain), ``sample_generation`` (both,
-unconditional generation; reference anchor_gen.py:1034-1084) and
-``select_best_noise`` (the CIMLE best-of-N noise selection). Every random draw
-comes from an explicit ``torch.Generator`` or is injected: ``z`` (flow-prior
-latents), ``cimle_noise`` (aligner noise), ``noise`` (x_T) and ``step_noise``
-(per-step draws); in training ``diffusion_t``, ``diffusion_noise``, ``noise``
-and ``part_code_eps`` through the batch.
+unconditional generation; reference anchor_gen.py:1034-1084), ``reconstruct``
+(encode a shape and decode it again; anchor_gen.py:1085-1128), the editing
+helpers (``encode_part_code``, ``latents_to_decode``, ``edit_losses``,
+``recon_losses``) and ``select_best_noise`` (the CIMLE best-of-N noise
+selection). Every random draw comes from an explicit ``torch.Generator`` or is
+injected: ``z`` (flow-prior latents), ``cimle_noise`` (aligner noise), ``noise``
+(x_T; ``x_T`` in ``reconstruct``, whose ``noise`` is the aligner's, as in the
+JAX package) and ``step_noise`` (per-step draws); in training and
+reconstruction ``diffusion_t``, ``diffusion_noise``, ``noise`` and
+``part_code_eps`` through the batch.
 """
 
 from __future__ import annotations
@@ -20,10 +24,11 @@ import torch
 from torch import nn
 
 from ..utils.device import resolve_device
+from ..utils.gaussian import reparameterize_gaussian
 from ..utils.registry import DIFFUSIONS, ENCODERS, MODELS, NETS, SAMPLERS, build_from_cfg
 from . import samplers  # noqa: F401  (registers Uniform)
 from .diffusion import AnchoredDiffusion
-from .part_encoder import gather_per_point
+from .part_encoder import equal_split_seg_mask, gather_per_point
 
 
 def ensure_attn_maps(batch):
@@ -55,26 +60,51 @@ def build_diffusion(diffusion_cfg: dict, num_timesteps: int) -> AnchoredDiffusio
 
 @MODELS.register_module()
 class AnchorDiffAE(nn.Module):
-    """Constructor arguments mirror the JAX module. ``seed`` fixes the initial
-    weights (drawn on the CPU, so they are the same on every device)."""
+    """Constructor arguments mirror the JAX module's fields, every one of them
+    (``anchor_diff.py:83-111``). ``seed`` fixes the initial weights (drawn on
+    the CPU, so they are the same on every device).
+
+    ``learn_var``, ``detach_variance``, ``clip_weight``, ``triplet_weight``
+    and ``triplet_thresh`` are kept and read nowhere, as in the JAX
+    ``AnchorDiffAE`` (the last three only with ``train_language``);
+    ``pretrain_prior``, ``train_language`` and a ``language_encoder`` raise
+    (``ROADMAP.md`` queue A items 4 and 7).
+    """
 
     def __init__(self, encoder: dict, diffusion: dict, num_anchors: int, num_timesteps: int,
                  sampler: Optional[dict] = None, npoints: int = 2048, zero_anchors: bool = False,
                  gen: bool = False, sample_noise_num: int = 20, cimle: bool = False,
                  cimle_sample_num: int = 10, diffusion_loss_weight: float = 1.0,
-                 use_input: bool = False, detach_anchor: bool = True, ret_traj: bool = False,
+                 use_input: bool = False, learn_var: bool = False, detach_variance: bool = True,
+                 detach_anchor: bool = True, ret_traj: bool = False, ret_interval: int = 20,
+                 interpolate_part_id: int = 2, fix_part_ids: Optional[tuple] = None,
+                 noise_reg_loss: bool = True, reg_loss_weight: float = 1.0,
                  pretrain_prior: bool = False, train_language: bool = False,
+                 language_encoder: Optional[dict] = None, clip_weight: float = 1.0,
+                 triplet_weight: float = 1.0, triplet_thresh: float = 0.1,
                  *, dtype=None, device="cuda", seed: int = 0):
         super().__init__()
         device = resolve_device(device)
-        if pretrain_prior or train_language:
-            raise NotImplementedError("pretrain_prior and train_language are not ported yet")
+        if pretrain_prior:
+            raise NotImplementedError("pretrain_prior is not ported yet (ROADMAP.md, queue A "
+                                      "item 4: pretrain_prior and train_language)")
+        if train_language or language_encoder is not None:
+            raise NotImplementedError("train_language and language_encoder are not ported yet "
+                                      "(ROADMAP.md, queue A item 7: models/language.py)")
         g = torch.Generator().manual_seed(seed)
         self.num_anchors, self.num_timesteps, self.npoints = num_anchors, num_timesteps, npoints
         self.cimle_sample_num, self.ret_traj = cimle_sample_num, ret_traj
+        self.ret_interval = ret_interval
         self.zero_anchors, self.gen, self.cimle = zero_anchors, gen, cimle
         self.sample_noise_num, self.diffusion_loss_weight = sample_noise_num, diffusion_loss_weight
         self.use_input, self.detach_anchor = use_input, detach_anchor
+        self.learn_var, self.detach_variance = learn_var, detach_variance
+        self.interpolate_part_id = interpolate_part_id
+        self.fix_part_ids = tuple(fix_part_ids) if fix_part_ids else None
+        self.noise_reg_loss, self.reg_loss_weight = noise_reg_loss, reg_loss_weight
+        self.clip_weight, self.triplet_weight = clip_weight, triplet_weight
+        self.triplet_thresh = triplet_thresh
+        self.encoder, self.diffusion = dict(encoder), dict(diffusion)
         kw = dict(dtype=dtype, device=device, generator=g)
         self.encoder_mod = build_from_cfg(dict(encoder), ENCODERS, **kw)
         self.net = build_from_cfg(dict(diffusion["net"]), NETS, **kw)
@@ -157,17 +187,89 @@ class AnchorDiffAE(nn.Module):
         )
         return ctx, mean_pp, torch.exp(logvar_pp), seg_mask, valid_id, latents
 
+    def prepare_reconstruction(self, batch, noise=None, epoch: int = -1, rngs=None):
+        """Latents for encode -> decode (``anchor_diff.py:437-453``): the
+        encoder forward in eval mode. ``noise`` is the aligner noise, (B, D)
+        or (B, K, D) for K hypotheses a shape. Returns (ctx, mean_pp,
+        variance_pp, latents)."""
+        ctx, mean_pp, logvar_pp, _, _, latents = self.encoder_mod(
+            batch, noise=noise, epoch=epoch, train=False, rngs=rngs)
+        return ctx, mean_pp, torch.exp(logvar_pp), latents
+
+    # ------------------------------------------------------- editing helpers
+    def encode_part_code(self, x, seg_flag, sample: bool = False, generator=None, eps=None):
+        """Per-part latent codes of a (possibly mixed) cloud, (B, N, 3) and
+        (B, N, K) -> (B, K, zdim) (``anchor_diff.py:231-239``): the posterior
+        means, or with ``sample`` (and a ``gen`` encoder) a draw from the
+        posterior; ``eps`` (B, K, zdim) injects its standard normal."""
+        means, logvars = self.encoder_mod.get_part_code(x, seg_flag, train=False)
+        if sample and self.encoder_mod.gen:
+            return reparameterize_gaussian(means, logvars, generator, eps)
+        return means
+
+    def latents_to_decode(self, part_code, valid_id, noise=None, seg_mask=None):
+        """Aligner, per-point gather and ctx from explicit part codes
+        (``anchor_diff.py:241-259``). Without ``seg_mask`` the points split
+        equally over the parts, an absent part's share going to the first
+        present one. Returns (ctx, mean_pp, variance_pp, seg_mask, (mean,
+        logvar))."""
+        enc = self.encoder_mod
+        mean, logvar = enc.get_params_from_part_code(part_code, valid_id, noise=noise)
+        if seg_mask is None:
+            seg_mask = equal_split_seg_mask(valid_id.to(part_code.dtype), self.npoints)
+        lv = logvar + enc.log_scale_var if logvar is not None else logvar
+        mean_pp, logvar_pp, _ = enc.gather_all(seg_mask, anchors=mean, variances=lv)
+        ctx = enc.prepare_ctx(part_code, mean, logvar)
+        return ctx, mean_pp, torch.exp(logvar_pp), seg_mask, (mean, logvar)
+
+    def edit_losses(self, z, x, seg_flag, valid_id, ref_means, ref_vars, fix_ids, edit_part_id,
+                    edit_part_mean=None, edit_part_var=None, fit_weight: float = 1.0):
+        """Noise-optimisation losses of shape editing (``anchor_diff.py:261-296``):
+        the fixed parts' parameters held near the reference, the edited part
+        pulled to its target, the noise L2-regularised."""
+        enc = self.encoder_mod
+        means, _ = enc.get_part_code(x, seg_flag, train=False)
+        mean, logvar = enc.get_params_from_part_code(means, valid_id, noise=z)
+        fit = (torch.cat([mean, logvar], -1)
+               - torch.cat([ref_means, torch.log(ref_vars)], -1)) ** 2
+        w = valid_id * fix_ids
+        fit = (fit * w[..., None]).sum(dim=(-1, -2)) / w.sum(-1)
+        out = {"fit_loss": fit_weight * fit}
+        edit = torch.zeros((), dtype=mean.dtype, device=mean.device)
+        if edit_part_mean is not None:
+            edit = edit + ((mean[:, edit_part_id] - edit_part_mean) ** 2).mean()
+        if edit_part_var is not None:
+            edit = edit + ((logvar[:, edit_part_id] - torch.log(edit_part_var)) ** 2).mean()
+        out["edit_loss"] = edit
+        if self.noise_reg_loss:
+            out["reg_loss"] = self.reg_loss_weight * (z**2).sum(-1)
+        return out
+
+    def recon_losses(self, batch, z, rngs=None):
+        """Fit losses for the CIMLE noise optimisation (``anchor_diff.py:298-304``):
+        the encoder forward's losses with aligner noise ``z``, plus the noise's
+        L2 penalty. The part-code draw of a ``gen`` encoder comes from
+        ``rngs["sample"]`` or ``batch["part_code_eps"]``."""
+        _, _, _, _, loss_dict, _ = self.encoder_mod(batch, noise=z, epoch=-1, train=False,
+                                                    rngs=rngs)
+        if self.noise_reg_loss:
+            loss_dict["reg_loss"] = self.reg_loss_weight * (z**2).sum(-1)
+        return loss_dict
+
 
 @torch.inference_mode()
 def decode(model: AnchorDiffAE, anchors, ctx=None, variance=None, seg_mask=None, valid_id=None,
            noise=None, step_noise=None, generator: Optional[torch.Generator] = None,
-           ret_traj: Optional[bool] = None):
-    """The reverse diffusion chain (``anchor_diff.py:486-597``) -> {'pred': (B, N, 3)}."""
+           ret_traj: Optional[bool] = None, ret_interval: Optional[int] = None):
+    """The reverse diffusion chain (``anchor_diff.py:486-597``) -> {'pred': (B, N, 3)},
+    with 'traj' and 'traj_t' where ``ret_traj`` (default: the model's, every
+    ``ret_interval``-th step)."""
     ret_traj = model.ret_traj if ret_traj is None else ret_traj
+    ret_interval = model.ret_interval if ret_interval is None else ret_interval
     return model.diff.p_sample_loop(
         model.denoise, anchors, ctx=ctx, variance=variance, seg_mask=seg_mask,
-        valid_id=valid_id, noise=noise, ret_traj=ret_traj, step_noise=step_noise,
-        generator=generator,
+        valid_id=valid_id, noise=noise, ret_traj=ret_traj, ret_interval=ret_interval,
+        step_noise=step_noise, generator=generator,
     )
 
 
@@ -187,6 +289,32 @@ def sample_generation(model: AnchorDiffAE, sample_num: int, valid_id=None, fixed
     out = decode(model, mean_pp, ctx=ctx, variance=var_pp, seg_mask=seg_mask, valid_id=vid,
                  noise=noise, step_noise=step_noise, generator=generator, ret_traj=ret_traj)
     out.update(seg_mask=seg_mask, valid_id=vid, anchors=mean_pp, variance=var_pp, latents=latents)
+    return out
+
+
+@torch.inference_mode()
+def reconstruct(model: AnchorDiffAE, batch, noise=None, epoch: int = -1, ret_traj: bool = False,
+                generator: Optional[torch.Generator] = None, x_T=None, step_noise=None):
+    """Encode and decode a batch of shapes (``anchor_diff.py:654-700``).
+
+    ``noise`` is the aligner noise, (B, D) or (B, K, D): with K hypotheses a
+    shape the seg masks and part flags repeat K times and 'pred' is
+    (B * K, N, 3). The part-code draw of a ``gen`` encoder comes from
+    ``generator`` or ``batch["part_code_eps"]``; ``x_T`` and ``step_noise``
+    inject the chain's draws. Returns 'pred', 'seg_mask', 'valid_id',
+    'anchors', 'latents' (and 'traj', 'traj_t' with ``ret_traj``)."""
+    batch = ensure_attn_maps(batch)
+    ctx, mean_pp, var_pp, latents = model.prepare_reconstruction(
+        batch, noise=noise, epoch=epoch, rngs={"sample": generator})
+    seg_mask = batch["ref_seg_mask"].int()
+    valid_id = batch.get("present")
+    if noise is not None and noise.ndim == 3:
+        K = noise.shape[1]
+        seg_mask = seg_mask.repeat_interleave(K, dim=0)
+        valid_id = valid_id.repeat_interleave(K, dim=0) if valid_id is not None else None
+    out = decode(model, mean_pp, ctx=ctx, variance=var_pp, seg_mask=seg_mask, valid_id=valid_id,
+                 noise=x_T, step_noise=step_noise, generator=generator, ret_traj=ret_traj)
+    out.update(seg_mask=seg_mask, valid_id=valid_id, anchors=mean_pp, latents=latents)
     return out
 
 

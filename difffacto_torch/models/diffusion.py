@@ -3,17 +3,19 @@
 Port of the gen_chair branches of ``difffacto_tpu/models/diffusion.py``
 (reference anchored_diffusion.py): the epsilon mean, the ``fixed_small``
 variance scaled by the per-point variance L^2, ``p_sample`` and
-``p_sample_loop`` as a Python loop over descending steps, and for training
-``q_sample`` and the mse ``training_losses``. The chain stays in float32
-whatever the denoiser's compute dtype (``diffusion.py:373-378``). The other
-mean and variance types (and with them the variational-bound term), DDIM,
-guidance and trajectories raise ``NotImplementedError``.
+``p_sample_loop`` as a Python loop over descending steps (with the
+trajectory of every ``ret_interval``-th step), and for training ``q_sample``
+and the mse ``training_losses``. The chain stays in float32 whatever the
+denoiser's compute dtype (``diffusion.py:373-378``). The other mean and
+variance types (and with them the variational-bound term), DDIM and guidance
+raise ``NotImplementedError`` (``ROADMAP.md`` queue A item 4).
 """
 
 from __future__ import annotations
 
 from typing import Callable, Dict, Optional
 
+import numpy as np
 import torch
 
 from ..ops.schedule import DiffusionSchedule, extract, make_schedule
@@ -35,7 +37,9 @@ class AnchoredDiffusion:
                  model_var_type: str = FIXED_SMALL, clip_xstart: bool = False,
                  include_anchors: bool = True, include_cov: bool = False,
                  learn_anchor: bool = True, learn_variance: bool = False,
-                 guidance: bool = False, ddim_sampling: bool = False,
+                 classifier_weight: float = 1.0, guidance: bool = False,
+                 ddim_sampling: bool = False, ddim_nsteps: int = 10,
+                 ddim_discretize: str = "uniform", ddim_eta: float = 1.0,
                  loss_type: str = "mse", scale_loss: bool = False, net=None):
         unported = {
             "model_mean_type": (model_mean_type, EPSILON),
@@ -46,12 +50,17 @@ class AnchoredDiffusion:
         }
         for key, (got, ported) in unported.items():
             if got != ported:
-                raise NotImplementedError(f"AnchoredDiffusion {key}={got!r} is not ported yet")
+                raise NotImplementedError(f"AnchoredDiffusion {key}={got!r} is not ported yet "
+                                          "(ROADMAP.md, queue A item 4)")
         self.num_timesteps, self.k, self.res = num_timesteps, k, res
         self.use_beta, self.rescale_timesteps = use_beta, rescale_timesteps
         self.clip_xstart, self.include_anchors, self.include_cov = clip_xstart, include_anchors, include_cov
         self.learn_anchor, self.learn_variance = learn_anchor, learn_variance
         self.scale_loss = scale_loss
+        # Read by guidance and DDIM only, which raise above; kept so that a
+        # config's keys all reach the object.
+        self.classifier_weight, self.ddim_nsteps = classifier_weight, ddim_nsteps
+        self.ddim_discretize, self.ddim_eta = ddim_discretize, ddim_eta
         self.schedule = make_schedule(num_timesteps, beta_1, beta_T, mode)
         self._on_device: Dict[torch.device, DiffusionSchedule] = {}
 
@@ -168,15 +177,17 @@ class AnchoredDiffusion:
         return {"sample": sample, "pred_xstart": out["pred_xstart"]}
 
     def p_sample_loop(self, model_fn, anchors, ctx=None, variance=None, seg_mask=None,
-                      valid_id=None, noise=None, ret_traj: bool = False, step_noise=None,
-                      generator: Optional[torch.Generator] = None):
+                      valid_id=None, noise=None, ret_traj: bool = False, ret_interval: int = 20,
+                      step_noise=None, generator: Optional[torch.Generator] = None):
         """The whole reverse chain over steps T-1 .. 0.
 
         ``noise`` injects x_T and ``step_noise`` (T, B, N, 3) the per-step
-        draws, in the order the steps run (descending t). Returns {'pred'}.
+        draws, in the order the steps run (descending t). Returns {'pred'};
+        with ``ret_traj`` also 'traj' (T_kept, B, N, 3), the sample each step
+        t with t % ``ret_interval`` == 0 returned, and 'traj_t' (T_kept,) those
+        t in descending order (``diffusion.py:419-422``). Only the kept
+        samples are stored.
         """
-        if ret_traj:
-            raise NotImplementedError("p_sample_loop(ret_traj=True) is not ported yet")
         anchors = anchors.float()
         if variance is not None:
             variance = variance.float()
@@ -188,9 +199,17 @@ class AnchoredDiffusion:
         else:
             x = noise.float()
         B = x.shape[0]
+        traj, traj_t = [], []
         for i, step in enumerate(range(self.num_timesteps - 1, -1, -1)):
             t = torch.full((B,), step, dtype=torch.long, device=x.device)
             eps = None if step_noise is None else step_noise[i].float()
             x = self.p_sample(model_fn, x, t, anchors, ctx, variance, seg_mask, valid_id,
                               noise=eps, generator=generator)["sample"]
-        return {"pred": x}
+            if ret_traj and step % ret_interval == 0:
+                traj.append(x)  # p_sample returns a new tensor: x is never written
+                traj_t.append(step)
+        out = {"pred": x}
+        if ret_traj:
+            out["traj"] = torch.stack(traj)
+            out["traj_t"] = np.asarray(traj_t, np.int32)
+        return out

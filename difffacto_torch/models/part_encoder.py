@@ -28,13 +28,27 @@ def gather_per_point(values: torch.Tensor, seg_mask: torch.Tensor) -> torch.Tens
     return torch.gather(values, 1, idx)
 
 
+def equal_split_seg_mask(valid_id: torch.Tensor, npoints: int) -> torch.Tensor:
+    """(B, K) part flags -> (B, npoints) int32 labels: the points split equally
+    over the K parts in order, an absent part's share going to the first
+    present part (``part_encoder.py:387-394``)."""
+    dt, K = valid_id.dtype, valid_id.shape[1]
+    first = torch.argmax(valid_id, dim=1)[:, None].to(dt)
+    ids = torch.arange(K, dtype=dt, device=valid_id.device)[None] * valid_id
+    ids = ids + first * (1 - valid_id)
+    return ids.int().repeat_interleave(npoints // K, dim=1)
+
+
 @ENCODERS.register_module()
 class PartEncoderForTransformerDecoder(nn.Module):
     """Constructor arguments mirror the JAX package's ``PartEncoder``; the ctx
-    is the K part tokens themselves (``part_encoder.py:433-447``)."""
+    is the K part tokens themselves (``part_encoder.py:433-447``), so
+    ``include_z`` and ``include_class_label``, which shape the per-point ctx
+    of the base class, are kept and read nowhere, as in the JAX class."""
 
     def __init__(self, encoder: dict, n_class: int = 4, part_aligner: Optional[dict] = None,
-                 fit_loss_weight: float = 1.0, include_part_code: bool = False,
+                 fit_loss_weight: float = 1.0, include_z: bool = True,
+                 include_part_code: bool = False, include_class_label: bool = False,
                  include_params: bool = False, use_gt_params: bool = False,
                  encode_ref: bool = False, scale_var: float = 1.0, fit_loss_type: int = 0,
                  origin_scale: bool = False, kl_weight: float = 0.001, use_flow: bool = False,
@@ -51,6 +65,7 @@ class PartEncoderForTransformerDecoder(nn.Module):
         g = default_generator(generator)
         self.n_class, self.zdim = n_class, encoder["zdim"]
         self.include_part_code, self.include_params = include_part_code, include_params
+        self.include_z, self.include_class_label = include_z, include_class_label
         self.scale_var, self.prior_var = scale_var, prior_var
         self.fit_loss_weight, self.fit_loss_type = fit_loss_weight, fit_loss_type
         self.use_gt_params, self.use_gt_params_in_training = use_gt_params, use_gt_params_in_training
@@ -180,12 +195,7 @@ class PartEncoderForTransformerDecoder(nn.Module):
         valid_id = valid_id.repeat_interleave(K, dim=0)
         mean, logvar = self.get_params_from_part_code(part_code, valid_id, noise=noise)
 
-        # Equal split of the points over the parts; an absent part's slot goes
-        # to the first present part (``part_encoder.py:387-394``).
-        first = torch.argmax(valid_id, dim=1)[:, None].to(part_code.dtype)
-        ids = torch.arange(self.n_class, dtype=part_code.dtype, device=dev)[None] * valid_id
-        ids = ids + first * (1 - valid_id)
-        seg_mask = ids.int().repeat_interleave(sample_points // self.n_class, dim=1)
+        seg_mask = equal_split_seg_mask(valid_id, sample_points)
         lv = logvar + self.log_scale_var if logvar is not None else logvar
         mean_pp, logvar_pp, _ = self.gather_all(seg_mask, anchors=mean, variances=lv)
         # ``prepare_ctx`` adds log_scale_var again, as the JAX package does.

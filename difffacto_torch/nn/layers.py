@@ -171,10 +171,15 @@ class FeedForward(nn.Module):
         return self.dense0(dropout(self.geglu(x), self.dropout, train, generator))
 
 
-def ff_kernel_takes(width: int, tokens: int) -> bool:
-    """The shape rule of ``FusedLNFF``: the fused FF kernel where it takes the
-    width and ``pick_tile`` takes the token count; the unfused math otherwise."""
-    return ff_takes(width) and bool(pick_tile(tokens))
+def ff_kernel_takes(width: int, tokens: int, needs_grad: bool = False) -> bool:
+    """The rule of ``FusedLNFF``: the fused FF kernel where it takes the width,
+    ``pick_tile`` takes the token count and no gradient is asked for; the
+    unfused math otherwise. The kernel has no backward in either package (the
+    JAX module takes its kernel only when deterministic and differentiates the
+    unfused composition, ``nn/layers.py:130-136``), so under autograd, as when
+    shape editing differentiates through the aligner, the module computes the
+    unfused math; under ``inference_mode`` or ``no_grad`` it launches the kernel."""
+    return not needs_grad and ff_takes(width) and bool(pick_tile(tokens))
 
 
 class FusedLNFF(nn.Module):
@@ -183,7 +188,8 @@ class FusedLNFF(nn.Module):
     ``ln_bias``, ``w1`` (D, 8 D), ``b1``, ``w2`` (4 D, D), ``b2``.
 
     x (B, N, D) at the shapes ``ff_kernel_takes`` accepts (D 128 or 256,
-    ``pick_tile(B N)`` not 0) goes through ``ops/fused_ff.fused_ln_geglu_ff``
+    ``pick_tile(B N)`` not 0, no gradient asked for) goes through
+    ``ops/fused_ff.fused_ln_geglu_ff``
     (the kernel on the card, its plain version on the CPU); any other input
     through the unfused composition, whose GEGLU runs in the compute dtype.
     The JAX package takes its kernel at any D that 128 divides.
@@ -205,7 +211,8 @@ class FusedLNFF(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cdt = self.dtype or x.dtype
         D = x.shape[-1]
-        if x.ndim == 3 and ff_kernel_takes(D, x.shape[0] * x.shape[1]):
+        needs_grad = torch.is_grad_enabled() and (x.requires_grad or self.w1.requires_grad)
+        if x.ndim == 3 and ff_kernel_takes(D, x.shape[0] * x.shape[1], needs_grad):
             out = fused_ln_geglu_ff(
                 x.reshape(-1, D).to(cdt).contiguous(), self.ln_scale.to(cdt),
                 self.ln_bias.to(cdt), self.w1.to(cdt), self.b1.float(), self.w2.to(cdt),

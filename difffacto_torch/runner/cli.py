@@ -1,12 +1,14 @@
-"""The command line of the port: train, validate or score generation with a
-config file.
+"""The command line of the port: train, validate, score generation, mix or
+interpolate parts with a config file.
 
 The peer of ``tools/run_net.py`` with the same flags (``--config-file``,
 ``--task``, ``--seed``, ``--no_eval``, ``--short_val``, ``--gen_num``,
-``--prefix``, ``--save_dir``), run on the card unless ``--cpu`` is given.
-``main(argv)`` returns what it ran: the ``Runner`` after ``train``, the
-metric dict after ``val`` and ``val_gen``. A caller that changes a few keys
-writes a config whose ``_base_`` names the original by its absolute path.
+``--part_id``, ``--interpolation_dir``, ``--prefix``, ``--save_dir``), run
+on the card unless ``--cpu`` is given. ``main(argv)`` returns what it ran:
+the ``Runner`` after ``train``, the metric dict after ``val`` and
+``val_gen``, the written arrays after ``interpolation`` and ``mixing``. A
+caller that changes a few keys writes a config whose ``_base_`` names the
+original by its absolute path.
 """
 
 from __future__ import annotations
@@ -20,8 +22,6 @@ NOT_PORTED = {
     "pretrain": "queue A item 7, the secondary families",
     "gan": "queue A item 7, the secondary families",
     "language": "queue A item 7, the secondary families",
-    "interpolation": "queue A item 5, editing",
-    "mixing": "queue A item 5, editing",
 }
 
 
@@ -38,6 +38,9 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--no_eval", action="store_true")
     p.add_argument("--short_val", action="store_true")
     p.add_argument("--gen_num", type=int, default=400)
+    p.add_argument("--part_id", type=int, default=0, help="the part --task interpolation moves")
+    p.add_argument("--interpolation_dir", default=None,
+                   help="where --task interpolation writes (default work_dir/interpolation)")
     p.add_argument("--cpu", action="store_true", help="run on the CPU instead of the card")
     return p.parse_args(argv)
 
@@ -68,6 +71,10 @@ def main(argv: Optional[Sequence[str]] = None):
         return runner
     if args.task == "val":
         return runner.val()
+    if args.task in ("interpolation", "mixing"):
+        from .editing import run_interpolation, run_mixing
+
+        return (run_interpolation if args.task == "interpolation" else run_mixing)(runner, args)
     metrics = runner.generate_samples(num_gen=args.gen_num)
     for k, v in metrics.items():
         print(f"{k}: {v}")

@@ -7,11 +7,15 @@ The port of ``difffacto_tpu/runner/runner.py:Runner`` for one device:
   while the card runs the step;
 * ``cache_noise`` re-caches the CIMLE noise every ``cimle_cache_interval``
   epochs: the best of N candidates by fit loss for each training shape;
-* ``val`` generates a batch per val batch and scores it through the
-  dataset's ``evaluate``, ``generate_samples`` and ``evaluate_gen`` the
-  val_gen protocol (``runner/evaluation.py``);
-* checkpoints (``utils/checkpoint.py``), auto-resume and the stage-1 ->
-  stage-2 wiring (``model_only``, ``train_aligner``).
+* ``val`` generates a batch per val batch (``gen`` models, with the fixed
+  parts of ``fix_part_ids`` and the trajectory of ``ret_traj``) or
+  reconstructs it (the CIMLE candidates of ``select_best_noise``, then
+  ``reconstruct``) and scores it through the dataset's ``evaluate``;
+  ``generate_samples`` and ``evaluate_gen`` are the val_gen protocol
+  (``runner/evaluation.py``);
+* checkpoints (``utils/checkpoint.py``), a reference ``.pth``
+  (``utils/torch_ingest.py``), auto-resume and the stage-1 -> stage-2 wiring
+  (``model_only``, ``train_aligner``).
 
 The model computes in bf16 on the card, the dtype its trunk kernels take,
 and in float32 on the CPU. ``make_pack_spec`` and ``pack_batch`` (a TPU
@@ -30,13 +34,14 @@ import yaml
 
 from .. import data  # noqa: F401  (registers the datasets)
 from ..config.config import get_cfg
-from ..models import sample_generation, select_best_noise
+from ..models import reconstruct, sample_generation, select_best_noise
 from ..parallel.optim import build_optimizer_from_cfg
 from ..parallel.train import init_train_state, make_train_step
 from ..utils import loggers  # noqa: F401  (registers RunLogger)
 from ..utils.checkpoint import load_checkpoint, save_checkpoint, search_ckpt
 from ..utils.device import resolve_device
 from ..utils.registry import DATASETS, HOOKS, MODELS, build_from_cfg
+from ..utils.torch_ingest import load_reference_checkpoint
 from .evaluation import evaluate_gen, generate_samples
 
 def check_interval(step, interval):
@@ -182,8 +187,12 @@ class Runner:
     # ----------------------------------------------------------------- io
     def load(self, path, model_only=False):
         if path.endswith(".pth"):
-            raise NotImplementedError("loading a reference .pth checkpoint is not ported yet "
-                                      "(ROADMAP.md, queue A item 4: the reference .pth loader)")
+            # A reference checkpoint holds the model alone (its epoch and
+            # optimizer are not this port's): model_only or not, the weights
+            # are all it restores, as in the JAX runner (runner.py:304-313).
+            load_reference_checkpoint(path, self.model)
+            self.logger.print_log(f"loaded reference torch weights from {path}")
+            return
         self.state, meta = load_checkpoint(path, self.state, model_only=model_only)
         if not model_only:
             self.epoch = int(meta.get("epoch", 0))
@@ -289,16 +298,30 @@ class Runner:
 
     # ----------------------------------------------------------------- val
     def _eval_batch(self, batch, generator) -> List[Tuple[Dict, str]]:
-        """One val batch: generation for ``gen`` models."""
-        if not self.model.gen:
-            raise NotImplementedError(
-                "val of a reconstruction (gen=False) model needs reconstruct, which is not "
-                "ported yet (ROADMAP.md, queue A item 5)")
+        """One val batch (``runner.py:465-534``): generation for ``gen`` models,
+        named ``gen_fixed`` and the digits of the fixed-part mask; otherwise
+        the best of ``cimle_sample_num`` CIMLE candidates for each shape and
+        the reconstruction, named ``sample``. With ``ret_traj`` the kept
+        steps of the chain come out as ``traj_<t>``."""
+        model = self.model
         db = device_batch(batch, self.device, self._slim_val)
         B = db["ref"].shape[0]
-        out = sample_generation(self.model, B, valid_id=db["present"].float(), epoch=self.epoch,
-                                generator=generator)
-        name = "gen_fixed" + "0" * self.model.num_anchors
+        if model.gen:
+            fixed = torch.zeros(model.num_anchors, device=self.device)
+            for i in model.fix_part_ids or ():
+                fixed[i] = 1
+            out = sample_generation(model, B, valid_id=db["present"].float(), fixed_id=fixed,
+                                    epoch=self.epoch, ret_traj=model.ret_traj,
+                                    generator=generator)
+            name = "gen_fixed" + "".join(str(int(i)) for i in fixed.tolist())
+        else:
+            noise = None
+            if model.cimle:
+                noise, _, _ = select_best_noise(model, db, model.cimle_sample_num,
+                                                generator=generator)
+            out = reconstruct(model, db, noise=noise, epoch=self.epoch, ret_traj=model.ret_traj,
+                              generator=generator)
+            name = "sample"
         full_pred = out["pred"].float().cpu().numpy()  # (B * K, N, 3)
         seg_mask = out["seg_mask"].cpu().numpy()
         anchors = out["anchors"].float().cpu().numpy()
@@ -315,6 +338,10 @@ class Runner:
             pred["pred"] = full_pred
             pred["pred_seg_mask"] = seg_mask
             pred["anchors"] = anchors
+        if "traj" in out:
+            traj = out["traj"].float().cpu().numpy()  # (T_kept, B * K, N, 3)
+            for ti, t in enumerate(out["traj_t"]):
+                pred[f"traj_{int(t)}"] = traj[ti].reshape(B, K, -1, 3)[:, 0]
         pred["input"] = np.asarray(batch["input"])
         pred["input_ref"] = np.asarray(batch["ref"])
         pred["ref_seg_mask"] = np.asarray(batch["ref_seg_mask"])

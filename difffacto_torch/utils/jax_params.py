@@ -26,7 +26,7 @@ differs raises ``ValueError``.
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -77,16 +77,22 @@ def flatten_jax_tree(tree: Mapping) -> Dict[str, np.ndarray]:
     return flat
 
 
-def load_jax_params(model: nn.Module, params: Mapping, batch_stats: Mapping = None) -> None:
+def load_jax_params(model: nn.Module, params: Mapping, batch_stats: Mapping = None,
+                    absent: Sequence[str] = ()) -> None:
     """Copy the JAX tree ``params`` into the parameters of ``model`` and, if
-    given, ``batch_stats`` into its BatchNorm buffers, in place."""
-    _fill(dict(model.named_parameters()), flatten_jax_tree(params))
+    given, ``batch_stats`` into its BatchNorm buffers, in place. ``absent``
+    names submodules of the port (``encoder_mod.aligner``) that the trees
+    leave out as a whole: those keep their values. Any other parameter the
+    trees lack, and any leaf the port lacks, raises."""
+    _fill(dict(model.named_parameters()), flatten_jax_tree(params), absent)
     if batch_stats is not None:
-        _fill(dict(model.named_buffers()), flatten_jax_tree(batch_stats))
+        _fill(dict(model.named_buffers()), flatten_jax_tree(batch_stats), absent)
 
 
-def _fill(targets: Dict[str, torch.Tensor], flat: Dict[str, np.ndarray]) -> None:
-    missing = sorted(set(targets) - set(flat))
+def _fill(targets: Dict[str, torch.Tensor], flat: Dict[str, np.ndarray],
+          absent: Sequence[str] = ()) -> None:
+    skip = tuple(f"{a}." for a in absent)
+    missing = sorted(n for n in set(targets) - set(flat) if not n.startswith(skip))
     extra = sorted(set(flat) - set(targets))
     if missing or extra:
         raise KeyError(f"JAX tree does not match the port: missing {missing}, left over {extra}")

@@ -579,3 +579,97 @@ def test_checkpoint_round_trip_of_a_card_model(cuda, tmp_path):
         for name, t in want["opt_state"][key].items():
             assert torch.equal(got["opt_state"][key][name], t), name
     assert torch.equal(got["opt_state"]["count"], want["opt_state"]["count"])
+
+
+@pytest.mark.gpu
+def test_fused_ff_at_the_sample_one_part_search_size(cuda):
+    """The aligner's FF at D = 256 as ``sample_one_part`` runs it under
+    ``inference_mode``: 32 shapes x 10 variants x 100 noises x 4 part tokens
+    = 128,000 tokens in one launch, against the plain version on the module's
+    own operands."""
+    from difffacto_torch.nn.layers import FusedLNFF
+
+    m = FusedLNFF(256, dtype=torch.bfloat16, device=cuda, generator=torch.Generator().manual_seed(4))
+    x = torch.randn(32 * 10 * 100, 4, 256, generator=torch.Generator().manual_seed(5))
+    x = x.to(cuda, torch.bfloat16)
+    before = ff.launches
+    with torch.inference_mode():
+        got = m(x)
+        torch.cuda.synchronize()
+        assert ff.launches == before + 1
+        bf = torch.bfloat16
+        want = ff.fused_ln_geglu_ff_reference(
+            x.reshape(-1, 256), m.ln_scale.to(bf), m.ln_bias.to(bf), m.w1.to(bf), m.b1.float(),
+            m.w2.to(bf), m.b2.float()).reshape(x.shape)
+    err = (got.float() - want.float()).abs()
+    print(f"fused_ff D=256 T=128000: max abs err {err.max().item():.3e}, "
+          f"mean {err.mean().item():.3e}")
+    assert torch.isfinite(got.float()).all()
+    assert err.max().item() <= BF16_MAX_ABS and err.mean().item() <= BF16_MEAN_ABS
+
+
+@pytest.mark.gpu
+def test_fused_ff_under_autograd_takes_the_unfused_math(cuda):
+    """The kernel has no backward: where a gradient is asked for (shape
+    editing differentiates through the aligner) ``FusedLNFF`` computes the
+    unfused math, launching nothing; its gradient in x on the card equals
+    the CPU's (float32 both). Without a gradient the same call launches."""
+    from difffacto_torch.nn.layers import FusedLNFF
+
+    cpu, gpu = _on_both(lambda: FusedLNFF(256, device="cpu",
+                                          generator=torch.Generator().manual_seed(6)))
+    x = torch.randn(256, 4, 256, generator=torch.Generator().manual_seed(7))
+    grads = []
+    before = ff.launches
+    for m, dev in ((cpu, "cpu"), (gpu, cuda)):
+        xi = x.clone().to(dev).requires_grad_(True)
+        (m(xi) ** 2).sum().backward()
+        grads.append(xi.grad.cpu())
+    torch.cuda.synchronize()
+    assert ff.launches == before
+    torch.testing.assert_close(grads[1], grads[0], rtol=1e-4, atol=1e-4)
+    with torch.no_grad():  # the kernel takes bf16
+        gpu.dtype = torch.bfloat16
+        gpu(x.to(cuda, torch.bfloat16))
+    torch.cuda.synchronize()
+    assert ff.launches == before + 1
+
+
+@pytest.mark.gpu
+def test_pth_round_trip_on_the_card(cuda, tmp_path):
+    """A full-width gen_chair ``.pth`` in the reference's layout loads into a
+    model on the card as into one on the CPU: every parameter and buffer
+    equal, on the card; the aligner on the card (float32) reproduces the
+    reference module."""
+    import os
+    import sys
+
+    from difffacto_torch import MODELS, Config, build_from_cfg
+    from difffacto_torch.utils.torch_ingest import load_reference_checkpoint
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, os.path.join(root, "tools"))
+    import reference_layout_torch as ref
+
+    mods = ref.build_modules(seed=1)
+    path = str(tmp_path / "gen_chair_reference_layout.pth")
+    ref.save_pth(mods, path)
+    mcfg = Config(os.path.join(root, "configs", "gen_chair.py")).model.dump()
+    mcfg.update(npoints=256, ret_traj=False)
+    models = {}
+    for dev in ("cpu", cuda):
+        models[str(dev)] = build_from_cfg(mcfg, MODELS, device=dev, seed=3)
+        assert load_reference_checkpoint(path, models[str(dev)]) == []
+    cpu, card = models["cpu"], models["cuda"]
+    for (name, a), (_, b) in zip(list(cpu.named_parameters()) + list(cpu.named_buffers()),
+                                 list(card.named_parameters()) + list(card.named_buffers())):
+        assert b.is_cuda and torch.equal(b.cpu(), a), name
+    rng = np.random.RandomState(2)
+    code = torch.as_tensor(rng.randn(2, 4, 256), dtype=torch.float32)
+    noise = torch.as_tensor(rng.randn(2, 32) * 0.01, dtype=torch.float32)
+    valid = torch.ones(2, 4)
+    with torch.no_grad():
+        want = mods["aligner"](code, valid, noise)
+        got = card.encoder_mod.aligner(code.to(cuda), valid.to(cuda), noise=noise.to(cuda))
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-3, atol=1e-3)

@@ -6,8 +6,8 @@ against the JAX package on the same weights (bridged with
 ``load_jax_params`` from a JAX ``Runner``): the trainable filter and the
 per-path learning-rate scales, the learning rate of each iteration, the CIMLE
 table with JAX's candidates injected, and the loss of one step. Port only: a
-resumed run equals an uninterrupted one bit for bit, explicit absent and
-``.pth`` checkpoints raise, and ``tools/run_net_torch.py --cpu`` runs.
+resumed run equals an uninterrupted one bit for bit, explicit absent
+checkpoints raise, and ``tools/run_net_torch.py --cpu`` runs.
 """
 
 import copy
@@ -142,8 +142,9 @@ def test_resume_equals_an_uninterrupted_run(tmp_path):
 def test_missing_and_reference_checkpoints_raise(tmp_path):
     with pytest.raises(FileNotFoundError, match="resume_path"):
         runner(tiny(tmp_path, "a", resume_path=str(tmp_path / "absent.pt")))
-    with pytest.raises(NotImplementedError, match="queue A item 4"):
-        runner(tiny(tmp_path, "b", pretrained_weights="pretrained/chair.pth"))
+    # a reference .pth loads (tests/test_torch_pth.py); one that is absent raises
+    with pytest.raises(FileNotFoundError, match="chair.pth"):
+        runner(tiny(tmp_path, "b", pretrained_weights=str(tmp_path / "pretrained" / "chair.pth")))
 
 
 def test_two_stage_transition(tmp_path):
@@ -403,8 +404,8 @@ def test_cli_trains_resumes_and_scores_on_the_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--task", "mixing"], "queue A item 5"),
-    (["--task", "interpolation"], "queue A item 5"),
+    (["--runner", "pretrain"], "queue A item 7"),
+    (["--runner", "language"], "queue A item 7"),
     (["--runner", "gan"], "queue A item 7"),
 ])
 def test_cli_refuses_what_is_not_ported(argv, match):

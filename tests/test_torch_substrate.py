@@ -80,9 +80,8 @@ def test_unported_chain_options_raise():
                dict(ddim_sampling=True)):
         with pytest.raises(NotImplementedError):
             AnchoredDiffusion(10, 1e-4, 0.02, **kw)
-    diff = AnchoredDiffusion(10, 1e-4, 0.02)
     with pytest.raises(NotImplementedError):
-        diff.p_sample_loop(None, torch.zeros(1, 4, 3), ret_traj=True)
+        AnchoredDiffusion(10, 1e-4, 0.02, guidance=True)
 
 
 def test_cuda_without_a_card_raises():
