@@ -2,9 +2,10 @@
 """Run the PyTorch port on one CUDA card and check it: gen_chair generation,
 the eval protocol that scores what was generated, the gen_chair training
 step, gen_chair generation with two-attention blocks beside the UNet
-denoiser, the training loop users run (the runner and its CLI), and
+denoiser, the training loop users run (the runner and its CLI),
 reconstruction and part-level editing on weights read from a reference
-``.pth``.
+``.pth``, and the chain's variants (DDIM, a learned variance with guidance,
+t added to x) with the checkpoint-curve scorer.
 
     python3 chip_smoke.py
 
@@ -26,7 +27,8 @@ Phases, each fatal (non-zero exit, no "ok" line):
 3. kernels: each kernel against its plain PyTorch version, with the stated
    tolerance, at the main paths' shapes and at ragged ones: the trunk in
    bf16 (also at the timed B = 256, N = 2048 with parts absent: 4096 tiles,
-   31 or 32 for each block of the persistent grid), the training trunk's forward and its backward (dx, dK, dV and the 15
+   31 or 32 for each block of the persistent grid) and its head-less entry
+   (at that shape and a ragged N), the training trunk's forward and its backward (dx, dK, dV and the 15
    parameter gradients) at p = 0 and p = 0.2, FPS index for index (at
    shapes where ``ops/fps.py:plan`` picks each cluster size 1, 2, 4 and 8,
    clouds past one block's registers, and 400 clouds of 8192), the EMD assignment by its
@@ -143,6 +145,18 @@ Phases, each fatal (non-zero exit, no "ok" line):
    against the CPU's. One JSON line then gives every kernel's numbers, with
    its launches in phase 9 (``launches_runner``) and phase 10
    (``launches_editing``).
+11. the chain's variants, full width: gen_chair with DDIM (25 quad steps,
+   eta 1) at batch 256: launch counts set to 0 just before and read just
+   after (25 trunk launches), 3 timed runs (shapes/s, host clock), the idle
+   share, and a batch-1 run with every draw injected against the CPU; a
+   ``learned_range`` variance (proj_out 128 x 6) with guidance at weight 2,
+   batch 256: 200 trunk launches, finite, timed; ``add_t_to_x`` at batch
+   256: 100 launches of the trunk's head-less entry, its first launch held
+   against the plain version, the entry timed beside its plain version and
+   bound; ``tools/eval_ckpt_curve_torch.py --ddim 25`` on phase 9's final
+   checkpoint (25 trunk launches, 12 finite metrics). The kernels line lists
+   the head-less entry beside the trunk, whose row carries phase 11's
+   numbers.
 
 The last line is {"ok": true, "device": {...}}.
 """
@@ -486,13 +500,17 @@ def seeded_clouds(B, N, seed, distinct=None):
     return torch.as_tensor(x)
 
 
-def build_model(noise_scale, device, single_attn=True):
+def build_model(noise_scale, device, single_attn=True, diffusion=None, net=None):
+    """gen_chair at full width, bf16, seeded; ``diffusion`` and ``net`` are
+    keys set on the loaded config's diffusion and denoiser."""
     from difffacto_torch import MODELS, Config, build_from_cfg
 
     mcfg = Config(os.path.join(ROOT, "configs", "gen_chair.py")).model.dump()
     mcfg.update(npoints=2048, ret_traj=False, cimle_sample_num=1, dtype=torch.bfloat16)
     mcfg["encoder"]["part_aligner"].update(noise_scale=noise_scale, single_attn=single_attn)
     mcfg["diffusion"]["net"]["single_attn"] = single_attn
+    mcfg["diffusion"].update(diffusion or {})
+    mcfg["diffusion"]["net"].update(net or {})
     return build_from_cfg(mcfg, MODELS, device=device, seed=0)
 
 
@@ -715,11 +733,14 @@ def runner_step_against_cpu(card, cfg):
     return dict(loss_rel=rel[worst], grad_norm_rel=gn, update_rel=upd)
 
 
-def runner_phase(dev, fc, fct, fpsm, eh, ff, fb):
+def runner_phase(dev, fc, fct, fpsm, eh, ff, fb, keep):
     """Phase 9: the port's training loop as a user runs it, through
     ``runner/cli.py:main`` on ``configs/bench_train_tpu.py``; then the
     cropping loader. Returns the launch counts of each kernel, the largest
-    errors of the recorded launches and the times."""
+    errors of the recorded launches and the times, and the path of the
+    final checkpoint, copied into the directory ``keep``."""
+    import shutil
+
     import tempfile
     import warnings
 
@@ -894,6 +915,8 @@ def runner_phase(dev, fc, fct, fpsm, eh, ff, fb):
         if gen_counts["fused_core"] != 100 * gen_batches or gen_counts["emd_hybrid"] == 0:
             fail(f"val_gen launched {gen_counts}: expected {100 * gen_batches} trunk launches "
                  "and EMD launches")
+        checkpoint = shutil.copy(os.path.join(run.work_dir, "checkpoints", "ckpt_3.pt"), keep)
+        shutil.copy(os.path.join(run.work_dir, "checkpoints", "ckpt_3.meta.json"), keep)
         del run
 
     # What the trunk and the training trunk computed on the main path, held
@@ -961,7 +984,7 @@ def runner_phase(dev, fc, fct, fpsm, eh, ff, fb):
         val_s=times["val"], val_gen_s=val_gen_s, idle_share=1 - busy / wall,
         later_epoch_ms=wall, device_busy_ms=busy, device_ops_per_step=ops,
         syncs_per_step=syncs, loader_epoch_s=float(np.median(loads)), loader_epoch_s_each=loads,
-        peak_gib=peak, crop_s=crop_s, against_cpu=against_cpu,
+        peak_gib=peak, crop_s=crop_s, against_cpu=against_cpu, checkpoint=checkpoint,
     )
     print(f"seconds per epoch: first {times['train'][0]:.3f} (log_interval 1), later median "
           f"{median:.4f} over {RUNNER_TIMED_EPOCHS} (log_interval {log_every}, the "
@@ -1276,6 +1299,158 @@ def editing_phase(dev, fc, fct, fpsm, eh, ff, fb):
                 search_ff=search_ff, ff_path=ff_path)
 
 
+# Phase 11: the chain's variants on gen_chair at full width. DDIM as every
+# generation config sets it (configs/_base_/anchordiff.py:83-86): 25 quad
+# steps of T = 100, eta 1; a learned_range variance (proj_out 128 x 6) with
+# guidance at weight 2, which calls the denoiser twice a step; a denoiser that
+# adds t to x, whose trunk is the kernel's head-less entry.
+DDIM = dict(ddim_sampling=True, ddim_nsteps=25, ddim_discretize="quad", ddim_eta=1.0)
+GUIDED = dict(model_var_type="learned_range", guidance=True, classifier_weight=2.0)
+
+
+def write_scorer_config(work):
+    """A config under ``work`` whose ``_base_`` is RUNNER_CONFIG, as phase 9's
+    is, with its own work_dir: what the checkpoint-curve scorer reads."""
+    path = os.path.join(work, "bench_train_scorer.py")
+    with open(path, "w") as f:
+        f.write(f"_base_ = [{os.path.join(ROOT, RUNNER_CONFIG)!r}]\n")
+        f.write(f"work_dir = {os.path.join(work, 'scorer')!r}\n")
+    return path
+
+
+def chain_phase(dev, fc, eh, noise_scale, checkpoint):
+    """Phase 11: DDIM-25 generation (launches, shapes/s, idle share, a batch-1
+    run against the CPU), learned_range with guidance (launches, finite,
+    seconds), add_t_to_x generation (head-less launches, its first launch
+    held, the entry timed beside its plain version and bound), and the
+    checkpoint-curve scorer with --ddim 25 on phase 9's checkpoint."""
+    import runpy
+    import tempfile
+
+    from difffacto_torch import sample_generation
+    from difffacto_torch.models import denoiser
+
+    t_phase = time.perf_counter()
+    res = {}
+
+    def generate(model, B, seed):
+        return sample_generation(model, B, valid_id=torch.ones(B, 4, device=dev),
+                                 generator=torch.Generator(device=dev).manual_seed(seed))["pred"]
+
+    def counted(model, seed):
+        fc.launches = fc.launches_headless = 0
+        t0 = time.perf_counter()
+        pred = generate(model, BATCH_TIMED, seed)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        if tuple(pred.shape) != (BATCH_TIMED, 2048, 3) or not torch.isfinite(pred).all():
+            fail(f"phase 11 generated {tuple(pred.shape)}, finite: "
+                 f"{bool(torch.isfinite(pred).all())}")
+        return seconds, dict(fused_core=fc.launches, fused_core_headless=fc.launches_headless)
+
+    # DDIM-25, quad, eta 1
+    model = build_model(noise_scale, dev, diffusion=DDIM)
+    steps = len(model.diff.steps)
+    _, counts = counted(model, 3)
+    print(f"DDIM {steps} quad steps (t = {model.diff.steps[::-1].tolist()}), batch "
+          f"{BATCH_TIMED}: launches {counts}")
+    if counts != dict(fused_core=25, fused_core_headless=0):
+        fail(f"a DDIM-25 generation launched {counts}, not 25 trunk launches")
+    t0 = time.perf_counter()
+    for i in range(ITERS):
+        generate(model, BATCH_TIMED, 4 + i)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / ITERS
+    wall, busy = device_busy(lambda: generate(model, BATCH_TIMED, 9))
+    res.update(ddim25_launches=counts["fused_core"], ddim25_s=dt,
+               ddim25_shapes_per_s=BATCH_TIMED / dt, ddim25_idle_share=1 - busy / wall)
+    print(f"DDIM-25 gen_chair batch {BATCH_TIMED}: {BATCH_TIMED / dt:.2f} shapes/s ({dt:.3f} s a "
+          f"batch over {ITERS} runs, host clock); one more: {wall:.1f} ms wall, device busy "
+          f"{busy:.1f} ms, idle {100 * (1 - busy / wall):.1f}%")
+    rng = np.random.RandomState(11)
+    draws = dict(z=rng.randn(1, 4, 256), cimle_noise=rng.randn(1, 32),
+                 noise=rng.randn(1, 2048, 3), step_noise=rng.randn(steps, 1, 2048, 3))
+    runs = {}
+    for label, where, m in (("card", dev, model),
+                            ("cpu", "cpu", build_model(noise_scale, "cpu", diffusion=DDIM))):
+        d = {k: torch.as_tensor(v, dtype=torch.float32, device=where) for k, v in draws.items()}
+        runs[label] = sample_generation(
+            m, 1, valid_id=torch.as_tensor([[1, 1, 0, 1]], dtype=torch.float32, device=where),
+            **d)["pred"].float().cpu()
+    rel = ((runs["card"] - runs["cpu"]).norm() / runs["cpu"].norm()).item()
+    print(f"batch-1 DDIM-25 generation, card vs CPU plain trunk, every draw injected: relative "
+          f"L2 {rel:.4e} (tol {E2E_REL_L2})")
+    if not torch.isfinite(runs["card"]).all() or not rel <= E2E_REL_L2:
+        fail("DDIM generation on the card disagrees with the CPU")
+    res["ddim25_card_vs_cpu_rel_l2"] = rel
+    del model
+
+    # learned_range with guidance: two trunk launches a step, one on a zero context
+    model = build_model(noise_scale, dev, diffusion=GUIDED, net=dict(out_channels=6))
+    seconds, counts = counted(model, 5)
+    print(f"learned_range + guidance (weight 2), batch {BATCH_TIMED}: {seconds:.3f} s "
+          f"({BATCH_TIMED / seconds:.2f} shapes/s, host clock), launches {counts}")
+    if counts != dict(fused_core=200, fused_core_headless=0):
+        fail(f"a guided generation launched {counts}, not 200 trunk launches")
+    res.update(guided_launches=counts["fused_core"], guided_s=seconds,
+               guided_shapes_per_s=BATCH_TIMED / seconds)
+    del model
+
+    # add_t_to_x: h0 + t-embedding through the head-less entry
+    model = build_model(noise_scale, dev, net=dict(add_t_to_x=True))
+    recorder = KernelRecorder((denoiser, "fused_core_headless"))
+    with recorder:
+        seconds, counts = counted(model, 6)
+    print(f"add_t_to_x, batch {BATCH_TIMED}: {seconds:.3f} s, launches {counts}")
+    if counts != dict(fused_core=0, fused_core_headless=100):
+        fail(f"an add_t_to_x generation launched {counts}, not 100 head-less launches")
+    (B, N), (args, _, got) = recorder.launches("fused_core_headless", "phase 11")[0]
+    with torch.inference_mode():
+        want = fc.fused_core_reference(args[0], None, None, *args[1:])
+    err = hold_bf16(f"fused_core_headless as add_t_to_x launched it, B={B} N={N}", got, want)
+    res.update(headless_launches=counts["fused_core_headless"], headless_err=err,
+               add_t_to_x_s=seconds)
+    del model, recorder, args, got, want
+
+    ops = fc.operands(fc.example_inputs(BATCH_TIMED, 2048, depth=5, in_ch=fc.D, seed=8), dev,
+                      torch.bfloat16)
+    hl = [ops[0]] + ops[3:]
+    bound, by = trunk_bound_ms(hl, BATCH_TIMED * 2048 * fc.D * 2, in_ch=0, depth=5)
+    before = fc.launches_headless
+    ms = cuda_ms(lambda: fc.fused_core_headless(*hl, 0.25), 20)
+    plain_ms = cuda_ms(lambda: fc.fused_core_reference(hl[0], None, None, *hl[1:], 0.25), 3)
+    fc.launches_headless = before
+    res.update(headless_ms=ms, headless_plain_ms=plain_ms, headless_bound_ms=bound,
+               headless_bound_by=by)
+    print(f"fused_core_headless B={BATCH_TIMED} N=2048: {ms:.3f} ms, bound {bound:.3f} ms ({by}), "
+          f"{100 * bound / ms:.1f}% of roofline; plain version {plain_ms:.3f} ms")
+    del ops, hl
+    torch.cuda.empty_cache()
+
+    # The checkpoint-curve scorer, DDIM-25, on phase 9's final checkpoint
+    tool = runpy.run_path(os.path.join(ROOT, "tools", "eval_ckpt_curve_torch.py"),
+                          run_name="imported")
+    with tempfile.TemporaryDirectory() as work:
+        fc.launches = eh.launches = 0
+        t0 = time.perf_counter()
+        rows = tool["main"](["--config-file", write_scorer_config(work), "--ckpts", checkpoint,
+                             "--ddim", "25", "--gen_num", str(RUNNER_GEN_NUM)])
+        torch.cuda.synchronize()
+        scorer_s = time.perf_counter() - t0
+    metrics = {k: v for k, v in rows[0].items() if k not in ("ckpt", "epoch", "steps", "eval_s")}
+    print(f"eval_ckpt_curve_torch.py --ddim 25 on {os.path.basename(checkpoint)}: "
+          f"{scorer_s:.2f} s with the runner's build, launches fused_core {fc.launches}, "
+          f"emd_hybrid {eh.launches}")
+    if (len(rows) != 1 or rows[0]["steps"] != 25 or len(metrics) != 12
+            or not all(np.isfinite(v) for v in metrics.values())):
+        fail(f"the scorer gave {rows}")
+    if fc.launches != 25 * -(-RUNNER_GEN_NUM // 128) or eh.launches == 0:
+        fail(f"the scorer launched the trunk {fc.launches} times and EMD {eh.launches}")
+    res.update(scorer_s=scorer_s, scorer_row=rows[0])
+    print(f"phase 11: {time.perf_counter() - t_phase:.1f} s")
+    return res
+
+
 def main():
     phase("1 device")
     if not torch.cuda.is_available():
@@ -1331,7 +1506,7 @@ def main():
             ops["REDG x4"] = sum(1 for line in body.splitlines() if "REDG" in line and "x4" in line)
             funcs[fname.strip()] = ops
             print(f"  {lib} SASS {fname.strip()}: {ops}")
-        want = {"fused_core": {"fused_core_kernel": 2},
+        want = {"fused_core": {"fused_core_kernel": 3},
                 "fused_core_train": {"fused_core_kernel": 1, "trunk_train_bwd_kernel": 1},
                 "fused_ff": {"fused_core_kernel": 1, "ff_wide_kernel": 1}}[lib]
         for kernel, n in want.items():
@@ -1378,6 +1553,22 @@ def main():
             f"fused_core B={B} N={N} ({sched['total_tiles']} tiles, {sched['grid']} blocks)", got,
             fc.fused_core_reference(*args, 0.25)))
         del args, got
+
+    # The head-less entry (the trunk on h0, add_t_to_x's form) at the timed
+    # shape with parts absent and at a ragged N, at B1's tolerance (it is
+    # B1's arithmetic after proj_in: an H100 showed max abs 0.0781 at B = 256
+    # against B1's 0.0625 there, both means 2.85e-4).
+    headless_err = 0.0
+    for B, N, mask in ((BATCH_TIMED, 2048, timed_mask), (2, 1000, [[1, 1, 0, 1], [1, 1, 1, 1]])):
+        args = fc.operands(fc.example_inputs(B, N, depth=5, in_ch=fc.D, seed=N, mask=mask), dev,
+                           torch.bfloat16)
+        hl = [args[0]] + args[3:]
+        got = fc.fused_core_headless(*hl, 0.25)
+        torch.cuda.synchronize()
+        headless_err = max(headless_err, hold_bf16(
+            f"fused_core_headless B={B} N={N}", got,
+            fc.fused_core_reference(hl[0], None, None, *hl[1:], 0.25)))
+        del args, hl, got
 
     # The training trunk: forward and every gradient against the plain version
     # at p = 0 and p = 0.2, with absent parts and a ragged N.
@@ -2108,12 +2299,19 @@ def main():
     print(f"phase 8: {time.perf_counter() - t_phase:.1f} s")
 
     phase("9 runner, full width")
-    run9 = runner_phase(dev, fc, fct, fpsm, eh, ff, fb)
+    import tempfile
+
+    kept = tempfile.TemporaryDirectory()
+    run9 = runner_phase(dev, fc, fct, fpsm, eh, ff, fb, kept.name)
     on_path = run9["launches"]
 
     phase("10 reconstruction and editing, full width")
     run10 = editing_phase(dev, fc, fct, fpsm, eh, ff, fb)
     editing_launches = run10["launches"]
+
+    phase("11 DDIM, guidance and the chain's variants, full width")
+    run11 = chain_phase(dev, fc, eh, noise_scale, run9["checkpoint"])
+    kept.cleanup()
 
     print(card)
     trunk["launches_runner"] = on_path["fused_core"]
@@ -2121,7 +2319,16 @@ def main():
     trunk["max_abs_err"] = max(trunk["max_abs_err"], run9["core_err"], run10["errs"]["fused_core"])
     trunk["editing_paths"] = run10["paths"]
     trunk["editing_z_grad_rel_l2"] = run10["grad_rel"]
-    print(json.dumps({"kernels": [trunk, {
+    trunk.update({k: v for k, v in run11.items() if not k.startswith("headless")})
+    headless = {
+        "name": "fused_core_headless", "route": "cuda",
+        "source": "difffacto_torch/csrc/fused_core.cu",
+        "replaces": "difffacto_tpu/ops/fused_core.py:33", "launches": run11["headless_launches"],
+        "max_abs_err": max(headless_err, run11["headless_err"]), "ms": run11["headless_ms"],
+        "plain_ms": run11["headless_plain_ms"], "bound_ms": run11["headless_bound_ms"],
+        "bound_by": run11["headless_bound_by"], "library_ms": None,
+    }
+    print(json.dumps({"kernels": [trunk, headless, {
         "name": "fps", "route": "cuda", "source": "difffacto_torch/csrc/fps.cu",
         "replaces": "difffacto_tpu/ops/fps_pallas.py:27", "launches": counts["fps"],
         "max_abs_err": fps_diff, "ms": fps_ms, "plain_ms": fps_plain_ms, "bound_ms": fps_bound,

@@ -93,6 +93,35 @@ extern "C" int difffacto_fused_core(
   return (int)launch<Mode::TRUNK>(p, grid, tiles_per_row, wq, wout, w1, w2, (cudaStream_t)stream);
 }
 
+// The trunk without proj_in (Mode::HEADLESS): x, out (B, N, 128) bf16, x
+// the hidden state h0 that the caller projected (and, with add_t_to_x,
+// biased by the time embedding); the rest as difffacto_fused_core. It is the
+// same TPU kernel's has_head=False form (difffacto_tpu/ops/fused_core.py:
+// 118-160), which the JAX denoiser takes when it adds t to x
+// (difffacto_tpu/models/denoiser.py:244-258). Its bound is the trunk's less
+// proj_in's operations, with 256 bytes a token of x in.
+extern "C" int difffacto_fused_core_headless(
+    const void* x, const void* k, const void* v, const void* mask, const void* pre_scale,
+    const void* pre_bias, const void* post_scale, const void* post_bias, const void* n2_scale,
+    const void* n2_bias, const void* wq, const void* wout, const void* bout,
+    const void* ff_scale, const void* ff_bias, const void* w1, const void* b1, const void* w2,
+    const void* b2, void* out, int B, int N, int depth, float scale, int grid,
+    int tiles_per_row, void* stream) {
+  if (B < 1 || B > 65535 || N < 1 || depth < 1) return (int)cudaErrorInvalidValue;
+  Params p = {};
+  p.x = (const bf16*)x; p.k = (const bf16*)k; p.v = (const bf16*)v;
+  p.mask = (const float*)mask;
+  p.pre_scale = (const bf16*)pre_scale; p.pre_bias = (const bf16*)pre_bias;
+  p.post_scale = (const bf16*)post_scale; p.post_bias = (const bf16*)post_bias;
+  p.n2_scale = (const bf16*)n2_scale; p.n2_bias = (const bf16*)n2_bias;
+  p.bout = (const float*)bout; p.ff_scale = (const bf16*)ff_scale;
+  p.ff_bias = (const bf16*)ff_bias; p.b1 = (const float*)b1; p.b2 = (const float*)b2;
+  p.out = (bf16*)out;
+  p.B = B; p.N = N; p.in_ch = 0; p.depth = depth; p.scale = scale;
+  return (int)launch<Mode::HEADLESS>(p, grid, tiles_per_row, wq, wout, w1, w2,
+                                     (cudaStream_t)stream);
+}
+
 // One block: x, out (B, N, 128) bf16; k, v (B, 4, 128) bf16; mask (B, 4) f32.
 extern "C" int difffacto_fused_block(
     const void* x, const void* k, const void* v, const void* mask, const void* n2_scale,

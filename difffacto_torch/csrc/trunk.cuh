@@ -5,6 +5,9 @@
 // csrc/fused_core.cu.
 //
 // Mode::TRUNK: proj_in, pre-LN, depth blocks, post-LN.
+// Mode::HEADLESS: the trunk without proj_in: x (B, N, 128) is the hidden
+//   state h0 (the denoiser's add_t_to_x biases it with the time embedding
+//   first), then pre-LN, depth blocks, post-LN.
 // Mode::BLOCK: one block on x (B, N, 128) as it is, its residual stream out.
 // Mode::TRAIN: pre-LN, depth blocks with dropout after the out-projection
 //   (site 0) and on the GEGLU activations (site 1), post-LN; with p.acts set
@@ -38,7 +41,7 @@ namespace {
 
 using namespace hopper;
 
-enum class Mode { TRUNK, BLOCK, TRAIN, FF };
+enum class Mode { TRUNK, HEADLESS, BLOCK, TRAIN, FF };
 
 constexpr int D = 128;          // model width
 constexpr int CTX = 4;          // context (part) tokens
@@ -366,6 +369,7 @@ __device__ __forceinline__ void consume(const Params& p, unsigned char* smem, Ri
   uint32_t* stash = reinterpret_cast<uint32_t*>(smem + OFF_STASH) + tid;
 
   constexpr bool TRUNK = MODE == Mode::TRUNK, TRAIN = MODE == Mode::TRAIN, FFONLY = MODE == Mode::FF;
+  constexpr bool PRE_LN = TRAIN || MODE == Mode::HEADLESS;  // x is h0: pre-LN it here
   const size_t slot = (size_t)p.B * p.N * D;  // elements of one saved-activation slot
   if constexpr (TRUNK) {
     for (int i = tid; i < MAX_IN * D; i += CT) {
@@ -419,7 +423,7 @@ __device__ __forceinline__ void consume(const Params& p, unsigned char* smem, Ri
 #pragma unroll
         for (int j = 0; j < 16; ++j) h[2 * j + r] = n < p.N ? __ldg(src + 4 * j + t) : 0u;
       }
-      if constexpr (TRAIN) {
+      if constexpr (PRE_LN) {
         uint32_t pre[32];
         layer_norm(h, pre, p.pre_scale, p.pre_bias, t);
 #pragma unroll

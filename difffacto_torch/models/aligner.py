@@ -1,11 +1,17 @@
 """The part aligner: a small transformer over the K part tokens.
 
-Port of ``difffacto_tpu/models/aligner.py:PartAlignerTransformer`` for the
-shipped configs, generation and training: CIMLE noise of type 0 (scaled and
-concatenated to every part token) and the class embedding added after
-``proj_in``. The other noise types raise ``NotImplementedError``. With
-``single_attn=False`` the blocks are ``TwoAttentionBlock``s, for generation
-only.
+Port of ``difffacto_tpu/models/aligner.py:PartAlignerTransformer``, generation
+and training, with the CIMLE noise of every ``cond_noise_type``
+(``aligner.py:64-137``): 0, the scaled noise concatenated to every part token
+(``pre_norm`` built and never applied, a reference quirk the JAX package
+keeps); 1, the noise as an extra token ahead of the parts, masked in,
+``pre_norm`` applied, the token stripped after ``post_norm``; 2, adaLN from
+the noise in every block; 3, a shift and scale from ``emb_layer`` of silu(noise)
+after ``pre_norm``; 4, the noise through the ``emb_layer`` MLP, then
+concatenated as in 0. The class embedding is concatenated or added after
+``proj_in``. The blocks are built as the JAX block chooses its layout
+(``nn/attention.py:transformer_block``); two-attention blocks are for
+generation only.
 """
 
 from __future__ import annotations
@@ -15,8 +21,8 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ..nn.attention import BasicTransformerBlock, TwoAttentionBlock
-from ..nn.layers import Dense, LayerNorm, default_generator, param
+from ..nn.attention import transformer_block
+from ..nn.layers import MLP, Dense, LayerNorm, default_generator, param
 from ..utils.device import resolve_device
 from ..utils.registry import ENCODERS
 
@@ -38,30 +44,34 @@ class PartAlignerTransformer(nn.Module):
                  use_linear: bool = True, *, dtype=None, device="cuda", generator=None):
         super().__init__()
         device = resolve_device(device)
-        if cimle and cond_noise_type != 0:
-            raise NotImplementedError(
-                f"aligner cond_noise_type={cond_noise_type} is not ported yet (only 0)"
-            )
         g = default_generator(generator)
         self.n_class, self.noise_dim, self.noise_scale = n_class, noise_dim, noise_scale
         self.class_cond, self.add_class_cond, self.cimle = class_cond, add_class_cond, cimle
+        self.cond_noise_type = cond_noise_type if cimle else None
         self.cimle_start_epoch = cimle_start_epoch
         self.mask_out_unreferenced_code = mask_out_unreferenced_code
         self.use_checkpoint, self.use_linear = use_checkpoint, use_linear
         inner = n_heads * d_head
+        self.inner = inner
+        noise_type = self.cond_noise_type
         in_ch = in_channels + (n_class if class_cond and not add_class_cond else 0)
-        in_ch += noise_dim if cimle else 0
+        in_ch += noise_dim if noise_type in (0, 4) else 0
         kw = dict(dtype=dtype, device=device)
+        if noise_type == 4:
+            self.emb_layer = MLP(noise_dim, (4 * noise_dim, 4 * noise_dim, noise_dim),
+                                 generator=g, **kw)
         self.proj_in = Dense(in_ch, inner, generator=g, **kw)
         if class_cond and add_class_cond:
             self.class_emb = param(torch.randn(n_class, inner, generator=g), device)
-        # With CIMLE, pre_norm is built but never applied (a reference quirk the
-        # JAX package keeps, ``aligner.py:112-118``); its parameters still load.
+        if noise_type == 3:
+            self.emb_layer = Dense(noise_dim, 2 * inner, generator=g, **kw)
+        # With CIMLE of type 0, 2 or 4, pre_norm is built but never applied (a
+        # reference quirk the JAX package keeps, ``aligner.py:112-118``); its
+        # parameters still load.
         self.pre_norm = LayerNorm(inner, **kw)
         self.blocks = nn.ModuleList(
-            BasicTransformerBlock(inner, n_heads, d_head, dropout=dropout, generator=g, **kw)
-            if single_attn
-            else TwoAttentionBlock(inner, n_heads, d_head, generator=g, **kw)
+            transformer_block(inner, n_heads, d_head, dropout=dropout, single_attn=single_attn,
+                              adaln=noise_type == 2, y_dim=noise_dim, generator=g, **kw)
             for _ in range(depth)
         )
         self.post_norm = LayerNorm(inner, **kw)
@@ -70,29 +80,56 @@ class PartAlignerTransformer(nn.Module):
     def forward(self, part_code: torch.Tensor, valid_id=None, noise: Optional[torch.Tensor] = None,
                 train: bool = False, generator=None):
         """``noise`` (B, noise_dim) is the CIMLE latent; None or a wrong width
-        is replaced by zeros (``aligner.py:64-66``). ``train`` turns the
-        blocks' dropout on, drawn from ``generator``."""
+        is replaced by zeros (``aligner.py:64-66``). Type 1 takes a (B, inner)
+        noise token; without one (or at another width) the token is zeros
+        and masked out, as the JAX module computes it when its caller gives
+        no "noise" stream, which none of its callers does (``aligner.py:87-99``).
+        ``train`` turns the blocks' dropout on, drawn from ``generator``."""
         B, K, _ = part_code.shape
         if K != self.n_class:
             raise ValueError(f"part_code has {K} parts, the aligner {self.n_class}")
+        noise_type = self.cond_noise_type
         x = part_code
         if self.class_cond and not self.add_class_cond:
             eye = torch.eye(K, dtype=x.dtype, device=x.device).expand(B, K, K)
             x = torch.cat([x, eye], dim=-1)
-        if self.cimle:
+        if self.cimle and noise_type != 1:
             if noise is None or noise.shape[-1] != self.noise_dim:
                 noise = torch.zeros(B, self.noise_dim, dtype=x.dtype, device=x.device)
             noise = noise * self.noise_scale
-            dt = torch.promote_types(x.dtype, noise.dtype)
-            x = torch.cat([x.to(dt), noise[:, None].expand(B, K, self.noise_dim).to(dt)], dim=-1)
+            if noise_type == 4:
+                noise = self.emb_layer(noise)
+            if noise_type in (0, 4):
+                dt = torch.promote_types(x.dtype, noise.dtype)
+                x = torch.cat([x.to(dt), noise[:, None].expand(B, K, noise.shape[-1]).to(dt)],
+                              dim=-1)
 
         mask = valid_id if self.mask_out_unreferenced_code else None
         h = self.proj_in(x)
         if self.class_cond and self.add_class_cond:
             h = h + self.class_emb[None].to(h.dtype)
-        if not self.cimle:
+        if noise_type == 1:
+            if noise is None or noise.shape[-1] != self.inner:
+                token = torch.zeros(B, self.inner, dtype=h.dtype, device=h.device)
+                token_mask = torch.zeros(B, 1, dtype=h.dtype, device=h.device)
+            else:
+                token = noise.to(h.dtype)
+                token_mask = torch.ones(B, 1, dtype=h.dtype, device=h.device)
+            h = torch.cat([(token * self.noise_scale)[:, None], h], dim=1)
+            if mask is not None:
+                mask = torch.cat([token_mask, mask.to(h.dtype)], dim=1)
             h = self.pre_norm(h)
+        elif noise_type == 3:
+            shift, scale = self.emb_layer(torch.nn.functional.silu(noise)).chunk(2, dim=-1)
+            h = self.pre_norm(h)
+            h = h * (1.0 + scale[:, None]) + shift[:, None]
+        elif not self.cimle:
+            h = self.pre_norm(h)
+        y = noise if noise_type == 2 else None
         for blk in self.blocks:
-            h = blk(h, mask=mask, train=train, generator=generator)
-        h = self.proj_out(self.post_norm(h))
+            h = blk(h, mask=mask, train=train, generator=generator, y=y)
+        h = self.post_norm(h)
+        if noise_type == 1:
+            h = h[:, 1:]
+        h = self.proj_out(h)
         return h[..., :3], h[..., 3:6]

@@ -263,7 +263,8 @@ def decode(model: AnchorDiffAE, anchors, ctx=None, variance=None, seg_mask=None,
            ret_traj: Optional[bool] = None, ret_interval: Optional[int] = None):
     """The reverse diffusion chain (``anchor_diff.py:486-597``) -> {'pred': (B, N, 3)},
     with 'traj' and 'traj_t' where ``ret_traj`` (default: the model's, every
-    ``ret_interval``-th step)."""
+    ``ret_interval``-th step). ``step_noise`` is (len(model.diff.steps), B, N,
+    3): T draws for the full chain, ``ddim_nsteps`` with DDIM."""
     ret_traj = model.ret_traj if ret_traj is None else ret_traj
     ret_interval = model.ret_interval if ret_interval is None else ret_interval
     return model.diff.p_sample_loop(
@@ -279,7 +280,8 @@ def sample_generation(model: AnchorDiffAE, sample_num: int, valid_id=None, fixed
                       generator: Optional[torch.Generator] = None, z=None, cimle_noise=None,
                       noise=None, step_noise=None):
     """Unconditional generation (``anchor_diff.py:600-651``): flow prior ->
-    aligner (K CIMLE hypotheses) -> reverse chain. Returns a dict with 'pred'
+    aligner (K CIMLE hypotheses) -> reverse chain. ``step_noise`` is
+    (len(model.diff.steps), S*K, N, 3). Returns a dict with 'pred'
     (S*K, N, 3), 'seg_mask', 'valid_id', 'anchors', 'variance', 'latents'."""
     if fixed_id is None:
         fixed_id = torch.zeros(model.num_anchors, device=model.device)
@@ -301,8 +303,9 @@ def reconstruct(model: AnchorDiffAE, batch, noise=None, epoch: int = -1, ret_tra
     shape the seg masks and part flags repeat K times and 'pred' is
     (B * K, N, 3). The part-code draw of a ``gen`` encoder comes from
     ``generator`` or ``batch["part_code_eps"]``; ``x_T`` and ``step_noise``
-    inject the chain's draws. Returns 'pred', 'seg_mask', 'valid_id',
-    'anchors', 'latents' (and 'traj', 'traj_t' with ``ret_traj``)."""
+    (len(model.diff.steps), B * K, N, 3) inject the chain's draws. Returns
+    'pred', 'seg_mask', 'valid_id', 'anchors', 'latents' (and 'traj',
+    'traj_t' with ``ret_traj``)."""
     batch = ensure_attn_maps(batch)
     ctx, mean_pp, var_pp, latents = model.prepare_reconstruction(
         batch, noise=noise, epoch=epoch, rngs={"sample": generator})

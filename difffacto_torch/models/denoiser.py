@@ -8,7 +8,11 @@ shapes of ``trunk_kernel_takes`` (inner width 128, 8 heads, 4 part tokens) the
 trunk runs deterministically as one call of ``ops/fused_core.fused_core``;
 with ``train=True`` as one call of ``ops/fused_core_train.fused_trunk_train``
 (proj_in outside, dropout inside, a backward kernel behind it): the CUDA
-kernels on the card, their plain versions on the CPU. At any other shape the
+kernels on the card, their plain versions on the CPU. With ``add_t_to_x`` the
+time embedding (as wide as the trunk) biases the projected h0 instead of
+joining the context, and generation runs the kernel's head-less entry
+(``ops/fused_core.fused_core_headless``), as the JAX denoiser leaves proj_in
+out of its kernel then (``denoiser.py:244-258``). At any other shape the
 blocks run one by one, as with two-attention blocks. proj_out is applied
 after the trunk with a matrix product, as in the JAX default (tail not fused).
 With two-attention blocks (``single_attn=False``) the blocks run one by one,
@@ -27,12 +31,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..nn.attention import BasicTransformerBlock, TwoAttentionBlock
+from ..nn.attention import BasicTransformerBlock, transformer_block
 from ..nn.functional import ln_affine
 from ..nn.layers import (Dense, FeedForward, GroupNorm, LayerNorm, default_generator,
                          timestep_embedding)
 from ..ops.fused_block import takes as trunk_kernel_takes
-from ..ops.fused_core import fused_core
+from ..ops.fused_core import fused_core, fused_core_headless
 from ..ops.fused_core_train import fused_trunk_train
 from ..utils.device import resolve_device
 from ..utils.registry import NETS
@@ -42,11 +46,15 @@ T_DIM = 256  # width of the t-embedding appended to every context token
 
 @NETS.register_module()
 class TransformerNet(nn.Module):
-    """Arguments mirror the JAX module; t added to x, the class embedding
-    added to the context and ``use_checkpoint`` raise ``NotImplementedError``,
-    as does ``train=True`` with two-attention blocks.
+    """Arguments mirror the JAX module. ``use_checkpoint`` raises
+    ``NotImplementedError``, as does ``train=True`` with two-attention blocks,
+    and so does a net without ``context_dim``: the JAX module reads its
+    context at every call. ``add_class_cond`` leaves out the class one-hot of
+    the context (``denoiser.py:91``); the JAX module adds no class embedding
+    in its place.
 
-    forward(x (B, N, in_channels), t (B,), ctx (B, K, context_dim),
+    forward(x (B, N, in_channels), t (B,), ctx (B, K, context_dim) or a list
+    or tuple of tensors concatenated on the last axis,
     anchors/variances (B, N, 3), seg_mask (B, N) int, valid_id (B, K),
     train=False, generator=None). With ``train=True`` and dropout > 0 the
     ``generator`` (the "dropout" stream) gives ``time_embed`` its mask and
@@ -62,10 +70,12 @@ class TransformerNet(nn.Module):
                  use_checkpoint: bool = False, *, dtype=None, device="cuda", generator=None):
         super().__init__()
         device = resolve_device(device)
-        if add_t_to_x or add_class_cond or context_dim is None:
+        if context_dim is None:
             raise NotImplementedError(
-                "TransformerNet is ported with a context, add_t_to_x=False and "
-                "add_class_cond=False"
+                "TransformerNet without context_dim: the JAX module cannot run without a "
+                "context either (difffacto_tpu/models/denoiser.py:101-102 concatenates the "
+                "t-embedding to it, and :137 sizes the blocks by its width), and the port "
+                "sizes K and V by context_dim when it builds them"
             )
         if use_checkpoint:
             raise NotImplementedError(
@@ -77,46 +87,50 @@ class TransformerNet(nn.Module):
         self.class_cond, self.cat_params_to_x = class_cond, cat_params_to_x
         self.cat_class_to_x, self.mask_out_unreferenced_code = cat_class_to_x, mask_out_unreferenced_code
         self.res, self.include_std, self.dtype, self.dropout = res, include_std, dtype, dropout
-        self.single_attn = single_attn
+        self.single_attn, self.add_class_cond = single_attn, add_class_cond
+        self.add_t_to_x = add_t_to_x
         inner = n_heads * d_head
         in_ch = in_channels + (6 if cat_params_to_x else 0) + (n_class if cat_class_to_x else 0)
-        ctx_dim = context_dim + (n_class if class_cond else 0) + T_DIM
+        ctx_dim = (context_dim + (n_class if class_cond and not add_class_cond else 0)
+                   + (0 if add_t_to_x else T_DIM))
         kw = dict(dtype=dtype, device=device)
-        self.time_embed = FeedForward(T_DIM, dropout=dropout, generator=g, **kw)
+        self.t_dim = inner if add_t_to_x else T_DIM
+        self.time_embed = FeedForward(self.t_dim, dropout=dropout, generator=g, **kw)
         self.proj_in = Dense(in_ch, inner, generator=g, **kw)
         self.proj_out = Dense(inner, out_channels, zero_kernel=(in_ch == out_channels or res),
                               generator=g, **kw)
         self.pre_norm = LayerNorm(inner, **kw)
         self.post_norm = LayerNorm(inner, **kw)
         self.blocks = nn.ModuleList(
-            BasicTransformerBlock(inner, n_heads, d_head, context_dim=ctx_dim, dropout=dropout,
-                                  generator=g, **kw)
-            if single_attn
-            else TwoAttentionBlock(inner, n_heads, d_head, context_dim=ctx_dim, generator=g, **kw)
+            transformer_block(inner, n_heads, d_head, context_dim=ctx_dim, dropout=dropout,
+                              single_attn=single_attn, generator=g, **kw)
             for _ in range(depth)
         )
 
     def _stacked(self, name: str, dtype) -> torch.Tensor:
         return torch.stack([getattr(b, name) for b in self.blocks]).to(dtype)
 
-    def _proj_in(self, x, cdt):
-        return x.to(cdt) @ self.proj_in.kernel.to(cdt) + self.proj_in.bias.to(cdt)
+    def _proj_in(self, x, cdt, t_embed=None):
+        """h0 = proj_in(x) in the compute dtype, with ``add_t_to_x`` biased by
+        the time embedding (``denoiser.py:256-258``, ``:302-304``)."""
+        h = x.to(cdt) @ self.proj_in.kernel.to(cdt) + self.proj_in.bias.to(cdt)
+        return h if t_embed is None else h + t_embed.to(cdt)[:, None]
 
-    def _block_trunk(self, x, ctx, valid_id, cdt, train=False, generator=None):
+    def _block_trunk(self, x, ctx, valid_id, cdt, train=False, generator=None, t_embed=None):
         """proj_in -> pre-LN -> the blocks one by one -> post-LN
         (``denoiser.py:301-308``): the two-attention trunk, and the
         single-attention trunk at shapes the trunk kernels do not take."""
         mask = valid_id if self.mask_out_unreferenced_code else None
-        h = ln_affine(self._proj_in(x, cdt), self.pre_norm.scale, self.pre_norm.bias)
+        h = ln_affine(self._proj_in(x, cdt, t_embed), self.pre_norm.scale, self.pre_norm.bias)
         for blk in self.blocks:
             h = blk(h, ctx, mask, train, generator)
         return ln_affine(h, self.post_norm.scale, self.post_norm.bias)
 
-    def _train_trunk(self, x, k, v, mask, cdt, generator):
+    def _train_trunk(self, x, k, v, mask, cdt, generator, t_embed=None):
         """proj_in, then the trainable trunk (``denoiser.py:256-298``): the
         f32 master parameters go in stacked, the function casts them, and
         their gradients come back through ``torch.stack``."""
-        h0 = self._proj_in(x, cdt)
+        h0 = self._proj_in(x, cdt, t_embed)
         if self.dropout > 0.0:
             if generator is None:
                 raise ValueError("the trunk's dropout seed needs the 'dropout' torch.Generator")
@@ -139,12 +153,19 @@ class TransformerNet(nn.Module):
                 train: bool = False, generator=None):
         B, N = x.shape[:2]
         cdt = self.dtype or x.dtype
-        if self.class_cond:
+        if isinstance(ctx, (list, tuple)):
+            ctx = torch.cat(list(ctx), dim=-1)
+        if self.class_cond and not self.add_class_cond:
             eye = torch.eye(self.n_class, dtype=ctx.dtype, device=ctx.device)
             ctx = torch.cat([ctx, eye.expand(B, -1, -1)], dim=-1)
-        t_embed = self.time_embed(timestep_embedding(t, T_DIM), train, generator)
-        ct = torch.promote_types(ctx.dtype, t_embed.dtype)
-        ctx = torch.cat([ctx.to(ct), t_embed[:, None].expand(B, ctx.shape[1], -1).to(ct)], dim=-1)
+        t_embed = self.time_embed(timestep_embedding(t, self.t_dim), train, generator)
+        if self.add_t_to_x:
+            t_x = t_embed  # biases h0 (denoiser.py:257-258)
+        else:
+            t_x = None
+            ct = torch.promote_types(ctx.dtype, t_embed.dtype)
+            ctx = torch.cat([ctx.to(ct), t_embed[:, None].expand(B, ctx.shape[1], -1).to(ct)],
+                            dim=-1)
 
         if self.cat_params_to_x:
             var_feat = torch.sqrt(variances) if self.include_std else variances
@@ -157,12 +178,12 @@ class TransformerNet(nn.Module):
             if train:
                 raise NotImplementedError(
                     "TransformerNet with two-attention blocks is ported for generation only")
-            h = self._block_trunk(x, ctx, valid_id, cdt)
+            h = self._block_trunk(x, ctx, valid_id, cdt, t_embed=t_x)
         elif not trunk_kernel_takes(self.n_heads * self.d_head, self.n_heads, ctx.shape[1]):
             # the JAX package's per-block composition (denoiser.py:301-309)
-            h = self._block_trunk(x, ctx, valid_id, cdt, train, generator)
+            h = self._block_trunk(x, ctx, valid_id, cdt, train, generator, t_x)
         else:
-            h = self._single_attention_trunk(x, ctx, valid_id, cdt, train, generator)
+            h = self._single_attention_trunk(x, ctx, valid_id, cdt, train, generator, t_x)
         out = (h.to(cdt) @ self.proj_out.kernel.to(cdt) + self.proj_out.bias.to(cdt)).to(x.dtype)
         if x_in.shape[-1] == out.shape[-1]:
             return out + x_in
@@ -170,10 +191,11 @@ class TransformerNet(nn.Module):
             return out + x_in[..., : out.shape[-1]]
         return out
 
-    def _single_attention_trunk(self, x, ctx, valid_id, cdt, train, generator):
+    def _single_attention_trunk(self, x, ctx, valid_id, cdt, train, generator, t_embed=None):
         """The whole trunk as one kernel call, at the shapes
-        ``trunk_kernel_takes`` accepts: ``fused_core`` deterministically,
-        ``fused_trunk_train`` in training."""
+        ``trunk_kernel_takes`` accepts: ``fused_core`` deterministically (its
+        head-less entry, on h0, with ``add_t_to_x``), ``fused_trunk_train`` in
+        training."""
         B = x.shape[0]
         M = ctx.shape[1]
         ctx_c = ctx.to(cdt)
@@ -185,10 +207,14 @@ class TransformerNet(nn.Module):
             mask = torch.ones(B, M, device=x.device)
         f32 = torch.float32
         if train:
-            return self._train_trunk(x, k, v, mask, cdt, generator)
-        return fused_core(
-            x.to(cdt).contiguous(), self.proj_in.kernel.to(cdt), self.proj_in.bias.to(f32),
-            k, v, mask.contiguous(),
+            return self._train_trunk(x, k, v, mask, cdt, generator, t_embed)
+        if t_embed is not None:
+            trunk, head = fused_core_headless, (self._proj_in(x, cdt, t_embed).contiguous(),)
+        else:
+            trunk, head = fused_core, (x.to(cdt).contiguous(), self.proj_in.kernel.to(cdt),
+                                       self.proj_in.bias.to(f32))
+        return trunk(
+            *head, k, v, mask.contiguous(),
             self.pre_norm.scale.to(cdt), self.pre_norm.bias.to(cdt),
             self.post_norm.scale.to(cdt), self.post_norm.bias.to(cdt),
             self._stacked("norm2_scale", cdt), self._stacked("norm2_bias", cdt),

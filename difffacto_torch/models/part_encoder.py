@@ -4,7 +4,10 @@ Port of ``difffacto_tpu/models/part_encoder.py`` for
 ``PartEncoderForTransformerDecoder``: the generation half (flow prior ->
 aligner -> per-point params and ctx) and the training half (PointNetV2 part
 codes, the five fit losses, the flow prior loss, the CIMLE noise candidates).
-Every draw comes from an explicit generator or is injected.
+With ``encode_ref`` the aligner reads a ``PointNet`` code of the reference
+cloud, one for every part slot, in place of the part codes
+(``part_encoder.py:84-90``, ``:120-125``). Every draw comes from an explicit
+generator or is injected.
 """
 
 from __future__ import annotations
@@ -60,9 +63,8 @@ class PartEncoderForTransformerDecoder(nn.Module):
                  *, dtype=None, device="cuda", generator=None):
         super().__init__()
         device = resolve_device(device)
-        if encode_ref:
-            raise NotImplementedError("encode_ref (the reference-cloud PointNet) is not ported yet")
         g = default_generator(generator)
+        self.encode_ref = encode_ref
         self.n_class, self.zdim = n_class, encoder["zdim"]
         self.include_part_code, self.include_params = include_part_code, include_params
         self.include_z, self.include_class_label = include_z, include_class_label
@@ -82,6 +84,11 @@ class PartEncoderForTransformerDecoder(nn.Module):
             if part_aligner
             else None
         )
+        if encode_ref:
+            from .pointnet import PointNet
+
+            self.ref_encoder = PointNet(zdim=self.zdim, point_dim=3, num_anchors=1, dtype=dtype,
+                                        device=device, generator=g)
         self.flow = (
             PerPartFlow(n_class, latent_flow_depth, self.zdim, latent_flow_hidden_dim,
                         dtype=dtype, device=device, generator=g)
@@ -110,11 +117,23 @@ class PartEncoderForTransformerDecoder(nn.Module):
         return self.encoder_net(points, seg_flag, train=train)
 
     def get_params_from_part_code(self, part_code, valid_id, gt_mean=None, gt_var=None,
-                                  noise=None, train: bool = False, generator=None):
-        """(B, K, zdim) -> mean, logvar each (B, K, 3) (``part_encoder.py:116-135``)."""
+                                  ref=None, noise=None, train: bool = False, generator=None):
+        """(B, K, zdim) -> mean, logvar each (B, K, 3) (``part_encoder.py:116-135``).
+        With ``encode_ref`` the aligner reads ``ref_encoder(ref)`` (B, 1, zdim)
+        on every part slot instead of the part codes."""
         mean = logvar = None
         if self.aligner is not None:
-            mean, logvar = self.aligner(part_code, valid_id, noise=noise, train=train,
+            code = part_code
+            if self.encode_ref:
+                if ref is None:
+                    raise NotImplementedError(
+                        "encode_ref needs the reference cloud, which generation and the "
+                        "CIMLE candidates do not have: the JAX package cannot run them either "
+                        "(difffacto_tpu/models/part_encoder.py:123 reads ref, which :385 and "
+                        ":423 leave out)")
+                g = self.ref_encoder(ref, train=train)
+                code = g.expand(g.shape[0], self.n_class, g.shape[-1])
+            mean, logvar = self.aligner(code, valid_id, noise=noise, train=train,
                                         generator=generator)
         if self.use_gt_params:
             mean, logvar = gt_mean, torch.log(gt_var)
@@ -333,8 +352,8 @@ class PartEncoderForTransformerDecoder(nn.Module):
                 for a in (part_code, valid_id, seg_mask, ref, gt_shift, gt_var))
 
         mean, logvar = self.get_params_from_part_code(
-            part_code, valid_id, gt_mean=gt_shift, gt_var=gt_var, noise=noise, train=train,
-            generator=drop)
+            part_code, valid_id, gt_mean=gt_shift, gt_var=gt_var, ref=ref, noise=noise,
+            train=train, generator=drop)
         mean_pp, logvar_pp, flag_pp = self.gather_all(
             seg_mask, anchors=mean, variances=logvar, valid_id=valid_id)
         fit_loss = self.get_fit_loss(ref, mean, logvar, valid_id, mean_pp, logvar_pp, flag_pp,

@@ -1,11 +1,15 @@
-"""The masked part PointNet encoder.
+"""The masked part PointNet encoder, and the whole-cloud PointNet.
 
-Port of ``difffacto_tpu/models/pointnet.py:PointNetV2``: a shared per-point
+Port of ``difffacto_tpu/models/pointnet.py:PointNetV2`` and ``PointNet``.
+``PointNetV2``: a shared per-point
 stack 3 -> 128 -> 128 -> 256 -> 512, a mask-weighted max pool per part times
 the number of parts, and per-part MLP heads 512 -> 256 -> 128 -> zdim. The JAX
 package vmaps the heads over the part axis with separate parameters and
 BatchNorm statistics; here they stay stacked on a leading part axis
 ((K, in, out) kernels, (K, C) statistics), so the weight bridge is a copy.
+``PointNet`` (``pointnet.py:241-256``): the same stack 3 -> 128 -> 128 -> 256
+-> 512, a max over the points, and one head to num_anchors x zdim; the part
+encoder's ``encode_ref`` encodes the reference cloud with it.
 """
 
 from __future__ import annotations
@@ -94,3 +98,22 @@ class PointNetV2(nn.Module):
             weighted = weighted * self.num_anchors
         pooled = weighted.amax(dim=1)  # (B, K, 512)
         return self.mlp_m(pooled, train), self.mlp_v(pooled, train)
+
+
+@ENCODERS.register_module()
+class PointNet(nn.Module):
+    """points (B, N, point_dim) -> (B, num_anchors, zdim), deterministic."""
+
+    def __init__(self, point_dim: int = 3, zdim: int = 1024, num_anchors: int = 1,
+                 *, dtype=None, device="cuda", generator=None):
+        super().__init__()
+        device = resolve_device(device)
+        g = default_generator(generator)
+        self.num_anchors, self.zdim = num_anchors, zdim
+        kw = dict(dtype=dtype, device=device, generator=g)
+        self.pnet = ConvBNReLUStack(point_dim, (128, 128, 256, 512), relu_last=False, **kw)
+        self.mlp_m = _HeadMLP(zdim * num_anchors, **kw)
+
+    def forward(self, points, train: bool = False):
+        g = self.pnet(points, train).amax(dim=1)
+        return self.mlp_m(g, train).reshape(points.shape[0], self.num_anchors, self.zdim)

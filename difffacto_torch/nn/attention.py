@@ -8,9 +8,15 @@ Port of ``difffacto_tpu/nn/attention.py``:
   queries, ``small_ctx_attention_cdt`` (the grouped softmax with a 1e30 sink).
   ``nn/functional.py:small_ctx_attention`` is the kernels' version, with f32
   scores: another function.
-* ``TwoAttentionBlock``: ``BasicTransformerBlock`` with ``single_attn=False``
-  (``attention.py:152-181``), norm1 -> attn1, norm2 -> attn2, then
-  ``FusedLNFF``. Generation only.
+* ``TransformerBlock``: ``BasicTransformerBlock``'s unfused layout
+  (``attention.py:152-195``): with ``single_attn=False`` norm1 -> attn1 first,
+  then norm2 -> attn2, then ``FusedLNFF`` where ``gated_ff`` and not
+  ``adaln``, else norm3 (shifted and scaled by ``emb_layers`` of silu(y)
+  with ``adaln``) -> ``FeedForward(glu=gated_ff)``. The JAX package takes it
+  for two-attention blocks, the aligner's ``cond_noise_type=2`` (adaLN),
+  ``gated_ff=False`` and ``n_heads * d_head != dim``; none of these reaches
+  a kernel but ``FusedLNFF``'s. ``transformer_block`` picks the layout as
+  the JAX block does (``attention.py:143-150``).
 * ``BasicTransformerBlock``: the flat single-attention layout
   (``attention.py:198-313``). With a context at the shapes the kernel takes
   (``block_kernel_takes``: width 128, 8 heads, 4 context tokens, and
@@ -19,9 +25,10 @@ Port of ``difffacto_tpu/nn/attention.py``:
   math, masked with ``finfo.min``. The JAX package takes its kernel at more
   shapes; the math is the same.
 
-With ``train=True`` the flat block applies dropout after the out-projection
-and on the GEGLU activations, the two sites of the JAX block; the draws come
-from an explicit generator.
+With ``train=True`` the blocks apply dropout where the JAX blocks do: after
+each attention's out-projection and on the feed-forward's inner activations;
+the draws come from an explicit generator. Two-attention blocks are ported
+for generation only.
 """
 
 from __future__ import annotations
@@ -33,7 +40,8 @@ from ..ops.fused_block import fused_block
 from ..ops.fused_block import takes as block_takes
 from ..ops.fused_ff import pick_tile
 from .functional import gelu, ln_stats_f32
-from .layers import Dense, FusedLNFF, LayerNorm, default_generator, dropout, lecun_normal, param
+from .layers import (Dense, FeedForward, FusedLNFF, LayerNorm, default_generator, dropout,
+                     lecun_normal, param)
 
 SMALL_CTX = 8  # context lengths at or below this take the small-context paths
 
@@ -85,13 +93,14 @@ class CrossAttention(nn.Module):
     query_dim), k and v from ``context`` (B, M, context_dim) or, without one,
     from x; mask (B, M) with 1 = attend. ``to_q``, ``to_k`` and ``to_v`` have no
     bias. A context of at most 8 tokens with N > M takes
-    ``small_ctx_attention_cdt``, anything else ``masked_softmax_attention``."""
+    ``small_ctx_attention_cdt``, anything else ``masked_softmax_attention``;
+    dropout after ``to_out`` when training."""
 
     def __init__(self, query_dim: int, context_dim=None, heads: int = 8, dim_head: int = 64,
-                 *, dtype=None, device="cuda", generator=None):
+                 dropout: float = 0.0, *, dtype=None, device="cuda", generator=None):
         super().__init__()
         g = default_generator(generator)
-        self.heads, self.dim_head = heads, dim_head
+        self.heads, self.dim_head, self.dropout = heads, dim_head, dropout
         inner = heads * dim_head
         cdim = context_dim if context_dim is not None else query_dim
         kw = dict(dtype=dtype, device=device, generator=g)
@@ -100,7 +109,8 @@ class CrossAttention(nn.Module):
         self.to_v = Dense(cdim, inner, use_bias=False, **kw)
         self.to_out = Dense(inner, query_dim, **kw)
 
-    def forward(self, x: torch.Tensor, context=None, mask=None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, context=None, mask=None, train: bool = False,
+                generator=None) -> torch.Tensor:
         ctx = x if context is None else context
         q, k, v = self.to_q(x), self.to_k(ctx), self.to_v(ctx)
         B, N, M = q.shape[0], q.shape[1], k.shape[1]
@@ -110,35 +120,69 @@ class CrossAttention(nn.Module):
             out = small_ctx_attention_cdt(qh, kh, vh, mask, d**-0.5)
         else:
             out = masked_softmax_attention(qh, kh, vh, mask, d**-0.5)
-        return self.to_out(out.reshape(B, N, h * d))
+        return dropout(self.to_out(out.reshape(B, N, h * d)), self.dropout, train, generator)
 
 
-class TwoAttentionBlock(nn.Module):
-    """``BasicTransformerBlock`` with ``single_attn=False`` (``attention.py:152-181``):
-    x + attn1(norm1(x)), then + attn2(norm2(x)), then ``ffn`` (``FusedLNFF``).
-    As in the JAX package, both attentions take the context when there is
-    one; without one (the aligner) both are self-attention. Generation only:
-    ``train=True`` raises, the JAX package trains it unfused with dropout."""
+class TransformerBlock(nn.Module):
+    """``BasicTransformerBlock``'s unfused layout (``attention.py:152-195``).
+
+    forward(x (B, N, dim), context (B, M, context_dim) or None, mask (B, M)
+    or None, train, generator, y (B, y_dim): the adaLN condition). Without a
+    context the attentions are self-attention. ``train=True`` with
+    ``single_attn=False`` raises: two-attention training is not ported yet
+    (``ROADMAP.md`` queue A)."""
 
     def __init__(self, dim: int, n_heads: int, d_head: int, context_dim=None,
-                 *, dtype=None, device="cuda", generator=None):
+                 dropout: float = 0.0, gated_ff: bool = True, single_attn: bool = False,
+                 adaln: bool = False, y_dim: int = 32, *, dtype=None, device="cuda",
+                 generator=None):
         super().__init__()
         g = default_generator(generator)
+        self.single_attn, self.adaln = single_attn, adaln
+        self.fused_ff = gated_ff and not adaln
         kw = dict(dtype=dtype, device=device)
-        self.norm1 = LayerNorm(dim, **kw)
-        self.attn1 = CrossAttention(dim, context_dim, n_heads, d_head, generator=g, **kw)
+        attn = dict(dropout=dropout, generator=g, **kw)
+        if not single_attn:
+            self.norm1 = LayerNorm(dim, **kw)
+            self.attn1 = CrossAttention(dim, context_dim, n_heads, d_head, **attn)
         self.norm2 = LayerNorm(dim, **kw)
-        self.attn2 = CrossAttention(dim, context_dim, n_heads, d_head, generator=g, **kw)
-        self.ffn = FusedLNFF(dim, generator=g, **kw)
+        self.attn2 = CrossAttention(dim, context_dim, n_heads, d_head, **attn)
+        if self.fused_ff:
+            self.ffn = FusedLNFF(dim, dropout=dropout, generator=g, **kw)
+        else:
+            self.norm3 = LayerNorm(dim, **kw)
+            if adaln:
+                self.emb_layers = Dense(y_dim, 2 * dim, generator=g, **kw)
+            self.ff = FeedForward(dim, dropout=dropout, glu=gated_ff, generator=g, **kw)
 
     def forward(self, x: torch.Tensor, context=None, mask=None, train: bool = False,
-                generator=None) -> torch.Tensor:
-        if train:
+                generator=None, y=None) -> torch.Tensor:
+        if train and not self.single_attn:
             raise NotImplementedError(
                 "the two-attention block is ported for generation only (train=False)")
-        x = self.attn1(self.norm1(x), context, mask) + x
-        x = self.attn2(self.norm2(x), context, mask) + x
-        return self.ffn(x)
+        if not self.single_attn:
+            x = self.attn1(self.norm1(x), context, mask, train, generator) + x
+        x = self.attn2(self.norm2(x), context, mask, train, generator) + x
+        if self.fused_ff:
+            return self.ffn(x, train, generator)
+        h = self.norm3(x)
+        if self.adaln:
+            shift, scale = self.emb_layers(torch.nn.functional.silu(y)).chunk(2, dim=-1)
+            h = h * (1.0 + scale[:, None]) + shift[:, None]
+        return self.ff(h, train, generator) + x
+
+
+def transformer_block(dim: int, n_heads: int, d_head: int, context_dim=None,
+                      dropout: float = 0.0, gated_ff: bool = True, single_attn: bool = False,
+                      adaln: bool = False, y_dim: int = 32, **kw) -> nn.Module:
+    """The block the JAX ``BasicTransformerBlock`` computes with these fields:
+    the flat layout where ``single_attn and gated_ff and not adaln`` and
+    ``n_heads * d_head == dim`` (``attention.py:143-150``), the unfused
+    ``TransformerBlock`` otherwise."""
+    if single_attn and gated_ff and not adaln and n_heads * d_head == dim:
+        return BasicTransformerBlock(dim, n_heads, d_head, context_dim, dropout, **kw)
+    return TransformerBlock(dim, n_heads, d_head, context_dim, dropout, gated_ff, single_attn,
+                            adaln, y_dim, **kw)
 
 
 class BasicTransformerBlock(nn.Module):
@@ -154,7 +198,8 @@ class BasicTransformerBlock(nn.Module):
                  dropout: float = 0.0, *, dtype=None, device="cuda", generator=None):
         super().__init__()
         if n_heads * d_head != dim:
-            raise NotImplementedError("only the block with n_heads * d_head == dim is ported")
+            raise ValueError("the flat layout needs n_heads * d_head == dim; "
+                             "transformer_block builds the unfused one for other widths")
         self.n_heads, self.d_head, self.dtype, self.dropout = n_heads, d_head, dtype, dropout
         g = default_generator(generator)
         cdim = context_dim if context_dim is not None else dim
@@ -175,9 +220,10 @@ class BasicTransformerBlock(nn.Module):
         self.ffn_b2 = param(zeros(dim), device)
 
     def forward(self, x: torch.Tensor, context=None, mask=None, train: bool = False,
-                generator=None) -> torch.Tensor:
+                generator=None, y=None) -> torch.Tensor:
         """x (B, N, dim) attends to ``context`` (B, M, context_dim), or to
-        itself without one (``attention.py:235-313``); mask (B, M) or None."""
+        itself without one (``attention.py:235-313``); mask (B, M) or None.
+        ``y`` is read by the adaLN layout only, as in the JAX block."""
         cdt = self.dtype or x.dtype
         B, N, D = x.shape
         M = context.shape[1] if context is not None else N

@@ -156,19 +156,51 @@ class GEGLU(nn.Module):
 
 
 class FeedForward(nn.Module):
-    """GEGLU feed-forward (``nn/layers.py:72-91`` with ``glu=True``), as the
-    denoiser's ``time_embed``: dropout after the gate when training."""
+    """The transformer MLP (``nn/layers.py:72-91``): a GEGLU gate with
+    ``glu=True`` (the denoiser's ``time_embed``), else dense + gelu; dropout
+    on the inner activations when training. flax names the layers in order:
+    with the gate ``geglu`` then ``dense0``, without it ``dense0`` (in) and
+    ``dense1`` (out)."""
 
-    def __init__(self, dim: int, mult: int = 4, dropout: float = 0.0,
+    def __init__(self, dim: int, mult: int = 4, dropout: float = 0.0, glu: bool = True,
                  *, dtype=None, device="cuda", generator=None):
         super().__init__()
         g = default_generator(generator)
-        self.dropout = dropout
-        self.geglu = GEGLU(dim, dim * mult, dtype=dtype, device=device, generator=g)
-        self.dense0 = Dense(dim * mult, dim, dtype=dtype, device=device, generator=g)
+        self.dropout, self.glu = dropout, glu
+        kw = dict(dtype=dtype, device=device, generator=g)
+        if glu:
+            self.geglu = GEGLU(dim, dim * mult, **kw)
+            self.dense0 = Dense(dim * mult, dim, **kw)
+        else:
+            self.dense0 = Dense(dim, dim * mult, **kw)
+            self.dense1 = Dense(dim * mult, dim, **kw)
 
     def forward(self, x: torch.Tensor, train: bool = False, generator=None) -> torch.Tensor:
-        return self.dense0(dropout(self.geglu(x), self.dropout, train, generator))
+        if self.glu:
+            return self.dense0(dropout(self.geglu(x), self.dropout, train, generator))
+        return self.dense1(dropout(gelu(self.dense0(x)), self.dropout, train, generator))
+
+
+class MLP(nn.Module):
+    """Dense layers with ReLU between (``nn/layers.py:223-236``), as the
+    aligner's noise embedding of ``cond_noise_type=4``."""
+
+    def __init__(self, in_features: int, features, *, dtype=None, device="cuda",
+                 generator=None):
+        super().__init__()
+        g = default_generator(generator)
+        dims = [in_features, *features]
+        self.n = len(features)
+        for i in range(self.n):
+            setattr(self, f"dense{i}", Dense(dims[i], dims[i + 1], dtype=dtype, device=device,
+                                             generator=g))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i in range(self.n):
+            x = getattr(self, f"dense{i}")(x)
+            if i < self.n - 1:
+                x = torch.relu(x)
+        return x
 
 
 def ff_kernel_takes(width: int, tokens: int, needs_grad: bool = False) -> bool:
@@ -192,14 +224,16 @@ class FusedLNFF(nn.Module):
     ``ops/fused_ff.fused_ln_geglu_ff``
     (the kernel on the card, its plain version on the CPU); any other input
     through the unfused composition, whose GEGLU runs in the compute dtype.
-    The JAX package takes its kernel at any D that 128 divides.
-    Deterministic only: the JAX package trains it unfused, with dropout.
+    The JAX package takes its kernel at any D that 128 divides. With
+    ``train=True`` it computes the unfused math with dropout on the GEGLU
+    activations, as the JAX package trains it.
     """
 
-    def __init__(self, dim: int, mult: int = 4, *, dtype=None, device="cuda", generator=None):
+    def __init__(self, dim: int, mult: int = 4, dropout: float = 0.0,
+                 *, dtype=None, device="cuda", generator=None):
         super().__init__()
         g = default_generator(generator)
-        self.dtype = dtype
+        self.dtype, self.dropout = dtype, dropout
         inner = dim * mult
         self.ln_scale = param(torch.ones(dim), device)
         self.ln_bias = param(torch.zeros(dim), device)
@@ -208,11 +242,11 @@ class FusedLNFF(nn.Module):
         self.w2 = param(lecun_normal((inner, dim), g), device)
         self.b2 = param(torch.zeros(dim), device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False, generator=None) -> torch.Tensor:
         cdt = self.dtype or x.dtype
         D = x.shape[-1]
         needs_grad = torch.is_grad_enabled() and (x.requires_grad or self.w1.requires_grad)
-        if x.ndim == 3 and ff_kernel_takes(D, x.shape[0] * x.shape[1], needs_grad):
+        if not train and x.ndim == 3 and ff_kernel_takes(D, x.shape[0] * x.shape[1], needs_grad):
             out = fused_ln_geglu_ff(
                 x.reshape(-1, D).to(cdt).contiguous(), self.ln_scale.to(cdt),
                 self.ln_bias.to(cdt), self.w1.to(cdt), self.b1.float(), self.w2.to(cdt),
@@ -220,7 +254,8 @@ class FusedLNFF(nn.Module):
             return out.reshape(x.shape).to(x.dtype)
         h = ln_stats_f32(x.float(), self.ln_scale, self.ln_bias).to(cdt)
         a, g = (h @ self.w1.to(cdt) + self.b1.to(cdt)).chunk(2, dim=-1)
-        out = (a * gelu(g)) @ self.w2.to(cdt) + self.b2.to(cdt)
+        act = dropout(a * gelu(g), self.dropout, train, generator)
+        out = act @ self.w2.to(cdt) + self.b2.to(cdt)
         return x + out.to(x.dtype)
 
 

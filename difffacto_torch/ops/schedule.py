@@ -110,6 +110,28 @@ def make_schedule(
     )
 
 
+def ddim_steps(num_timesteps: int, ddim_nsteps: int, discretize: str = "uniform") -> np.ndarray:
+    """The timestep subset of DDIM sampling, ascending, int32
+    (``difffacto_tpu/ops/schedule.py:144-155``). "quad" may repeat a step:
+    at T = 100 and 25 steps it runs t = 0 three times and starts at t = 80,
+    as the reference does."""
+    if discretize == "uniform":
+        return np.arange(0, num_timesteps, num_timesteps // ddim_nsteps, dtype=np.int32)
+    if discretize == "quad":
+        return (np.linspace(0.0, math.sqrt(num_timesteps * 0.8), ddim_nsteps) ** 2).astype(np.int32)
+    raise NotImplementedError(discretize)
+
+
+def ddim_xt_dir_coeff(betas: np.ndarray, ddim_eta: float) -> np.ndarray:
+    """sqrt(1 - alpha_bar - eta^2 posterior_variance) per timestep, in float64
+    (``difffacto_tpu/ops/schedule.py:158-166``); the caller casts it once."""
+    betas = np.asarray(betas, dtype=np.float64)
+    alphas_cumprod = np.cumprod(1.0 - betas)
+    alphas_cumprod_prev = np.append(1.0, alphas_cumprod[:-1])
+    posterior_variance = betas * (1.0 - alphas_cumprod_prev) / (1.0 - alphas_cumprod)
+    return np.sqrt(1.0 - alphas_cumprod - ddim_eta * ddim_eta * posterior_variance)
+
+
 def extract(arr: torch.Tensor, t: torch.Tensor, ndim: int) -> torch.Tensor:
     """Gather per-batch coefficients: (T,), (B,) int -> (B, 1, ..., 1) with ``ndim`` dims."""
     out = arr[t.long()]

@@ -75,6 +75,7 @@ def _t2n(t) -> np.ndarray:
 
 
 def _decode(model, mean_pp, ctx, var_pp, seg_mask, valid_id, generator, x_T, step_noise):
+    """The chain's prediction; ``step_noise`` is (len(model.diff.steps), B, N, 3)."""
     dev = mean_pp.device
     return decode(model, mean_pp, ctx=ctx, variance=var_pp, seg_mask=seg_mask, valid_id=valid_id,
                   noise=_tensor(x_T, dev), step_noise=_tensor(step_noise, dev),

@@ -20,11 +20,13 @@ from ..utils.device import resolve_device
 
 def generate_samples(model, num_gen: int = 400, batch: int = 128, seed: int = 0,
                      refs: Optional[np.ndarray] = None,
-                     ref_self_cache: Optional[dict] = None):
+                     ref_self_cache: Optional[dict] = None, epoch: int = 0):
     """Unconditional generation protocol: ``num_gen`` shapes in batches of
     ``batch``, part-presence patterns drawn from ``np.random.RandomState(seed)``,
     the chain's noise from a ``torch.Generator`` seeded with ``seed + 17`` on
-    the model's device, the first CIMLE sample of each shape.
+    the model's device, the first CIMLE sample of each shape. ``epoch`` is
+    the training epoch the model stands at: before the aligner's
+    ``cimle_start_epoch`` its noise is zero (``runner.py:567-576``).
 
     Returns the (num_gen, N, 3) float32 clouds, or with ``refs`` the metric
     dict of ``evaluate_gen(gen, refs)``.
@@ -32,15 +34,16 @@ def generate_samples(model, num_gen: int = 400, batch: int = 128, seed: int = 0,
     rng_np = np.random.RandomState(seed)
     dev = model.device
     generator = torch.Generator(device=dev).manual_seed(seed + 17)
-    K = model.cimle_sample_num  # hypotheses per shape; the first one is scored
+    # hypotheses per shape, the first one scored; one without CIMLE
+    K = model.cimle_sample_num if model.cimle else 1
     preds = []
     remaining = num_gen
     while remaining > 0:
         b = min(batch, remaining)
         presence = sample_part_presence(rng_np, b, model.num_anchors)
         out = sample_generation(
-            model, b, valid_id=torch.as_tensor(presence, device=dev), generator=generator
-        )
+            model, b, valid_id=torch.as_tensor(presence, device=dev), epoch=epoch,
+            generator=generator)
         preds.append(out["pred"].float().reshape(b, K, -1, 3)[:, 0].cpu().numpy())
         remaining -= b
     gen = np.concatenate(preds)[:num_gen]

@@ -378,7 +378,8 @@ class Runner:
     # --------------------------------------------------- val_gen protocol
     def generate_samples(self, num_gen: int = 400, batch: int = 128):
         """Unconditional generation against the val set's references."""
-        gen = generate_samples(self.model, num_gen=num_gen, batch=batch, seed=self.seed)
+        gen = generate_samples(self.model, num_gen=num_gen, batch=batch, seed=self.seed,
+                               epoch=self.epoch)
         refs = np.concatenate([np.asarray(vb["ref"]) for vb in self.val_loader])
         return self.evaluate_gen(gen, refs)
 

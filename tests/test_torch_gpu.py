@@ -66,6 +66,30 @@ def test_fused_core_matches_plain_version(cuda, B, N, depth):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("B, N, depth", [(2, 2048, 5), (2, 1000, 5), (32, 2048, 5), (1, 300, 10)])
+def test_fused_core_headless_matches_plain_version(cuda, B, N, depth):
+    """The trunk without proj_in: h0 (B, N, 128) in, a part absent in the
+    last row, a ragged N, many tiles a block and depth 10; counted in
+    ``launches_headless`` alone."""
+    mask = np.ones((B, fc.CTX), np.float32)
+    mask[B - 1, 1] = 0.0
+    args = fc.operands(fc.example_inputs(B, N, depth=depth, in_ch=fc.D, mask=mask), cuda,
+                       torch.bfloat16)
+    x = (args[0].float() @ args[1].float() + args[2]).to(torch.bfloat16)
+    rest = args[3:]
+    before, before_core = fc.launches_headless, fc.launches
+    got = fc.fused_core_headless(x, *rest, DH**-0.5)
+    torch.cuda.synchronize()
+    assert fc.launches_headless == before + 1 and fc.launches == before_core
+    want = fc.fused_core_reference(x, None, None, *rest, DH**-0.5)
+    assert got.shape == want.shape == (B, N, 128) and torch.isfinite(got.float()).all()
+    err = (got.float() - want.float()).abs()
+    print(f"fused_core_headless B={B} N={N} depth={depth}: max abs err {err.max().item():.3e}, "
+          f"mean {err.mean().item():.3e}")
+    assert err.max().item() <= BF16_MAX_ABS and err.mean().item() <= BF16_MEAN_ABS
+
+
+@pytest.mark.gpu
 def test_fused_core_refuses_float32(cuda):
     args = fc.operands(fc.example_inputs(B=1, N=64, depth=1), cuda, torch.float32)
     with pytest.raises(TypeError):

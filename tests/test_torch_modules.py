@@ -137,5 +137,21 @@ def test_aligner_matches_jax():
 
 
 def test_other_aligner_noise_types_raise():
-    with pytest.raises(NotImplementedError):
-        PartAlignerTransformer(**dict(ALIGNER, cond_noise_type=2), device="cpu")
+    """Noise type 2 raised until it was ported: adaLN from the noise in
+    every block, against JAX at the shipped aligner's widths. Tolerance 1e-4
+    as for type 0."""
+    cfg = dict(ALIGNER, cond_noise_type=2)
+    rng = np.random.RandomState(15)
+    code = rng.randn(3, 4, 256).astype(np.float32)
+    valid = np.array([[1, 1, 1, 1], [0, 1, 1, 1], [1, 1, 0, 0]], np.float32)
+    noise = rng.randn(3, 32).astype(np.float32)
+    jal = JaxAligner(**cfg)
+    jin = [jnp.asarray(a) for a in (code, valid, noise)]
+    params = randomize(jal.init(jax.random.PRNGKey(0), *jin)["params"], 16)
+    want = [np.asarray(a) for a in jal.apply({"params": params}, *jin)]
+    al = PartAlignerTransformer(**cfg, device="cpu")
+    load_jax_params(al, params)
+    with torch.no_grad():
+        got = [t2n(a) for a in al(*[torch.as_tensor(a) for a in (code, valid, noise)])]
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-4)

@@ -293,15 +293,22 @@ def test_gen_chair_reaches_the_port_with_no_key_dropped():
 
 def test_unported_model_options_raise():
     """A value that selects behaviour not ported yet raises and names its
-    ROADMAP item."""
+    ROADMAP item; DDIM, which raised until it was ported, builds the JAX
+    package's step subset."""
     base = Config(TINY).model.dump()
     for changes, item in ((dict(language_encoder=dict(type="LSTM")), "item 7"),
                           (dict(pretrain_prior=True), "item 4")):
         with pytest.raises(NotImplementedError, match=item):
             build_from_cfg(dict(base, **changes), MODELS, device="cpu")
-    diff = dict(base["diffusion"], ddim_sampling=True)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        build_from_cfg(dict(base, diffusion=diff), MODELS, device="cpu")
+    # DDIM raised here before the chain was ported; the model now builds
+    # the JAX package's DDIM subset and direction coefficients from its keys.
+    from difffacto_tpu.models.anchor_diff import build_diffusion as jax_build_diffusion
+
+    diff = dict(base["diffusion"], ddim_sampling=True, ddim_nsteps=3, ddim_discretize="quad")
+    pm = build_from_cfg(dict(base, diffusion=diff), MODELS, device="cpu")
+    jd = jax_build_diffusion(diff, base["num_timesteps"])
+    np.testing.assert_array_equal(pm.diff.steps, np.asarray(jd.steps))
+    np.testing.assert_array_equal(pm.diff.xt_dir_coeff.numpy(), np.asarray(jd.xt_dir_coeff))
 
 
 # ---------------------------------------------------------- reconstruction

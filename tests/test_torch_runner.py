@@ -181,6 +181,77 @@ def test_val_gen_protocol(tmp_path):
     assert r._ref_self_cache  # the ref-vs-ref block is kept for the runner's life
 
 
+def _spy_generation(monkeypatch):
+    """Record the aligner noise and the output of every generation batch of
+    val_gen (``runner/evaluation.py``)."""
+    import difffacto_torch.runner.evaluation as ev
+
+    calls = []
+    real = ev.sample_generation
+
+    def spy(*args, **kw):
+        out = real(*args, **kw)
+        calls.append(dict(kw, noise=out["latents"][3], pred=out["pred"]))
+        return out
+
+    monkeypatch.setattr(ev, "sample_generation", spy)
+    return calls
+
+
+@pytest.mark.parametrize("epoch", [1, 5])
+def test_val_gen_generates_at_the_runners_epoch(tmp_path, monkeypatch, epoch):
+    """C6: val_gen generates at the runner's epoch, as the JAX Runner passes
+    ``epoch=self.epoch`` (``difffacto_tpu/runner/runner.py:567-575``). With the
+    aligner's ``cimle_start_epoch=3`` the CIMLE noise is zero at epoch 1 and
+    drawn at epoch 5; the samples equal ``sample_generation`` at that epoch on
+    the same generator."""
+    from difffacto_torch.runner.evaluation import generate_samples
+
+    cfg = tiny(tmp_path, max_epoch=0)
+    cfg.model["encoder"]["part_aligner"]["cimle_start_epoch"] = 3
+    r = runner(cfg)
+    r.epoch = epoch
+    calls = _spy_generation(monkeypatch)
+    r.generate_samples(num_gen=4, batch=4)
+    noise = calls[0]["noise"].abs().max().item()
+    assert (noise > 1.0) if epoch >= 3 else (noise == 0.0)
+    gen = torch.Generator().manual_seed(r.seed + 17)
+    from difffacto_torch.data.dataset_utils import sample_part_presence
+
+    presence = sample_part_presence(np.random.RandomState(r.seed), 4, 4)
+    want = prunner_sample(r.model, presence, epoch, gen)
+    np.testing.assert_array_equal(generate_samples(r.model, 4, 4, seed=r.seed, epoch=epoch), want)
+
+
+def prunner_sample(model, presence, epoch, generator):
+    from difffacto_torch.models import sample_generation
+
+    out = sample_generation(model, len(presence), valid_id=torch.as_tensor(presence),
+                            epoch=epoch, generator=generator)
+    return out["pred"].float().numpy()
+
+
+@pytest.mark.parametrize("npoints", [64, 80])
+def test_val_gen_without_cimle_keeps_every_point(tmp_path, monkeypatch, npoints):
+    """C7: a model without CIMLE makes one hypothesis a shape, and val_gen
+    takes K = 1 for it whatever ``cimle_sample_num`` says
+    (``difffacto_tpu/runner/runner.py:576``): (4, npoints, 3) out, each shape
+    the generated one, at npoints = 64 (which raised) and 80 (which kept 8
+    points)."""
+    from difffacto_torch.runner.evaluation import generate_samples
+
+    cfg = tiny(tmp_path, max_epoch=0, cimle=False)
+    cfg.model["cimle"] = False
+    cfg.model["cimle_sample_num"] = 10
+    cfg.model["npoints"] = npoints
+    cfg.model["encoder"]["part_aligner"]["cimle"] = False
+    r = runner(cfg)
+    calls = _spy_generation(monkeypatch)
+    gen = generate_samples(r.model, num_gen=4, batch=4, seed=r.seed)
+    assert gen.shape == (4, npoints, 3)
+    np.testing.assert_array_equal(gen, calls[0]["pred"].float().numpy())
+
+
 # ------------------------------------------------------------ against JAX
 @pytest.fixture(scope="module")
 def jax_pair(tmp_path_factory):

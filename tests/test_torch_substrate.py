@@ -46,7 +46,7 @@ def test_import_leaves_jax_out():
 def test_no_jax_import_in_the_port():
     files = sorted((ROOT / "difffacto_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "tools" / "test_gen_torch.py",
-        ROOT / "tools" / "profile_train_torch.py"]
+        ROOT / "tools" / "profile_train_torch.py", ROOT / "tools" / "eval_ckpt_curve_torch.py"]
     assert len(files) >= 43
     bad = []
     for path in files:
@@ -76,12 +76,35 @@ def test_schedule_equals_jax_tables(mode, T):
 
 
 def test_unported_chain_options_raise():
-    for kw in (dict(model_mean_type="x_0"), dict(model_var_type="learned_range"),
-               dict(ddim_sampling=True)):
-        with pytest.raises(NotImplementedError):
-            AnchoredDiffusion(10, 1e-4, 0.02, **kw)
-    with pytest.raises(NotImplementedError):
-        AnchoredDiffusion(10, 1e-4, 0.02, guidance=True)
+    """The options that raised before the chain was ported (the x_0 mean,
+    the learned_range variance, DDIM, guidance) now compute: one reverse step
+    of each against the JAX diffusion, through a linear stub denoiser that
+    reads the context. Tolerance 1e-5."""
+    import jax.numpy as jnp
+
+    from difffacto_tpu.models.diffusion import AnchoredDiffusion as JaxDiffusion
+
+    rng = np.random.RandomState(0)
+    x, anchors, noise = (rng.randn(2, 16, 3).astype(np.float32) for _ in range(3))
+    ctx = rng.randn(2, 4, 5).astype(np.float32)
+    t = np.array([0, 7], np.int64)
+    for kw, out_ch in ((dict(model_mean_type="x_0"), 3), (dict(model_var_type="learned_range"), 6),
+                       (dict(ddim_sampling=True, ddim_nsteps=5), 3),
+                       (dict(guidance=True, classifier_weight=2.0), 3)):
+        w = rng.randn(6, out_ch).astype(np.float32) * 0.3
+        wc = rng.randn(5, out_ch).astype(np.float32) * 0.3
+
+        def fn(inp, ts, c, *rest, lib=np):
+            return inp @ lib.asarray(w) + (c.mean(1) @ lib.asarray(wc))[:, None]
+
+        want = JaxDiffusion(10, 1e-4, 0.02, **kw).p_sample(
+            lambda *a: fn(*a, lib=jnp), None, jnp.asarray(x), jnp.asarray(t),
+            jnp.asarray(anchors), jnp.asarray(ctx), noise=jnp.asarray(noise))["sample"]
+        got = AnchoredDiffusion(10, 1e-4, 0.02, **kw).p_sample(
+            lambda *a: fn(*a, lib=torch), torch.as_tensor(x), torch.as_tensor(t),
+            torch.as_tensor(anchors), torch.as_tensor(ctx), noise=torch.as_tensor(noise))["sample"]
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5,
+                                   err_msg=str(kw))
 
 
 def test_cuda_without_a_card_raises():

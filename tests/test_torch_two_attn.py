@@ -32,7 +32,7 @@ from difffacto_tpu.utils.registry import build_from_cfg as jax_build
 from difffacto_torch import Config, MODELS, build_from_cfg, load_jax_params, sample_generation
 from difffacto_torch.models import PartAlignerTransformer, TransformerNet
 from difffacto_torch.nn import layers as port_layers
-from difffacto_torch.nn.attention import CrossAttention, TwoAttentionBlock
+from difffacto_torch.nn.attention import CrossAttention, transformer_block
 from difffacto_torch.nn.layers import FusedLNFF
 from difffacto_torch.ops import fused_ff
 from difffacto_torch.ops.fused_core import operands
@@ -154,7 +154,7 @@ def test_two_attention_block_matches_jax(interpret, ff_calls, with_ctx):
     jin = [jnp.asarray(x), None if ctx is None else jnp.asarray(ctx), jnp.asarray(mask)]
     params = randomize(jblk.init(jax.random.PRNGKey(0), *jin)["params"], seed=10)
     want = np.asarray(jblk.apply({"params": params}, *jin))
-    blk = TwoAttentionBlock(128, 8, 16, context_dim=22 if with_ctx else None, device="cpu")
+    blk = transformer_block(128, 8, 16, context_dim=22 if with_ctx else None, device="cpu")
     load_jax_params(blk, params)
     with torch.no_grad():
         got = t2n(blk(torch.as_tensor(x), None if ctx is None else torch.as_tensor(ctx),
