@@ -4,8 +4,10 @@ the eval protocol that scores what was generated, the gen_chair training
 step, gen_chair generation with two-attention blocks beside the UNet
 denoiser, the training loop users run (the runner and its CLI),
 reconstruction and part-level editing on weights read from a reference
-``.pth``, and the chain's variants (DDIM, a learned variance with guidance,
-t added to x) with the checkpoint-curve scorer.
+``.pth``, the chain's variants (DDIM, a learned variance with guidance,
+t added to x) with the checkpoint-curve scorer, and the JAX package's
+``.msgpack`` checkpoints, training through two-attention blocks and UNet,
+and per-part pretraining.
 
     python3 chip_smoke.py
 
@@ -110,8 +112,11 @@ Phases, each fatal (non-zero exit, no "ok" line):
    table holds one finite noise of the aligner's width per training shape; a
    second runner on the same work_dir resumes at epoch 3 with every
    parameter, buffer, moment and the step equal bit for bit; one step of it
-   (bf16) is held against a CPU runner (float32) resumed from the same
-   checkpoint, on one batch with every draw injected and dropout off;
+   is held against a CPU runner resumed from the same checkpoint, on one
+   batch with every draw injected and dropout off (both build the model in
+   float32, as the JAX Runner does, the card casting to bf16 only at the
+   kernels' operands: the flow prior's terms agree to 1e-4 and every module
+   computes in float32);
    ``--task val_gen --gen_num 64`` gives 12 finite metrics. Then a
    ``CroppingDataLoader`` over SyntheticPart at 8192 points, batch 32, crop
    [2048, 6144): partial and missing of (32, 2048, 3), each point one of its
@@ -157,6 +162,24 @@ Phases, each fatal (non-zero exit, no "ok" line):
    checkpoint (25 trunk launches, 12 finite metrics). The kernels line lists
    the head-less entry beside the trunk, whose row carries phase 11's
    numbers.
+12. the JAX package's checkpoints, two-attention and UNet training,
+   per-part pretraining, full width: phase 9's final checkpoint exported to
+   the JAX layout (``utils/jax_params.py:export_jax_train_state``) and
+   written as ``ckpt_3.msgpack`` (``utils/jax_checkpoint.py``) resumes a
+   fresh runner by ``resume_path`` with every parameter, buffer, moment, the
+   count and the step equal bit for bit to the ``.pt`` resume (both loads
+   timed); ``val_gen --gen_num 64`` from both, launch counts set to 0 just
+   before and read just after (100 trunk and 4 EMD launches each), the
+   metrics equal (or within the spread of two ``.pt`` runs). gen_chair with
+   two-attention blocks, and with the UNet denoiser at phase 8's widths, in
+   float32 as the Runner builds it: 3 steps at batch 32 x 2048 on one batch,
+   every draw injected, dropout 0, finite with the last loss below the
+   first, no kernel launch under autograd, ms a step; one step at batch 4
+   against the CPU at phase 9's tolerances. ``--runner pretrain`` through
+   ``runner/cli.py:main`` on a config whose ``_base_`` is
+   ``configs/bench_train_tpu.py`` (PointwiseNet at its defaults,
+   ``pts_per_part`` 512, ``learn_variance`` off as the JAX sampler needs):
+   one epoch and val, no kernel launch, finite samples of each part, timed.
 
 The last line is {"ok": true, "device": {...}}.
 """
@@ -368,12 +391,18 @@ def example_batch(B, npoints, n_class=4, seed=0):
     }
 
 
-def build_train_model(device, stage2=False, dropout=0.2):
+def build_train_model(device, stage2=False, dropout=0.2, dtype=torch.bfloat16, net=None,
+                      aligner=None):
+    """gen_chair (or its stage-2 config) at full width as phase 7 trains it;
+    ``net`` replaces the denoiser's keys, ``aligner`` updates the aligner's."""
     from difffacto_torch import MODELS, Config, build_from_cfg
 
     name = "train_chair_stage2.py" if stage2 else "gen_chair.py"
     mcfg = Config(os.path.join(ROOT, "configs", name)).model.dump()
-    mcfg.update(npoints=2048, ret_traj=False, dtype=torch.bfloat16)
+    mcfg.update(npoints=2048, ret_traj=False, dtype=dtype)
+    if net is not None:
+        mcfg["diffusion"]["net"] = dict(net)
+    mcfg["encoder"]["part_aligner"].update(aligner or {})
     mcfg["diffusion"]["net"]["dropout"] = dropout
     if not stage2:
         mcfg["gen"] = False
@@ -548,14 +577,18 @@ RUNNER_GEN_NUM = 64
 # Later epochs at the configuration's own log interval, timed one by one, and
 # passes of the loader alone.
 RUNNER_TIMED_EPOCHS, LOADER_PASSES = 12, 5
-# One step of the card's runner (bf16, the dtype of the trunk kernels) against
-# the CPU's (float32, the precision of the reference configuration): the same
-# resumed weights and moments, one loader batch, every draw injected, dropout
-# off. The loss dict and grad_norm are held to STEP_LOSS_RTOL and
-# STEP_GNORM_RTOL, the mean absolute difference of the two updates to a
-# quarter of the CPU's mean absolute update. bf16 rounds the inputs of every
-# product (a relative 2^-9 each); a wrong kernel or schedule gives O(1).
-RUNNER_UPDATE_REL = 0.25
+# One step of the card's runner against the CPU's: both build the model in
+# float32, as the JAX Runner does, and the card casts to bf16 only at the
+# trunk kernels' operands. The same resumed weights and moments, one loader
+# batch, every draw injected, dropout off. The loss dict and grad_norm are
+# held to STEP_LOSS_RTOL and STEP_GNORM_RTOL (the trunk's bf16 rounds the
+# inputs of its products, a relative 2^-9 each), the mean absolute difference
+# of the two updates to a quarter of the CPU's mean absolute update. The flow
+# prior's terms (prior_loss, each part's log-density and entropy) run in
+# float32 on both and are held to PRIOR_RTOL, far below the 2^-9 relative
+# rounding of each operand that a model built in bf16 on the card would
+# apply to them. A wrong kernel or schedule gives O(1).
+RUNNER_UPDATE_REL, PRIOR_RTOL = 0.25, 1e-4
 CROP_POINTS, CROP_BATCH, CROP_SHAPES, CROP_RANGE = 8192, 32, 64, [2048, 6144]
 
 
@@ -677,8 +710,8 @@ class KernelRecorder:
 
 
 def runner_step_against_cpu(card, cfg):
-    """One step of ``card`` (resumed, on the card, bf16) against a CPU runner
-    resumed from the same checkpoint (float32): one batch of the card
+    """One step of ``card`` (resumed, on the card) against a CPU runner
+    resumed from the same checkpoint, float32 both: one batch of the card
     runner's loader, the diffusion t and noise and the part-code draw
     injected, dropout off in both for the step. Fails beyond the tolerances
     stated at RUNNER_UPDATE_REL; returns what it measured."""
@@ -722,15 +755,24 @@ def runner_step_against_cpu(card, cfg):
     gn = abs(mc["grad_norm"] - mh["grad_norm"]) / mh["grad_norm"]
     diff = torch.cat([(a - b).abs().flatten() for a, b in zip(uc, uh)]).mean().item()
     upd = diff / torch.cat([b.abs().flatten() for b in uh]).mean().item()
-    print(f"card runner (bf16) against CPU runner (float32), one step: loss dict off by at most "
-          f"{rel[worst]:.3e} ({worst}, tol {STEP_LOSS_RTOL}), grad_norm {mc['grad_norm']:.4f} vs "
-          f"{mh['grad_norm']:.4f} off by {gn:.3e} (tol {STEP_GNORM_RTOL}); updates: mean abs "
-          f"difference {upd:.4f} of the mean abs update (tol {RUNNER_UPDATE_REL})")
+    prior = [k for k in keys if k == "prior_loss" or k.startswith(("log_p_part", "entropy"))]
+    prior_rel = max(rel[k] for k in prior)
+    dtypes = sorted({str(getattr(m, "dtype", None)) for m in card.model.modules()
+                     if hasattr(m, "dtype")})
+    print(f"card runner against CPU runner (float32 both; module dtypes on the card {dtypes}), "
+          f"one step: loss dict off by at most {rel[worst]:.3e} ({worst}, tol {STEP_LOSS_RTOL}), "
+          f"the flow prior's {len(prior)} terms by {prior_rel:.3e} (tol {PRIOR_RTOL}), grad_norm "
+          f"{mc['grad_norm']:.4f} vs {mh['grad_norm']:.4f} off by {gn:.3e} (tol "
+          f"{STEP_GNORM_RTOL}); updates: mean abs difference {upd:.4f} of the mean abs update "
+          f"(tol {RUNNER_UPDATE_REL})")
     if mc["skipped_nonfinite"] or mh["skipped_nonfinite"]:
         fail("the runner step against the CPU was skipped as non-finite")
     if not rel[worst] <= STEP_LOSS_RTOL or not gn <= STEP_GNORM_RTOL or not upd <= RUNNER_UPDATE_REL:
         fail("the card's runner step disagrees with the CPU's float32 runner step")
-    return dict(loss_rel=rel[worst], grad_norm_rel=gn, update_rel=upd)
+    if len(prior) < 3 or not prior_rel <= PRIOR_RTOL or dtypes != ["None"]:
+        fail(f"the card's runner computes the flow prior in another precision than the CPU's "
+             f"float32 (module dtypes {dtypes})")
+    return dict(loss_rel=rel[worst], grad_norm_rel=gn, update_rel=upd, prior_rel=prior_rel)
 
 
 def runner_phase(dev, fc, fct, fpsm, eh, ff, fb, keep):
@@ -1449,6 +1491,242 @@ def chain_phase(dev, fc, eh, noise_scale, checkpoint):
     res.update(scorer_s=scorer_s, scorer_row=rows[0])
     print(f"phase 11: {time.perf_counter() - t_phase:.1f} s")
     return res
+
+
+# Phase 12: the JAX package's checkpoints, two-attention and UNet training and
+# per-part pretraining. (a) Phase 9's final checkpoint, exported to the JAX
+# layout and written as .msgpack, resumes a fresh runner bit for bit equal to
+# the .pt resume; val_gen --gen_num 64 from both (one batch: 100 trunk
+# launches, 4 EMD launches). (b, c) TRAIN12_STEPS steps of gen_chair with
+# two-attention blocks and with the UNet denoiser (phase 8's widths; its
+# part tokens the model's own, 262 wide), float32 as the Runner builds it,
+# at batch TRAIN12_BATCH x 2048 on one batch with every draw injected and
+# dropout 0: finite, the last loss below the first, no fused FF or
+# one-block launch under autograd, one step at TRAIN12_CHECK_BATCH against the
+# CPU at phase 9's tolerances (float32 both: BatchNorm over 4 shapes turns no
+# bf16 rounding into a change of the fit loss, as it would in phase 7). (d) --runner pretrain through the CLI on
+# bench_train_tpu with PointwiseNet at its defaults: one epoch and val, no
+# kernel launch.
+TRAIN12_BATCH, TRAIN12_STEPS, TRAIN12_CHECK_BATCH, PRETRAIN_PTS = 32, 3, 4, 512
+UNET_NET = dict(type="UNet", in_channels=3, n_heads=8, d_head=16, depth=5, embed_dim=128,
+                prior_dim=262)
+
+
+def write_config(work, name, **keys):
+    """A config file under ``work`` whose ``_base_`` is RUNNER_CONFIG (by its
+    absolute path) and that sets ``keys``."""
+    path = os.path.join(work, f"{name}.py")
+    with open(path, "w") as f:
+        f.write(f"_base_ = [{os.path.join(ROOT, RUNNER_CONFIG)!r}]\n")
+        f.write("".join(f"{k} = {v!r}\n" for k, v in keys.items()))
+    return path
+
+
+def msgpack_round_trip(dev, zero, read, checkpoint, work):
+    """Phase 12 (a): returns its numbers."""
+    from difffacto_torch.config import Config
+    from difffacto_torch.runner import Runner
+    from difffacto_torch.utils.jax_checkpoint import write_jax_checkpoint
+    from difffacto_torch.utils.jax_params import export_jax_train_state
+
+    def build(name, resume):
+        cfg = Config(write_config(work, name, **dict(RUNNER_OVERRIDES, resume_path=resume,
+                                                     work_dir=os.path.join(work, name))))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = Runner(cfg=cfg, device=dev)
+        torch.cuda.synchronize()
+        return r, time.perf_counter() - t0
+
+    r_pt, pt_build_s = build("from_pt", checkpoint)
+    with open(checkpoint[: -len(".pt")] + ".meta.json") as f:
+        meta = json.load(f)
+    t0 = time.perf_counter()
+    tree = export_jax_train_state(r_pt.state, r_pt.tx)
+    path = write_jax_checkpoint(os.path.join(work, "export"), meta.pop("epoch"), tree, meta)
+    export_s = time.perf_counter() - t0
+    r_mp, mp_build_s = build("from_msgpack", path)
+    loads = {}
+    for label, r, ckpt in (("pt", r_pt, checkpoint), ("msgpack", r_mp, path)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r.load(ckpt)
+        torch.cuda.synchronize()
+        loads[label] = time.perf_counter() - t0
+    a, b = runner_state(r_pt), runner_state(r_mp)
+    differ = [k for k in a if k not in b or not torch.equal(a[k], b[k])]
+    print(f"{checkpoint} -> {path} ({os.path.getsize(path) / 2**20:.1f} MiB, exported and written "
+          f"in {export_s:.2f} s); runner built with resume_path .pt {pt_build_s:.2f} s, .msgpack "
+          f"{mp_build_s:.2f} s; load alone .pt {loads['pt']:.3f} s, .msgpack "
+          f"{loads['msgpack']:.3f} s; {len(a)} tensors, {len(differ)} differ")
+    if differ or a.keys() != b.keys() or (r_pt.epoch, r_pt.iter) != (r_mp.epoch, r_mp.iter):
+        fail(f"the .msgpack resume differs from the .pt resume: {differ[:5]}, epoch "
+             f"{r_mp.epoch} vs {r_pt.epoch}")
+    if r_mp.train_loader.dataset.noises:
+        fail("a .msgpack resume brought a CIMLE table, which the JAX format does not hold")
+    metrics, counts, secs = {}, {}, {}
+    for label, r in (("pt", r_pt), ("msgpack", r_mp), ("pt again", r_pt)):
+        if label == "pt again" and metrics["pt"] == metrics["msgpack"]:
+            break
+        zero()
+        t0 = time.perf_counter()
+        metrics[label] = r.generate_samples(num_gen=RUNNER_GEN_NUM)
+        torch.cuda.synchronize()
+        secs[label], counts[label] = time.perf_counter() - t0, read()
+        want = dict({k: 0 for k in counts[label]}, fused_core=100, emd_hybrid=4)
+        if counts[label] != want:
+            fail(f"val_gen from the {label} resume launched {counts[label]}: expected 100 trunk "
+                 "and 4 EMD launches, nothing else")
+        if len(metrics[label]) != 12 or not all(np.isfinite(v) for v in metrics[label].values()):
+            fail(f"val_gen from the {label} resume gave {metrics[label]}")
+    equal = metrics["pt"] == metrics["msgpack"]
+    if not equal:
+        spread = {k: abs(metrics["pt"][k] - metrics["pt again"][k]) for k in metrics["pt"]}
+        off = {k: abs(metrics["pt"][k] - metrics["msgpack"][k]) for k in metrics["pt"]}
+        if any(off[k] > spread[k] for k in off):
+            fail(f"val_gen from the .msgpack resume {metrics['msgpack']} lies outside the spread "
+                 f"of two .pt runs {metrics['pt']}, {metrics['pt again']}")
+    print(f"val_gen --gen_num {RUNNER_GEN_NUM}: .pt {secs['pt']:.2f} s, .msgpack "
+          f"{secs['msgpack']:.2f} s, launches {counts['msgpack']}; metrics "
+          f"{'equal' if equal else 'within the spread of two .pt runs'}: "
+          + json.dumps({k: round(v, 5) for k, v in metrics["msgpack"].items()}))
+    del r_pt, r_mp
+    return dict(load_s=loads["msgpack"], load_pt_s=loads["pt"], build_s=mp_build_s,
+                export_s=export_s, val_gen_s=secs["msgpack"], launches=counts["msgpack"],
+                metrics_equal=equal)
+
+
+def train_steps_against_cpu(dev, label, zero, read, **model_keys):
+    """Phase 12 (b, c): TRAIN12_STEPS steps of the float32 model on one batch,
+    then one step at TRAIN12_CHECK_BATCH on the card and on the CPU."""
+    from difffacto_torch.parallel import init_train_state, make_train_step
+
+    def batch(B, seed):
+        rng = np.random.RandomState(seed)
+        b = example_batch(B, 2048, seed=seed)
+        b.update(diffusion_t=rng.randint(0, 100, (B,)).astype(np.int64),
+                 diffusion_noise=rng.randn(B, 2048, 3).astype(np.float32),
+                 noise=rng.randn(B, 32).astype(np.float32))
+        return b
+
+    model = build_train_model(dev, dropout=0.0, dtype=None, **model_keys)
+    tx = build_train_optimizer()
+    step, state = make_train_step(model, tx), init_train_state(model, tx)
+    data = to_device(batch(TRAIN12_BATCH, 30), dev)
+    losses, times = [], []
+    zero()
+    for i in range(TRAIN12_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, met = step(state, data, i, 0)
+        losses.append(float(met["total_loss"]))
+        times.append(1e3 * (time.perf_counter() - t0))
+        if float(met["skipped_nonfinite"]):
+            fail(f"{label}: step {i} was skipped as non-finite")
+    counts = read()
+    print(f"{label}, batch {TRAIN12_BATCH} x 2048: total_loss by step "
+          f"{[round(v, 4) for v in losses]}, ms a step {[round(t, 1) for t in times]}, "
+          f"launches {counts}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"{label}: the loss did not fall over {TRAIN12_STEPS} steps: {losses}")
+    if any(counts.values()):
+        fail(f"{label} launched {counts} under autograd: these blocks train unfused")
+    del model, state, step, data
+    torch.cuda.empty_cache()
+    runs = {}
+    small = batch(TRAIN12_CHECK_BATCH, 31)
+    for label_, where in (("card", dev), ("cpu", "cpu")):
+        m = build_train_model(where, dropout=0.0, dtype=None, **model_keys)
+        tx = build_train_optimizer()
+        before = [p.detach().clone() for p in m.parameters()]
+        _, met = make_train_step(m, tx)(init_train_state(m, tx), to_device(small, where), 0, 0)
+        runs[label_] = ({k: float(v) for k, v in met.items()},
+                        [(p.detach() - b).float().cpu() for p, b in zip(m.parameters(), before)])
+        del m
+    (mc, uc), (mh, uh) = runs["card"], runs["cpu"]
+    rel = max(abs(mc[k] - mh[k]) / max(abs(mh[k]), 1e-12) for k in mh
+              if k not in ("grad_norm", "skipped_nonfinite", "kl_weight"))
+    gn = abs(mc["grad_norm"] - mh["grad_norm"]) / mh["grad_norm"]
+    upd = (torch.cat([(a - b).abs().flatten() for a, b in zip(uc, uh)]).mean()
+           / torch.cat([b.abs().flatten() for b in uh]).mean()).item()
+    print(f"{label}, one step at batch {TRAIN12_CHECK_BATCH}, card against CPU: loss dict off by "
+          f"{rel:.3e} (tol {STEP_LOSS_RTOL}), grad_norm by {gn:.3e} (tol {STEP_GNORM_RTOL}), "
+          f"updates by {upd:.4f} of the mean abs update (tol {RUNNER_UPDATE_REL})")
+    if not rel <= STEP_LOSS_RTOL or not gn <= STEP_GNORM_RTOL or not upd <= RUNNER_UPDATE_REL:
+        fail(f"{label}: the step on the card disagrees with the CPU")
+    torch.cuda.empty_cache()
+    return dict(losses=losses, step_ms=float(np.median(times[1:])), launches=counts,
+                loss_rel=rel, grad_norm_rel=gn, update_rel=upd)
+
+
+def pretrain_run(dev, zero, read, work):
+    """Phase 12 (d): one epoch and val of --runner pretrain through the CLI."""
+    from difffacto_torch.runner.cli import main as cli_main
+
+    net = dict(_cover_=True, type="PointwiseNet", context_dim=256)
+    keys = dict(max_epoch=1, eval_interval=1, checkpoint_interval=None, cimle_cache_interval=None,
+                log_interval=1, pts_per_part=PRETRAIN_PTS, work_dir=os.path.join(work, "pretrain"),
+                model=dict(diffusion=dict(learn_variance=False, net=net)))
+    cfg = write_config(work, "pretrain", **keys)
+    zero()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    runner = cli_main(["--config-file", cfg, "--runner", "pretrain", "--task", "train"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read()
+    recs = [json.loads(line) for line in open(os.path.join(runner.work_dir, "scalars.jsonl"))]
+    losses = [r["mse_loss"] for r in recs if "mse_loss" in r]
+    samples = np.load(os.path.join(runner.work_dir, "val", "pretrain_samples_1.npz"))
+    n_params = sum(p.numel() for p in runner.model.parameters())
+    print(f"--runner pretrain: one epoch of {len(losses)} steps and val in {wall:.2f} s (runner "
+          f"built), {len(runner.model.net_list)} PointwiseNets, {n_params} parameters, mse_loss "
+          f"{[round(v, 4) for v in losses]}, samples {[samples[k].shape for k in samples]}, "
+          f"launches {counts}")
+    if type(runner).__name__ != "PretrainRunner" or runner.epoch != 1:
+        fail(f"--runner pretrain ran {type(runner).__name__} to epoch {runner.epoch}")
+    if not losses or not all(np.isfinite(losses)) or any(counts.values()):
+        fail(f"--runner pretrain: losses {losses}, launches {counts}")
+    if sorted(samples) != [f"part_{i}" for i in range(4)] or not all(
+            samples[k].shape == (4, PRETRAIN_PTS, 3) and np.isfinite(samples[k]).all()
+            for k in samples):
+        fail("--runner pretrain's val wrote no finite (4, 512, 3) samples for each of 4 parts")
+    return dict(s=wall, steps=len(losses), launches=counts)
+
+
+def phase12(dev, fc, fct, fpsm, eh, ff, fb, checkpoint):
+    """Phase 12: the JAX package's checkpoints, two-attention and UNet
+    training, per-part pretraining; returns each part's numbers."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+
+    def zero():
+        fc.launches = fc.launches_headless = fct.launches_fwd = fct.launches_bwd = 0
+        fpsm.launches = eh.launches = ff.launches = fb.launches = 0
+
+    def read():
+        return dict(fused_core=fc.launches, fused_core_headless=fc.launches_headless,
+                    fused_trunk_train_fwd=fct.launches_fwd, fused_trunk_train_bwd=fct.launches_bwd,
+                    fps=fpsm.launches, emd_hybrid=eh.launches, fused_ff=ff.launches,
+                    fused_block=fb.launches)
+
+    out = {}
+    with tempfile.TemporaryDirectory() as work:
+        out["msgpack"] = msgpack_round_trip(dev, zero, read, checkpoint, work)
+        out["two_attn"] = train_steps_against_cpu(
+            dev, "two-attention training", zero, read, aligner=dict(single_attn=False),
+            net=dict(_gen_chair_net(), single_attn=False))
+        out["unet"] = train_steps_against_cpu(dev, "UNet training", zero, read, net=UNET_NET)
+        out["pretrain"] = pretrain_run(dev, zero, read, work)
+    print(f"phase 12: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def _gen_chair_net():
+    from difffacto_torch import Config
+
+    return Config(os.path.join(ROOT, "configs", "gen_chair.py")).model.dump()["diffusion"]["net"]
 
 
 def main():
@@ -2311,6 +2589,10 @@ def main():
 
     phase("11 DDIM, guidance and the chain's variants, full width")
     run11 = chain_phase(dev, fc, eh, noise_scale, run9["checkpoint"])
+
+    phase("12 JAX checkpoints, two-attention and UNet training, per-part pretraining, "
+          "full width")
+    run12 = phase12(dev, fc, fct, fpsm, eh, ff, fb, run9["checkpoint"])
     kept.cleanup()
 
     print(card)
@@ -2320,6 +2602,11 @@ def main():
     trunk["editing_paths"] = run10["paths"]
     trunk["editing_z_grad_rel_l2"] = run10["grad_rel"]
     trunk.update({k: v for k, v in run11.items() if not k.startswith("headless")})
+    trunk["launches_msgpack_val_gen"] = run12["msgpack"]["launches"]["fused_core"]
+    trunk["msgpack_load_s"] = run12["msgpack"]["load_s"]
+    trunk["pt_load_s"] = run12["msgpack"]["load_pt_s"]
+    trunk["launches_pretrain"] = run12["pretrain"]["launches"]["fused_core"]
+    trunk["pretrain_epoch_and_val_s"] = run12["pretrain"]["s"]
     headless = {
         "name": "fused_core_headless", "route": "cuda",
         "source": "difffacto_torch/csrc/fused_core.cu",
@@ -2353,6 +2640,7 @@ def main():
         "protocol_launches_pairs_ms": [[b, s.elapsed_time(e)] for s, e, b in emd_events],
         "protocol_s": t_eval, "launches_runner": on_path["emd_hybrid"],
         "launches_editing": editing_launches["emd_hybrid"],
+        "launches_msgpack_val_gen": run12["msgpack"]["launches"]["emd_hybrid"],
     }, {
         "name": "fused_trunk_train_fwd", "route": "cuda",
         "source": "difffacto_torch/csrc/fused_core_train.cu",
@@ -2396,6 +2684,8 @@ def main():
         "bound_ms": block_bound, "bound_by": block_by, "library_ms": None,
         "unet_forward_ms": unet_ms, "launches_runner": on_path["fused_block"],
         "launches_editing": editing_launches["fused_block"],
+        "launches_unet_training": run12["unet"]["launches"]["fused_block"],
+        "unet_train_step_ms": run12["unet"]["step_ms"],
     }, {
         "name": "fused_ff", "route": "cuda", "source": "difffacto_torch/csrc/fused_ff.cu",
         "replaces": "difffacto_tpu/ops/fused_ff.py:26", "launches": two_counts["fused_ff"],
@@ -2406,6 +2696,8 @@ def main():
         "bound_ms_at_t1024_d256": ff_bound_256, "plain_ms_at_t1024_d256": ff_plain_ms_256,
         "two_attn_shapes_per_s": TWO_ATTN_BATCH_TIMED / two_dt, "two_attn_peak_gib": two_peak,
         "launches_runner": on_path["fused_ff"], "launches_editing": editing_launches["fused_ff"],
+        "launches_two_attn_training": run12["two_attn"]["launches"]["fused_ff"],
+        "two_attn_train_step_ms": run12["two_attn"]["step_ms"],
         "ms_at_search_d256": run10["search_ff"]["ms"],
         "plain_ms_at_search_d256": run10["search_ff"]["plain_ms"],
         "bound_ms_at_search_d256": run10["search_ff"]["bound_ms"],

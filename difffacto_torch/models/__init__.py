@@ -3,7 +3,7 @@
 from .aligner import PartAlignerTransformer
 from .anchor_diff import (AnchorDiffAE, build_diffusion, decode, ensure_attn_maps,
                           reconstruct, sample_generation, select_best_noise)
-from .denoiser import TransformerNet, UNet
+from .denoiser import ConcatSquashDense, PointwiseNet, TransformerNet, UNet
 from .diffusion import AnchoredDiffusion
 from .flow import PerPartFlow
 from .pointnet import PointNetV2

@@ -7,11 +7,13 @@ ctx), ``decode`` (the reverse chain), ``sample_generation`` (both,
 unconditional generation; reference anchor_gen.py:1034-1084), ``reconstruct``
 (encode a shape and decode it again; anchor_gen.py:1085-1128), the editing
 helpers (``encode_part_code``, ``latents_to_decode``, ``edit_losses``,
-``recon_losses``) and ``select_best_noise`` (the CIMLE best-of-N noise
-selection). Every random draw comes from an explicit ``torch.Generator`` or is
-injected: ``z`` (flow-prior latents), ``cimle_noise`` (aligner noise), ``noise``
-(x_T; ``x_T`` in ``reconstruct``, whose ``noise`` is the aligner's, as in the
-JAX package) and ``step_noise`` (per-step draws); in training and
+``recon_losses``), ``select_best_noise`` (the CIMLE best-of-N noise
+selection) and, with ``pretrain_prior``, per-part pretraining
+(``pretrain_loss``, ``pretrain_sample``). Every random draw comes from an
+explicit ``torch.Generator`` or is injected: ``z`` (flow-prior latents),
+``cimle_noise`` (aligner noise), ``noise`` (x_T; ``x_T`` in ``reconstruct``,
+whose ``noise`` is the aligner's, as in the JAX package) and ``step_noise``
+(per-step draws); in training and
 reconstruction ``diffusion_t``, ``diffusion_noise``, ``noise`` and
 ``part_code_eps`` through the batch.
 """
@@ -23,7 +25,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ..utils.device import resolve_device
+from ..utils.device import randn, resolve_device
 from ..utils.gaussian import reparameterize_gaussian
 from ..utils.registry import DIFFUSIONS, ENCODERS, MODELS, NETS, SAMPLERS, build_from_cfg
 from . import samplers  # noqa: F401  (registers Uniform)
@@ -67,8 +69,9 @@ class AnchorDiffAE(nn.Module):
     ``learn_var``, ``detach_variance``, ``clip_weight``, ``triplet_weight``
     and ``triplet_thresh`` are kept and read nowhere, as in the JAX
     ``AnchorDiffAE`` (the last three only with ``train_language``);
-    ``pretrain_prior``, ``train_language`` and a ``language_encoder`` raise
-    (``ROADMAP.md`` queue A items 4 and 7).
+    ``train_language`` and a ``language_encoder`` raise (``ROADMAP.md`` queue A
+    item 6). ``pretrain_prior`` builds one denoiser a part, ``net_list_<i>``
+    as the JAX module names them, ``net`` being the first.
     """
 
     def __init__(self, encoder: dict, diffusion: dict, num_anchors: int, num_timesteps: int,
@@ -85,12 +88,9 @@ class AnchorDiffAE(nn.Module):
                  *, dtype=None, device="cuda", seed: int = 0):
         super().__init__()
         device = resolve_device(device)
-        if pretrain_prior:
-            raise NotImplementedError("pretrain_prior is not ported yet (ROADMAP.md, queue A "
-                                      "item 4: pretrain_prior and train_language)")
         if train_language or language_encoder is not None:
             raise NotImplementedError("train_language and language_encoder are not ported yet "
-                                      "(ROADMAP.md, queue A item 7: models/language.py)")
+                                      "(ROADMAP.md, queue A item 6: models/language.py)")
         g = torch.Generator().manual_seed(seed)
         self.num_anchors, self.num_timesteps, self.npoints = num_anchors, num_timesteps, npoints
         self.cimle_sample_num, self.ret_traj = cimle_sample_num, ret_traj
@@ -107,7 +107,16 @@ class AnchorDiffAE(nn.Module):
         self.encoder, self.diffusion = dict(encoder), dict(diffusion)
         kw = dict(dtype=dtype, device=device, generator=g)
         self.encoder_mod = build_from_cfg(dict(encoder), ENCODERS, **kw)
-        self.net = build_from_cfg(dict(diffusion["net"]), NETS, **kw)
+        if pretrain_prior:
+            # one denoiser a part (anchor_diff.py:116-123); the first is also
+            # ``net``, and its parameters are named once, under net_list_0
+            self.net_list = [build_from_cfg(dict(diffusion["net"]), NETS, **kw)
+                             for _ in range(num_anchors)]
+            for i, net in enumerate(self.net_list):
+                self.add_module(f"net_list_{i}", net)
+            self.net = self.net_list[0]
+        else:
+            self.net = build_from_cfg(dict(diffusion["net"]), NETS, **kw)
         self.diff = build_diffusion(diffusion, num_timesteps)
         self.t_sampler = build_from_cfg(dict(sampler or dict(type="Uniform")), SAMPLERS,
                                         num_timesteps=num_timesteps)
@@ -255,6 +264,68 @@ class AnchorDiffAE(nn.Module):
         if self.noise_reg_loss:
             loss_dict["reg_loss"] = self.reg_loss_weight * (z**2).sum(-1)
         return loss_dict
+
+    # ------------------------------------------------------------ pretraining
+    def pretrain_loss(self, part_inputs, valid=None, rngs=None, part_code_eps=None, t=None,
+                      noise=None):
+        """Per-part diffusion pretraining (``anchor_diff.py:306-344``): the
+        part codes of part_inputs (B, K, Np, 3), each part's cloud normalised,
+        their prior loss, and the mse of each part's own denoiser conditioned
+        on that part's code, averaged over the parts. ``rngs`` holds the
+        "sample" and "dropout" generators; ``part_code_eps`` (B, K, zdim), ``t``
+        (K, B) and ``noise`` (K, B, Np, 3) inject the draws."""
+        rngs = rngs or {}
+        gen = rngs.get("sample")
+        B, K, Np, _ = part_inputs.shape
+        flat = part_inputs.reshape(B, K * Np, 3)
+        eye = torch.eye(K, dtype=flat.dtype, device=flat.device)
+        seg_flag = eye.repeat_interleave(Np, dim=0)[None].expand(B, -1, -1)
+        enc = self.encoder_mod
+        means, logvars = enc.get_part_code(flat, seg_flag, train=True)
+        part_code = reparameterize_gaussian(means, logvars, gen, part_code_eps)
+        if valid is None:
+            valid = torch.ones(B, K, dtype=flat.dtype, device=flat.device)
+        loss_dict = dict(enc.get_prior_loss(part_code, means, logvars, valid))
+        zeros = torch.zeros(B, Np, 3, dtype=flat.dtype, device=flat.device)
+        mse = 0.0
+        for i in range(K):
+            ti = t[i] if t is not None else self.t_sampler.sample(gen, B, device=flat.device)[0]
+
+            def model_fn(inp, ts, c, anc, var, seg, vid, net=self.net_list[i]):
+                return net(inp, ts, c, anc, var, seg, vid, train=True,
+                           generator=rngs.get("dropout"))
+
+            dl = self.diff.training_losses(
+                model_fn, part_inputs[:, i], ti.long(), anchors=zeros,
+                variance=torch.ones_like(zeros) if self.diff.learn_variance else None,
+                ctx=part_code[:, i:i + 1],
+                seg_mask=torch.zeros(B, Np, dtype=torch.int32, device=flat.device),
+                noise=None if noise is None else noise[i], generator=gen)
+            mse = mse + dl["mse_loss"]
+        loss_dict["mse_loss"] = mse / K
+        return loss_dict
+
+    @torch.inference_mode()
+    def pretrain_sample(self, sample_num: int, num_points: int, generator=None, codes=None,
+                        noise=None, step_noise=None):
+        """Each part's pretrained diffusion sampled on its own
+        (``anchor_diff.py:346-370``): a list of K (S, Np, 3). ``codes`` (S, K,
+        zdim), ``noise`` (K, S, Np, 3) and ``step_noise`` (K, T, S, Np, 3)
+        inject the draws."""
+        device = self.device
+        if codes is None:
+            codes = randn((sample_num, self.num_anchors, self.encoder["encoder"]["zdim"]),
+                          generator, device)
+        seg = torch.zeros(sample_num, num_points, dtype=torch.int32, device=device)
+        outs = []
+        for i, net in enumerate(self.net_list):
+            out = self.diff.p_sample_loop(
+                net, torch.zeros(sample_num, num_points, 3, device=device),
+                ctx=codes[:, i:i + 1], seg_mask=seg,
+                noise=None if noise is None else noise[i],
+                step_noise=None if step_noise is None else step_noise[i], generator=generator)
+            outs.append(out["pred"])
+        return outs
 
 
 @torch.inference_mode()

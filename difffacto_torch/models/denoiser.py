@@ -17,12 +17,18 @@ blocks run one by one, as with two-attention blocks. proj_out is applied
 after the trunk with a matrix product, as in the JAX default (tail not fused).
 With two-attention blocks (``single_attn=False``) the blocks run one by one,
 each ending in ``FusedLNFF``, as the JAX package runs them
-(``denoiser.py:301-309``); generation only.
+(``denoiser.py:301-309``); in training with the unfused math and dropout, as
+the JAX package trains them.
 
-And of ``UNet`` (``denoiser.py:381-434``), forward only: GroupNorm + SiLU +
-proj_in, a time-embedding MLP, then per level a scale-shift LayerNorm, a
-flat block that cross-attends to the part tokens (``ops/fused_block`` where
-it qualifies) and, with a language code, one that attends to it.
+And of ``UNet`` (``denoiser.py:381-434``): GroupNorm + SiLU + proj_in, a
+time-embedding MLP, then per level a scale-shift LayerNorm, a flat block
+that cross-attends to the part tokens (``ops/fused_block`` where it qualifies
+and no training is asked for; the unfused math with dropout in training) and,
+with a language code, one that attends to it.
+
+And of ``PointwiseNet`` (``denoiser.py:490-530``), the concat-squash MLP that
+per-part pretraining conditions on one part token, with its
+``ConcatSquashDense`` layers (``:436-446``).
 """
 
 from __future__ import annotations
@@ -38,7 +44,7 @@ from ..nn.layers import (Dense, FeedForward, GroupNorm, LayerNorm, default_gener
 from ..ops.fused_block import takes as trunk_kernel_takes
 from ..ops.fused_core import fused_core, fused_core_headless
 from ..ops.fused_core_train import fused_trunk_train
-from ..utils.device import resolve_device
+from ..utils.device import kernel_dtype, resolve_device
 from ..utils.registry import NETS
 
 T_DIM = 256  # width of the t-embedding appended to every context token
@@ -47,9 +53,8 @@ T_DIM = 256  # width of the t-embedding appended to every context token
 @NETS.register_module()
 class TransformerNet(nn.Module):
     """Arguments mirror the JAX module. ``use_checkpoint`` raises
-    ``NotImplementedError``, as does ``train=True`` with two-attention blocks,
-    and so does a net without ``context_dim``: the JAX module reads its
-    context at every call. ``add_class_cond`` leaves out the class one-hot of
+    ``NotImplementedError``, and so does a net without ``context_dim``: the
+    JAX module reads its context at every call. ``add_class_cond`` leaves out the class one-hot of
     the context (``denoiser.py:91``); the JAX module adds no class embedding
     in its place.
 
@@ -130,7 +135,7 @@ class TransformerNet(nn.Module):
         """proj_in, then the trainable trunk (``denoiser.py:256-298``): the
         f32 master parameters go in stacked, the function casts them, and
         their gradients come back through ``torch.stack``."""
-        h0 = self._proj_in(x, cdt, t_embed)
+        h0 = self._proj_in(x, cdt, t_embed).to(kernel_dtype(x.device, cdt))
         if self.dropout > 0.0:
             if generator is None:
                 raise ValueError("the trunk's dropout seed needs the 'dropout' torch.Generator")
@@ -175,10 +180,7 @@ class TransformerNet(nn.Module):
         x_in = x
 
         if not self.single_attn:
-            if train:
-                raise NotImplementedError(
-                    "TransformerNet with two-attention blocks is ported for generation only")
-            h = self._block_trunk(x, ctx, valid_id, cdt, t_embed=t_x)
+            h = self._block_trunk(x, ctx, valid_id, cdt, train, generator, t_x)
         elif not trunk_kernel_takes(self.n_heads * self.d_head, self.n_heads, ctx.shape[1]):
             # the JAX package's per-block composition (denoiser.py:301-309)
             h = self._block_trunk(x, ctx, valid_id, cdt, train, generator, t_x)
@@ -198,9 +200,10 @@ class TransformerNet(nn.Module):
         training."""
         B = x.shape[0]
         M = ctx.shape[1]
+        kdt = kernel_dtype(x.device, cdt)  # bf16 on the card, whatever the module's dtype
         ctx_c = ctx.to(cdt)
-        k = torch.einsum("bmc,icd->ibmd", ctx_c, self._stacked("wk", cdt)).contiguous()
-        v = torch.einsum("bmc,icd->ibmd", ctx_c, self._stacked("wv", cdt)).contiguous()
+        k = torch.einsum("bmc,icd->ibmd", ctx_c, self._stacked("wk", cdt)).to(kdt).contiguous()
+        v = torch.einsum("bmc,icd->ibmd", ctx_c, self._stacked("wv", cdt)).to(kdt).contiguous()
         if self.mask_out_unreferenced_code:
             mask = valid_id.float()
         else:
@@ -209,19 +212,20 @@ class TransformerNet(nn.Module):
         if train:
             return self._train_trunk(x, k, v, mask, cdt, generator, t_embed)
         if t_embed is not None:
-            trunk, head = fused_core_headless, (self._proj_in(x, cdt, t_embed).contiguous(),)
+            trunk, head = fused_core_headless, (
+                self._proj_in(x, cdt, t_embed).to(kdt).contiguous(),)
         else:
-            trunk, head = fused_core, (x.to(cdt).contiguous(), self.proj_in.kernel.to(cdt),
+            trunk, head = fused_core, (x.to(kdt).contiguous(), self.proj_in.kernel.to(kdt),
                                        self.proj_in.bias.to(f32))
         return trunk(
             *head, k, v, mask.contiguous(),
-            self.pre_norm.scale.to(cdt), self.pre_norm.bias.to(cdt),
-            self.post_norm.scale.to(cdt), self.post_norm.bias.to(cdt),
-            self._stacked("norm2_scale", cdt), self._stacked("norm2_bias", cdt),
-            self._stacked("wq", cdt), self._stacked("wout", cdt), self._stacked("bout", f32),
-            self._stacked("ffn_ln_scale", cdt), self._stacked("ffn_ln_bias", cdt),
-            self._stacked("ffn_w1", cdt), self._stacked("ffn_b1", f32),
-            self._stacked("ffn_w2", cdt), self._stacked("ffn_b2", f32),
+            self.pre_norm.scale.to(kdt), self.pre_norm.bias.to(kdt),
+            self.post_norm.scale.to(kdt), self.post_norm.bias.to(kdt),
+            self._stacked("norm2_scale", kdt), self._stacked("norm2_bias", kdt),
+            self._stacked("wq", kdt), self._stacked("wout", kdt), self._stacked("bout", f32),
+            self._stacked("ffn_ln_scale", kdt), self._stacked("ffn_ln_bias", kdt),
+            self._stacked("ffn_w1", kdt), self._stacked("ffn_b1", f32),
+            self._stacked("ffn_w2", kdt), self._stacked("ffn_b2", f32),
             self.d_head**-0.5,
         )
 
@@ -229,19 +233,21 @@ class TransformerNet(nn.Module):
 @NETS.register_module()
 class UNet(nn.Module):
     """The 1D attention "UNet" denoiser (``difffacto_tpu/models/denoiser.py:381-434``,
-    the reference's nets/unet.py:296-341), forward only.
+    the reference's nets/unet.py:296-341).
 
     forward(x (B, N, in_channels), t (B,), ctx (B, K, prior_dim): the part
     tokens, valid_id (B, K) or None, language_code (B, L, language_dim) or
-    None). GroupNorm (eps 1e-6, min(32, C) groups) and SiLU before proj_in;
+    None, train, generator: the "dropout" stream with ``train=True``).
+    GroupNorm (eps 1e-6, min(32, C) groups) and SiLU before proj_in;
     the time embedding through two Dense layers; per level a LayerNorm
     without a dtype (so the hidden state is f32) scaled and shifted by the
     embedding, then ``prior_blocks[i]`` on the part tokens and, when the
     model is built with ``language_cond``, ``lang_blocks[i]`` on the language
     code; proj_out starts at zero and the input is added back. The flat
-    blocks take ``ops/fused_block`` where they qualify. As the JAX blocks take
-    their context width from the context itself, ``prior_dim`` and
-    ``language_dim`` must be the widths of ctx and language_code.
+    blocks take ``ops/fused_block`` where they qualify and ``train`` is
+    False; in training they run the unfused math with dropout. As the JAX
+    blocks take their context width from the context itself, ``prior_dim``
+    and ``language_dim`` must be the widths of ctx and language_code.
     """
 
     def __init__(self, in_channels: int, n_heads: int, d_head: int, depth: int = 1,
@@ -274,8 +280,6 @@ class UNet(nn.Module):
 
     def forward(self, x, t, ctx, anchors=None, variances=None, seg_mask=None, valid_id=None,
                 language_code=None, train: bool = False, generator=None):
-        if train:
-            raise NotImplementedError("UNet is ported for generation only (train=False)")
         if ctx is None or (language_code is not None) != self.language_cond:
             raise ValueError("UNet takes the part tokens, and a language code exactly when "
                              "it was built with language_cond=True")
@@ -285,7 +289,73 @@ class UNet(nn.Module):
         for i, prior_block in enumerate(self.prior_blocks):
             scale, shift = self.emb[i](silu(emb)).chunk(2, dim=-1)
             h = self.ln[i](h) * (1 + scale[:, None]) + shift[:, None]
-            h = prior_block(h, ctx, valid_id)
+            h = prior_block(h, ctx, valid_id, train, generator)
             if self.lang_blocks is not None:
-                h = self.lang_blocks[i](h, language_code)
+                h = self.lang_blocks[i](h, language_code, None, train, generator)
         return self.proj_out(h) + x
+
+
+class ConcatSquashDense(nn.Module):
+    """``layer(x) * sigmoid(hyper_gate(ctx)) + hyper_bias(ctx)``
+    (``difffacto_tpu/models/denoiser.py:436-446``; the reference's
+    ConcatSquashLinear); ``hyper_bias`` has no bias."""
+
+    def __init__(self, in_features: int, ctx_features: int, features: int,
+                 *, dtype=None, device="cuda", generator=None):
+        super().__init__()
+        kw = dict(dtype=dtype, device=device, generator=generator)
+        self.hyper_gate = Dense(ctx_features, features, **kw)
+        self.hyper_bias = Dense(ctx_features, features, use_bias=False, **kw)
+        self.layer = Dense(in_features, features, **kw)
+
+    def forward(self, x, ctx):
+        return self.layer(x) * torch.sigmoid(self.hyper_gate(ctx)) + self.hyper_bias(ctx)
+
+
+@NETS.register_module()
+class PointwiseNet(nn.Module):
+    """The concat-squash MLP denoiser (``difffacto_tpu/models/denoiser.py:490-530``,
+    the reference's nets/pointwisenet.py:9-99): the context of a shape, [t,
+    sin t, cos t] ++ ctx, modulates each of the ``hidden`` layers (leaky ReLU
+    between them) and the output layer; the input is added back when
+    ``residual`` and the widths agree. ``in_channels``, ``out_channels`` and
+    ``res`` are the reference configs' aliases of ``point_dim`` and
+    ``residual`` and win where given, as in the JAX module.
+
+    forward(x (B, N, point_dim), t (B,), ctx: (B, F) or (B, 1, F), global, or
+    (B, N, F), per point, or a list or tuple of them concatenated; F is
+    ``context_dim``). The other arguments of the denoisers' call are
+    accepted and read nowhere.
+    """
+
+    def __init__(self, point_dim: int = 3, context_dim: int = 256, residual: bool = True,
+                 hidden=(128, 256, 512, 256, 128), in_channels=None, out_channels=None,
+                 res=None, *, dtype=None, device="cuda", generator=None):
+        super().__init__()
+        device = resolve_device(device)
+        g = default_generator(generator)
+        in_dim = in_channels if in_channels is not None else point_dim
+        out_dim = out_channels if out_channels is not None else point_dim
+        self.residual = res if res is not None else residual
+        self.hidden = tuple(hidden)
+        kw = dict(dtype=dtype, device=device, generator=g)
+        dims = (in_dim,) + self.hidden
+        for i, f in enumerate(self.hidden):
+            setattr(self, f"cs_{i}", ConcatSquashDense(dims[i], context_dim + 3, f, **kw))
+        self.cs_out = ConcatSquashDense(dims[-1], context_dim + 3, out_dim, **kw)
+
+    def forward(self, x, t, ctx, anchors=None, variances=None, seg_mask=None, valid_id=None,
+                train: bool = False, generator=None):
+        if isinstance(ctx, (list, tuple)):
+            ctx = torch.cat([c if c.ndim == 3 else c[:, None] for c in ctx], dim=-1)
+        elif ctx.ndim == 2:
+            ctx = ctx[:, None]
+        tf = t.float()[:, None]
+        time_emb = torch.cat([tf, torch.sin(tf), torch.cos(tf)], dim=-1)[:, None]
+        ct = torch.promote_types(ctx.dtype, time_emb.dtype)
+        cond = torch.cat([time_emb.expand(*ctx.shape[:2], 3), ctx.to(ct)], dim=-1)
+        h = x
+        for i in range(len(self.hidden)):
+            h = F.leaky_relu(getattr(self, f"cs_{i}")(h, cond), 0.01)
+        h = self.cs_out(h, cond)
+        return x + h if self.residual and x.shape[-1] == h.shape[-1] else h

@@ -27,8 +27,7 @@ Port of ``difffacto_tpu/nn/attention.py``:
 
 With ``train=True`` the blocks apply dropout where the JAX blocks do: after
 each attention's out-projection and on the feed-forward's inner activations;
-the draws come from an explicit generator. Two-attention blocks are ported
-for generation only.
+the draws come from an explicit generator.
 """
 
 from __future__ import annotations
@@ -39,6 +38,7 @@ from torch import nn
 from ..ops.fused_block import fused_block
 from ..ops.fused_block import takes as block_takes
 from ..ops.fused_ff import pick_tile
+from ..utils.device import kernel_dtype
 from .functional import gelu, ln_stats_f32
 from .layers import (Dense, FeedForward, FusedLNFF, LayerNorm, default_generator, dropout,
                      lecun_normal, param)
@@ -128,9 +128,9 @@ class TransformerBlock(nn.Module):
 
     forward(x (B, N, dim), context (B, M, context_dim) or None, mask (B, M)
     or None, train, generator, y (B, y_dim): the adaLN condition). Without a
-    context the attentions are self-attention. ``train=True`` with
-    ``single_attn=False`` raises: two-attention training is not ported yet
-    (``ROADMAP.md`` queue A)."""
+    context the attentions are self-attention. With ``train=True`` both
+    attentions and the feed-forward take their dropout, as the JAX block
+    trains them; its FF then runs the unfused math."""
 
     def __init__(self, dim: int, n_heads: int, d_head: int, context_dim=None,
                  dropout: float = 0.0, gated_ff: bool = True, single_attn: bool = False,
@@ -157,9 +157,6 @@ class TransformerBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, context=None, mask=None, train: bool = False,
                 generator=None, y=None) -> torch.Tensor:
-        if train and not self.single_attn:
-            raise NotImplementedError(
-                "the two-attention block is ported for generation only (train=False)")
         if not self.single_attn:
             x = self.attn1(self.norm1(x), context, mask, train, generator) + x
         x = self.attn2(self.norm2(x), context, mask, train, generator) + x
@@ -229,16 +226,17 @@ class BasicTransformerBlock(nn.Module):
         M = context.shape[1] if context is not None else N
         h_, dh = self.n_heads, self.d_head
         if not train and context is not None and block_kernel_takes(D, h_, M, N):
+            kdt = kernel_dtype(x.device, cdt)
             ctx_c = context.to(cdt)
             ones = torch.ones(B, M, device=x.device)
             return fused_block(
-                x.to(cdt).contiguous(), (ctx_c @ self.wk.to(cdt)).contiguous(),
-                (ctx_c @ self.wv.to(cdt)).contiguous(),
+                x.to(kdt).contiguous(), (ctx_c @ self.wk.to(cdt)).to(kdt).contiguous(),
+                (ctx_c @ self.wv.to(cdt)).to(kdt).contiguous(),
                 (ones if mask is None else mask.float()).contiguous(),
-                self.norm2_scale.to(cdt), self.norm2_bias.to(cdt), self.wq.to(cdt),
-                self.wout.to(cdt), self.bout.float(), self.ffn_ln_scale.to(cdt),
-                self.ffn_ln_bias.to(cdt), self.ffn_w1.to(cdt), self.ffn_b1.float(),
-                self.ffn_w2.to(cdt), self.ffn_b2.float(), dh**-0.5, h_,
+                self.norm2_scale.to(kdt), self.norm2_bias.to(kdt), self.wq.to(kdt),
+                self.wout.to(kdt), self.bout.float(), self.ffn_ln_scale.to(kdt),
+                self.ffn_ln_bias.to(kdt), self.ffn_w1.to(kdt), self.ffn_b1.float(),
+                self.ffn_w2.to(kdt), self.ffn_b2.float(), dh**-0.5, h_,
             ).to(x.dtype)
 
         hq = ln_stats_f32(x, self.norm2_scale, self.norm2_bias).to(cdt)

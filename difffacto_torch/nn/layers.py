@@ -21,6 +21,7 @@ from torch import nn
 
 from ..ops.fused_ff import fused_ln_geglu_ff, pick_tile
 from ..ops.fused_ff import takes as ff_takes
+from ..utils.device import kernel_dtype
 from .functional import gelu, ln_stats_f32
 
 _TRUNC_STD = 0.87962566103423978  # std of a standard normal truncated to [-2, 2]
@@ -247,9 +248,10 @@ class FusedLNFF(nn.Module):
         D = x.shape[-1]
         needs_grad = torch.is_grad_enabled() and (x.requires_grad or self.w1.requires_grad)
         if not train and x.ndim == 3 and ff_kernel_takes(D, x.shape[0] * x.shape[1], needs_grad):
+            kdt = kernel_dtype(x.device, cdt)
             out = fused_ln_geglu_ff(
-                x.reshape(-1, D).to(cdt).contiguous(), self.ln_scale.to(cdt),
-                self.ln_bias.to(cdt), self.w1.to(cdt), self.b1.float(), self.w2.to(cdt),
+                x.reshape(-1, D).to(kdt).contiguous(), self.ln_scale.to(kdt),
+                self.ln_bias.to(kdt), self.w1.to(kdt), self.b1.float(), self.w2.to(kdt),
                 self.b2.float())
             return out.reshape(x.shape).to(x.dtype)
         h = ln_stats_f32(x.float(), self.ln_scale, self.ln_bias).to(cdt)

@@ -4,7 +4,8 @@ interpolate parts with a config file.
 The peer of ``tools/run_net.py`` with the same flags (``--config-file``,
 ``--task``, ``--seed``, ``--no_eval``, ``--short_val``, ``--gen_num``,
 ``--part_id``, ``--interpolation_dir``, ``--prefix``, ``--save_dir``), run
-on the card unless ``--cpu`` is given. ``main(argv)`` returns what it ran:
+on the card unless ``--cpu`` is given; ``--runner pretrain`` trains each
+part's own denoiser (``runner/extra_runners.py``). ``main(argv)`` returns what it ran:
 the ``Runner`` after ``train``, the metric dict after ``val`` and
 ``val_gen``, the written arrays after ``interpolation`` and ``mixing``. A
 caller that changes a few keys writes a config whose ``_base_`` names the
@@ -19,9 +20,8 @@ from typing import Optional, Sequence
 
 RUNNERS = ("auto", "default", "pretrain", "gan", "language")
 NOT_PORTED = {
-    "pretrain": "queue A item 7, the secondary families",
-    "gan": "queue A item 7, the secondary families",
-    "language": "queue A item 7, the secondary families",
+    "gan": "queue A item 6, the secondary families",
+    "language": "queue A item 6, the secondary families",
 }
 
 
@@ -48,6 +48,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 def main(argv: Optional[Sequence[str]] = None):
     from ..config import get_cfg, init_cfg
     from ..utils.device import resolve_device
+    from .extra_runners import PretrainRunner
     from .runner import Runner
 
     args = parse_args(argv)
@@ -65,7 +66,8 @@ def main(argv: Optional[Sequence[str]] = None):
             raise NotImplementedError(
                 f"'{what}' is not ported yet (ROADMAP.md, {NOT_PORTED[what]})")
 
-    runner = Runner(args=args, cfg=cfg, device=device)
+    runner_cls = PretrainRunner if kind == "pretrain" else Runner
+    runner = runner_cls(args=args, cfg=cfg, device=device)
     if args.task == "train":
         runner.run()
         return runner

@@ -13,12 +13,16 @@ The port of ``difffacto_tpu/runner/runner.py:Runner`` for one device:
   ``reconstruct``) and scores it through the dataset's ``evaluate``;
   ``generate_samples`` and ``evaluate_gen`` are the val_gen protocol
   (``runner/evaluation.py``);
-* checkpoints (``utils/checkpoint.py``), a reference ``.pth``
+* checkpoints (``utils/checkpoint.py``), the JAX package's ``.msgpack``
+  checkpoints (``utils/jax_checkpoint.py``), a reference ``.pth``
   (``utils/torch_ingest.py``), auto-resume and the stage-1 -> stage-2 wiring
   (``model_only``, ``train_aligner``).
 
-The model computes in bf16 on the card, the dtype its trunk kernels take,
-and in float32 on the CPU. ``make_pack_spec`` and ``pack_batch`` (a TPU
+The model computes in float32 on the card and on the CPU, as the JAX
+``Runner`` builds it (``difffacto_tpu/runner/runner.py:168``): the flow prior,
+PointNetV2, the aligner and the chain in float32, and bf16 only at the
+operands of the hand-written kernels, which cast at the call
+(``utils/device.kernel_dtype``). ``make_pack_spec`` and ``pack_batch`` (a TPU
 transfer-link measure) and the device meshes come with the multi-GPU port.
 """
 
@@ -40,6 +44,8 @@ from ..parallel.train import init_train_state, make_train_step
 from ..utils import loggers  # noqa: F401  (registers RunLogger)
 from ..utils.checkpoint import load_checkpoint, save_checkpoint, search_ckpt
 from ..utils.device import resolve_device
+from ..utils.jax_checkpoint import read_jax_checkpoint
+from ..utils.jax_params import load_jax_params, load_jax_train_state
 from ..utils.registry import DATASETS, HOOKS, MODELS, build_from_cfg
 from ..utils.torch_ingest import load_reference_checkpoint
 from .evaluation import evaluate_gen, generate_samples
@@ -116,9 +122,8 @@ class Runner:
         self.no_eval = bool(getattr(args, "no_eval", False))
         self.short_val = bool(getattr(args, "short_val", False))
 
-        # bf16 on the card, the dtype the trunk kernels take; float32 on the CPU
-        dtype = torch.bfloat16 if self.device.type == "cuda" else None
-        self.model = build_from_cfg(cfgdict(cfg.model), MODELS, device=self.device, dtype=dtype,
+        # float32 on every device; the kernels cast their own operands to bf16
+        self.model = build_from_cfg(cfgdict(cfg.model), MODELS, device=self.device,
                                     seed=self.seed)
         self.train_loader, _ = build_from_cfg(cfgdict(cfg.dataset.train), DATASETS)
         self.val_loader, _ = build_from_cfg(cfgdict(cfg.dataset.val), DATASETS)
@@ -180,7 +185,7 @@ class Runner:
 
     @staticmethod
     def _norm_ckpt(path):
-        if path.endswith(".pt") or path.endswith(".pth"):
+        if path.endswith((".pt", ".pth", ".msgpack")):
             return path
         return path + ".pt"
 
@@ -193,6 +198,9 @@ class Runner:
             load_reference_checkpoint(path, self.model)
             self.logger.print_log(f"loaded reference torch weights from {path}")
             return
+        if path.endswith(".msgpack"):
+            self._load_jax(path, model_only)
+            return
         self.state, meta = load_checkpoint(path, self.state, model_only=model_only)
         if not model_only:
             self.epoch = int(meta.get("epoch", 0))
@@ -200,6 +208,23 @@ class Runner:
             if meta["noise_table"] is not None:
                 self.train_loader.dataset.noises = meta["noise_table"]
         self.logger.print_log(f"resumed from {path} (epoch {self.epoch})")
+
+    def _load_jax(self, path, model_only):
+        """A checkpoint of the JAX package's Runner: the weights alone with
+        ``model_only`` (every key must map), else the step, Adam's state, the
+        epoch and the iteration too. It carries no CIMLE table, so a resumed
+        run trains on the pre-cache noise until the next re-cache, as the
+        JAX Runner does."""
+        tree, meta = read_jax_checkpoint(path)
+        if model_only:
+            load_jax_params(self.model, tree["params"], tree["batch_stats"])
+            self.logger.print_log(f"loaded the JAX package's weights from {path}")
+            return
+        self.state = load_jax_train_state(self.state, self.tx, tree)
+        self.epoch = int(meta.get("epoch", 0))
+        self.iter = int(meta.get("iter", self.epoch * self.iters_per_epoch))
+        self.logger.print_log(f"resumed from the JAX package's {path} (epoch {self.epoch}); it "
+                              "holds no CIMLE table: none until the next re-cache")
 
     def save(self):
         path = save_checkpoint(self.work_dir, self.epoch, self.state,

@@ -19,6 +19,14 @@ def resolve_device(device="cuda") -> torch.device:
     return dev
 
 
+def kernel_dtype(device, compute_dtype) -> torch.dtype:
+    """The dtype of a hand-written kernel's operands on ``device``: bf16 on the
+    card, the only dtype the trunk, one-block and FF kernels read; on the CPU
+    the module's compute dtype, in which their plain versions run. A float32
+    module casts at the kernel call and takes the result back in float32."""
+    return torch.bfloat16 if torch.device(device).type == "cuda" else compute_dtype
+
+
 def randn(shape, generator, device, dtype=torch.float32) -> torch.Tensor:
     """A standard normal draw from an explicit generator.
 

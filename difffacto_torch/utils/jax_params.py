@@ -21,12 +21,22 @@ the mapping is a renaming:
 buffers (``mean``, ``var``); without ``batch_stats`` the buffers keep their
 values. A key that is missing or left over raises ``KeyError``; a shape that
 differs raises ``ValueError``.
+
+``export_jax_params(model)`` is the inverse: the two trees in the JAX layout,
+the flow parameters restacked on the part axis. ``export_jax_train_state``
+and ``load_jax_train_state`` carry a whole train state across, the step and
+optax's optimizer state with it: ``opt_state`` is optax's chain as
+``flax.serialization`` stores it (tuples as maps keyed "0", "1", ..., the
+clip and scale states as empty maps, Adam's ``count``, ``mu`` and ``nu``,
+the schedule's ``count``), laid out by ``jax_opt_layout`` from the port's
+optimizer. ``mu`` and ``nu`` take the parameters' renaming and per-part
+split; a moment that does not map raises as a parameter does.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping, Sequence
+from typing import Dict, List, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -42,6 +52,18 @@ _RENAMES = (
     (re.compile(r"^GroupNorm_0$"), "group_norm"),
     (re.compile(r"^(emb|ln)_(\d+)$"), r"\1.\2"),
     (re.compile(r"^(prior|lang)_block_(\d+)$"), r"\1_blocks.\2"),
+)
+
+
+# list names of the port (a dotted index follows) -> the JAX prefix of ``<prefix>_<i>``
+_LISTS = {"blocks": "block", "chain": "chain", "emb": "emb", "ln": "ln",
+          "prior_blocks": "prior_block", "lang_blocks": "lang_block"}
+_INVERSE = (
+    (re.compile(r"^dense(\d+)$"), lambda m: ["Dense_" + m.group(1)]),
+    (re.compile(r"^geglu$"), lambda m: ["GEGLU_0"]),
+    (re.compile(r"^bn(\d+)$"), lambda m: ["TorchBatchNorm_" + m.group(1), "BatchNorm_0"]),
+    (re.compile(r"^ln(\d+)$"), lambda m: ["LayerNorm_" + m.group(1)]),
+    (re.compile(r"^group_norm$"), lambda m: ["GroupNorm_0"]),
 )
 
 
@@ -67,7 +89,7 @@ def _flatten(node: Mapping, prefix: str, out: Dict[str, np.ndarray]):
             else:
                 _flatten(val, name + ".", out)
         else:
-            out[name] = np.asarray(val)
+            out[name] = val.float().numpy() if isinstance(val, torch.Tensor) else np.asarray(val)
 
 
 def flatten_jax_tree(tree: Mapping) -> Dict[str, np.ndarray]:
@@ -75,6 +97,150 @@ def flatten_jax_tree(tree: Mapping) -> Dict[str, np.ndarray]:
     flat: Dict[str, np.ndarray] = {}
     _flatten(tree, "", flat)
     return flat
+
+
+def jax_path(name: str) -> Tuple[List[str], int]:
+    """A port name -> (its key path in the JAX tree, the part index of a
+    ``flow.flows.{p}`` parameter, stacked on the leading axis there, or -1)."""
+    tokens, path, part, i = name.split("."), [], -1, 0
+    while i < len(tokens):
+        tok = tokens[i]
+        nxt = tokens[i + 1] if i + 1 < len(tokens) else ""
+        if tok == "flows" and nxt.isdigit():
+            path.append(tok)
+            part, i = int(nxt), i + 2
+            continue
+        if tok in _LISTS and nxt.isdigit():
+            path.append(f"{_LISTS[tok]}_{nxt}")
+            i += 2
+            continue
+        for pat, fn in _INVERSE:
+            m = pat.match(tok)
+            if m:
+                path.extend(fn(m))
+                break
+        else:
+            path.append(tok)
+        i += 1
+    return path, part
+
+
+def _unflatten(named: Mapping[str, torch.Tensor]) -> Dict:
+    """{port name: tensor} -> the JAX tree of float32 numpy arrays (parts restacked)."""
+    tree: Dict = {}
+    stacks: Dict[Tuple[str, ...], Dict[int, np.ndarray]] = {}
+    for name, t in named.items():
+        path, part = jax_path(name)
+        arr = t.detach().float().cpu().numpy()
+        if part >= 0:
+            stacks.setdefault(tuple(path), {})[part] = arr
+            continue
+        _put(tree, path, arr, name)
+    for path, parts in stacks.items():
+        if sorted(parts) != list(range(len(parts))):
+            raise KeyError(f"{'/'.join(path)}: flow parts {sorted(parts)} are not 0..n-1")
+        _put(tree, list(path), np.stack([parts[p] for p in range(len(parts))]), "/".join(path))
+    return tree
+
+
+def _put(tree: Dict, path: List[str], value, name: str):
+    node = tree
+    for key in path[:-1]:
+        node = node.setdefault(key, {})
+        if not isinstance(node, dict):
+            raise KeyError(f"{name}: {key} is both a leaf and a module in the JAX tree")
+    if path[-1] in node:
+        raise KeyError(f"{name}: two port names map to {'/'.join(path)}")
+    node[path[-1]] = value
+
+
+def export_jax_params(model: nn.Module) -> Tuple[Dict, Dict]:
+    """The model as the JAX package's ``(params, batch_stats)`` trees, float32
+    numpy leaves: the inverse of ``load_jax_params``."""
+    return (_unflatten(dict(model.named_parameters())),
+            _unflatten(dict(model.named_buffers())))
+
+
+ADAM, SCHEDULE = "adam", "schedule"  # the two optax states that hold numbers
+
+
+def jax_opt_layout(tx) -> Dict:
+    """The tree of optax's state for the JAX optimizer that the config of the
+    port's optimizer ``tx`` builds (``difffacto_tpu/parallel/optim.py:102-150``),
+    as flax stores it: ``ADAM`` marks Adam's (count, mu, nu), ``SCHEDULE`` the
+    schedule's count, {} a state with no numbers."""
+    sched = SCHEDULE if tx.schedule is not None else {}
+    if tx.kind in ("adam", "adamax"):
+        base = {"0": ADAM, "1": sched}
+        if tx.weight_decay:
+            base = {"0": {}, "1": base}  # add_decayed_weights first
+    elif tx.kind == "adamw":
+        base = {"0": ADAM, "1": {}, "2": sched}
+    else:  # sgd
+        base = {"0": {}, "1": sched}
+    chain = ([{}] if tx.max_norm is not None else []) + [base]
+    chain += [{}] if tx.lr_scale_fn is not None else []
+    return {str(i): node for i, node in enumerate(chain)}
+
+
+def export_jax_train_state(state, tx) -> Dict:
+    """The port's ``TrainState`` as the state dict the JAX package's
+    checkpoint holds: step, params, batch_stats, opt_state."""
+    params, batch_stats = export_jax_params(state.model)
+    names = [n for n, _ in state.model.named_parameters()]
+    count = np.asarray(int(state.opt_state["count"].item()), np.int32)
+
+    def fill(node):
+        if node == ADAM:
+            return {"count": count,
+                    **{k: _unflatten(dict(zip(names, state.opt_state[k]))) for k in ("mu", "nu")}}
+        if node == SCHEDULE:
+            return {"count": count}
+        return {k: fill(v) for k, v in node.items()}
+
+    return {"step": np.asarray(state.step, np.int32), "params": params,
+            "batch_stats": batch_stats, "opt_state": fill(jax_opt_layout(tx))}
+
+
+def load_jax_train_state(state, tx, tree: Mapping):
+    """A JAX checkpoint's state dict into the port's ``TrainState``: the
+    parameters and BatchNorm buffers in place, Adam's moments, the count and
+    the step into a new state, which is returned. The optimizer state must
+    have the layout of ``jax_opt_layout(tx)``; a key of it, or a moment, that
+    is missing or left over raises ``KeyError``, a shape ``ValueError``."""
+    from ..parallel.train import TrainState
+
+    model = state.model
+    found: Dict[str, Mapping] = {}
+
+    def walk(node, got, path):
+        if node in (ADAM, SCHEDULE):
+            want = {"count", "mu", "nu"} if node == ADAM else {"count"}
+            if not isinstance(got, Mapping) or set(got) != want:
+                raise KeyError(f"opt_state{path}: expected {sorted(want)}, got "
+                               f"{sorted(got) if isinstance(got, Mapping) else type(got).__name__}")
+            found.setdefault(node, got)
+            return
+        if not isinstance(got, Mapping) or set(got) != set(node):
+            raise KeyError(f"opt_state{path}: expected keys {sorted(node)}, got "
+                           f"{sorted(got) if isinstance(got, Mapping) else type(got).__name__}")
+        for k in node:
+            walk(node[k], got[k], f"{path}/{k}")
+
+    walk(jax_opt_layout(tx), tree["opt_state"], "")
+    load_jax_params(model, tree["params"], tree["batch_stats"])
+    params = dict(model.named_parameters())
+    opt = {}
+    if ADAM in found:
+        for key in ("mu", "nu"):
+            targets = {n: torch.empty_like(p) for n, p in params.items()}
+            _fill(targets, flatten_jax_tree(found[ADAM][key]))
+            opt[key] = list(targets.values())
+    source = found.get(ADAM) or found.get(SCHEDULE) or {"count": tree["step"]}
+    device = next(iter(params.values())).device
+    opt["count"] = torch.tensor(float(np.asarray(source["count"])), dtype=torch.float32,
+                                device=device)
+    return TrainState(step=int(np.asarray(tree["step"])), model=model, opt_state=opt)
 
 
 def load_jax_params(model: nn.Module, params: Mapping, batch_stats: Mapping = None,

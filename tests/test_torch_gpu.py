@@ -697,3 +697,44 @@ def test_pth_round_trip_on_the_card(cuda, tmp_path):
         got = card.encoder_mod.aligner(code.to(cuda), valid.to(cuda), noise=noise.to(cuda))
     for g, w in zip(got, want):
         torch.testing.assert_close(g.cpu(), w, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.gpu
+def test_card_runner_computes_in_float32_as_the_jax_runner(cuda, tmp_path):
+    """The card Runner builds its model in float32, as the JAX Runner does
+    (``difffacto_tpu/runner/runner.py:168``), and casts to bf16 only at the
+    kernels' operands (ROADMAP C8, the dtype probe). On ``configs/bench_train_tpu.py``
+    (gen_chair at full width) the loss on one batch, every draw injected, in
+    eval mode: every module computes in float32, the flow prior's terms and
+    the fit loss equal the CPU Runner's to 1e-4 (a model built in bf16 would
+    round each operand by 2^-9 relative), the mse loss, which goes through the
+    bf16 trunk kernel, to 2e-2. A model built in bf16 on the card fails."""
+    import os
+
+    from difffacto_torch import Config, Runner
+    from difffacto_torch.models import ensure_attn_maps
+    from difffacto_torch.runner.runner import device_batch
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    losses = {}
+    for where in (cuda, torch.device("cpu")):
+        cfg = Config(os.path.join(root, "configs", "bench_train_tpu.py"))
+        cfg.work_dir = str(tmp_path / where.type)
+        r = Runner(cfg=cfg, device=where)
+        assert {getattr(m, "dtype", None) for m in r.model.modules()} == {None}
+        batch = next(iter(r.train_loader))
+        B, N = np.asarray(batch["ref"]).shape[:2]
+        rng = np.random.RandomState(3)
+        db = device_batch(batch, where, r._slim_train)
+        db.update({k: torch.as_tensor(v, device=where) for k, v in dict(
+            diffusion_t=rng.randint(0, 100, B), diffusion_noise=rng.randn(B, N, 3).astype(np.float32),
+            part_code_eps=rng.randn(B, 4, 256).astype(np.float32)).items()})
+        with torch.no_grad():
+            out = r.model.loss(ensure_attn_maps(db), 0, False)
+        losses[where.type] = {k: float(v.float().mean()) for k, v in out.items()}
+    card, cpu = losses["cuda"], losses["cpu"]
+    prior = [k for k in cpu if k in ("prior_loss", "fit_loss") or k.startswith(("log_p", "entropy"))]
+    assert len(prior) == 10
+    for k in prior:
+        np.testing.assert_allclose(card[k], cpu[k], rtol=1e-4, err_msg=k)
+    np.testing.assert_allclose(card["mse_loss"], cpu["mse_loss"], rtol=2e-2)

@@ -293,13 +293,15 @@ def test_gen_chair_reaches_the_port_with_no_key_dropped():
 
 def test_unported_model_options_raise():
     """A value that selects behaviour not ported yet raises and names its
-    ROADMAP item; DDIM, which raised until it was ported, builds the JAX
-    package's step subset."""
+    ROADMAP item; DDIM and ``pretrain_prior``, which raised until they were
+    ported, build the JAX package's step subset and one denoiser a part."""
     base = Config(TINY).model.dump()
-    for changes, item in ((dict(language_encoder=dict(type="LSTM")), "item 7"),
-                          (dict(pretrain_prior=True), "item 4")):
-        with pytest.raises(NotImplementedError, match=item):
-            build_from_cfg(dict(base, **changes), MODELS, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 6"):
+        build_from_cfg(dict(base, language_encoder=dict(type="LSTM")), MODELS, device="cpu")
+    pm = build_from_cfg(dict(base, pretrain_prior=True), MODELS, device="cpu")
+    heads = {n.split(".")[0] for n, _ in pm.named_parameters()}
+    assert heads == {"encoder_mod"} | {f"net_list_{i}" for i in range(base["num_anchors"])}
+    assert pm.net is pm.net_list[0]
     # DDIM raised here before the chain was ported; the model now builds
     # the JAX package's DDIM subset and direction coefficients from its keys.
     from difffacto_tpu.models.anchor_diff import build_diffusion as jax_build_diffusion

@@ -46,8 +46,9 @@ def test_import_leaves_jax_out():
 def test_no_jax_import_in_the_port():
     files = sorted((ROOT / "difffacto_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "tools" / "test_gen_torch.py",
-        ROOT / "tools" / "profile_train_torch.py", ROOT / "tools" / "eval_ckpt_curve_torch.py"]
-    assert len(files) >= 43
+        ROOT / "tools" / "profile_train_torch.py", ROOT / "tools" / "eval_ckpt_curve_torch.py",
+        ROOT / "tools" / "quality_torch.py", ROOT / "tools" / "curve_probe_torch.py"]
+    assert len(files) >= 47
     bad = []
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):
@@ -58,7 +59,7 @@ def test_no_jax_import_in_the_port():
                 names = [node.module or ""]
             bad += [f"{path.name}: {n}" for n in names
                     if n.split(".")[0] in ("jax", "flax", "jaxlib", "optax", "difffacto_tpu",
-                                           "__graft_entry__")]
+                                           "__graft_entry__", "msgpack", "ml_dtypes")]
     assert not bad, bad
 
 

@@ -161,8 +161,13 @@ def test_two_attention_block_matches_jax(interpret, ff_calls, with_ctx):
                       torch.as_tensor(mask)))
     assert ff_calls == ([4 * n] if with_ctx else [])
     np.testing.assert_allclose(got, want, **TOL)
-    with pytest.raises(NotImplementedError):
-        blk(torch.as_tensor(x), train=True)
+    # Training (dropout 0 here) runs the unfused math under autograd, as the
+    # JAX block trains (deterministic=False); it raised before it was ported.
+    want_train = np.asarray(jblk.apply({"params": params}, *jin, None, False))
+    got_train = blk(torch.as_tensor(x), None if ctx is None else torch.as_tensor(ctx),
+                    torch.as_tensor(mask), train=True)
+    assert got_train.requires_grad and ff_calls == ([4 * n] if with_ctx else [])
+    np.testing.assert_allclose(t2n(got_train.detach()), want_train, **TOL)
 
 
 def test_aligner_two_attention_matches_jax(interpret, ff_calls):

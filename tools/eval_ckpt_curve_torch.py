@@ -10,6 +10,11 @@ anchored_diffusion.py:114-126, configs/gen_chair.py:81-84).
     python tools/eval_ckpt_curve_torch.py --config-file configs/bench_train_tpu.py \\
         --gen_num 64 [--ckpts work_dirs/x/checkpoints/ckpt_150.pt ...] [--ddim 25] [--cpu]
 
+``--ckpts`` also takes the JAX package's ``ckpt_<epoch>.msgpack``, as
+``tools/eval_ckpt_curve.py`` scores them; ``--model-only`` reads the weights
+alone (a checkpoint written without its optimizer state) and the epoch from
+the ``.meta.json`` beside it.
+
 It runs on the CUDA card and raises where there is none, unless ``--cpu``
 is given.
 """
@@ -38,6 +43,8 @@ def parse_args(argv=None):
                    help="evaluate with DDIM sampling at this many steps (0: the full chain)")
     p.add_argument("--ddim-discretize", default="quad", choices=["uniform", "quad"])
     p.add_argument("--ddim-eta", type=float, default=1.0)
+    p.add_argument("--model-only", action="store_true",
+                   help="read the weights alone; the epoch from the .meta.json")
     p.add_argument("--cpu", action="store_true", help="run on the CPU instead of the card")
     return p.parse_args(argv)
 
@@ -68,7 +75,10 @@ def main(argv=None):
         key=lambda f: int(re.search(r"ckpt_(\d+)\.pt$", f).group(1)))
     rows = []
     for path in ckpts:
-        runner.load(path, model_only=False)
+        runner.load(path, model_only=args.model_only)
+        if args.model_only:
+            with open(os.path.splitext(path)[0] + ".meta.json") as f:
+                runner.epoch = int(json.load(f)["epoch"])
         t0 = time.time()
         metrics = runner.generate_samples(num_gen=args.gen_num, batch=args.batch)
         row = {"ckpt": os.path.basename(path), "epoch": runner.epoch,
