@@ -180,6 +180,31 @@ Phases, each fatal (non-zero exit, no "ok" line):
    ``configs/bench_train_tpu.py`` (PointwiseNet at its defaults,
    ``pts_per_part`` 512, ``learn_variance`` off as the JAX sampler needs):
    one epoch and val, no kernel launch, finite samples of each part, timed.
+13. multi-GPU (``parallel/mesh.py``, ``parallel/axes.py``): prints the card
+   count, then runs ranks of this script (``--rank``, a ``FileStore`` under a
+   temporary directory): NCCL over ``min(count, 4)`` cards where there are
+   several; on one card NCCL at world size 1 through the whole distributed
+   path, then 2 ranks sharing the card over gloo (which collectives gloo ran
+   on CUDA tensors directly, and which through the host, is printed). Each
+   run prints its backend and world size and holds, at full width: 3 dp
+   training steps at dropout 0 on one global batch of 32 x 2048, every draw
+   injected, against the same ranks' arithmetic done by this process on one
+   rank (each slice's loss and gradients from the same statistics, their
+   mean, one update: the plain step at world size 1), at phase 9's
+   tolerances, with one B2 and one B3 launch a step on each rank; dp
+   generation at global batch 16 (timed after one warm-up), every draw
+   injected, against the one-rank run within E2E_REL_L2, with 100 B1
+   launches on each rank; with two ranks
+   or more, sp = 2 generation (the point axis cut in two) held the same way
+   and one sp = 2 training step against the one-rank step; the 64 v 64
+   protocol on phase 6's clouds with its sweeps dealt to the ranks, equal to
+   phase 6's metrics, its B5 launches split across the ranks; then
+   ``tools/run_net_torch.py --launcher pytorch`` under
+   ``torch.distributed.run`` for 2 epochs of ``configs/bench_train_tpu.py``
+   (CIMLE cache, val with its generation and sweeps sharded, a checkpoint),
+   its epoch seconds printed with what they are (ranks sharing one card
+   measure no scaling). Launch counts are set to 0 before each run and read
+   after; the kernels line carries ``launches_multi_gpu``.
 
 The last line is {"ok": true, "device": {...}}.
 """
@@ -1729,6 +1754,362 @@ def _gen_chair_net():
     return Config(os.path.join(ROOT, "configs", "gen_chair.py")).model.dump()["diffusion"]["net"]
 
 
+# Phase 13. The global batches of the multi-GPU runs; the 3 training steps
+# are held at phase 9's tolerances (loss, grad_norm, the mean update) against
+# the same arithmetic on one rank, generation within E2E_REL_L2.
+MG_TRAIN_BATCH, MG_TRAIN_STEPS, MG_GEN_BATCH, MG_SEED = 32, 3, 16, 1313
+MG_RUN_TIMEOUT, MG_CLI_TIMEOUT = 420, 420
+MG_CLI_OVERRIDES = dict(max_epoch=2, cimle_cache_interval=2, eval_interval=2,
+                        checkpoint_interval=2, log_interval=1)
+
+
+def mg_train_batch():
+    """Phase 13's global training batch, numpy, with the diffusion draws
+    injected (the stage-1 model draws nothing else at dropout 0)."""
+    b = example_batch(MG_TRAIN_BATCH, 2048, seed=31)
+    rng = np.random.RandomState(32)
+    b["diffusion_t"] = rng.randint(0, 100, MG_TRAIN_BATCH).astype(np.int64)
+    b["diffusion_noise"] = rng.randn(MG_TRAIN_BATCH, 2048, 3).astype(np.float32)
+    return b
+
+
+def mg_gen_draws(device, steps):
+    """Every draw of a batch-16 generation: flow latents, the aligner's
+    noise, x_T and each step's draw."""
+    rng = np.random.RandomState(33)
+    B = MG_GEN_BATCH
+    d = dict(z=rng.randn(B, 4, 256), cimle_noise=rng.randn(B, 32), noise=rng.randn(B, 2048, 3),
+             step_noise=rng.randn(steps, B, 2048, 3))
+    valid = np.ones((B, 4), np.float32)
+    valid[::3, 1] = 0.0
+    out = {k: torch.as_tensor(v, dtype=torch.float32, device=device) for k, v in d.items()}
+    out["valid_id"] = torch.as_tensor(valid, device=device)
+    return out
+
+
+def mg_counts(zero=False):
+    from difffacto_torch.ops import emd_hybrid as eh
+    from difffacto_torch.ops import fps as fpsm
+    from difffacto_torch.ops import fused_core as fc
+    from difffacto_torch.ops import fused_core_train as fct
+
+    if zero:
+        fc.launches = fct.launches_fwd = fct.launches_bwd = eh.launches = fpsm.launches = 0
+    return dict(fused_core=fc.launches, fused_trunk_train_fwd=fct.launches_fwd,
+                fused_trunk_train_bwd=fct.launches_bwd, emd_hybrid=eh.launches, fps=fpsm.launches)
+
+
+def mg_flat(tensors):
+    return torch.cat([t.detach().float().reshape(-1) for t in tensors]).cpu()
+
+
+def mg_train(mesh, steps, dev, reference_world=None):
+    """``steps`` training steps at dropout 0 on phase 13's global batch, float32
+    as the Runner builds: over ``mesh`` (this rank's slice), or, with
+    ``reference_world``, that many ranks' arithmetic in turn on this one
+    (each slice's loss and gradients from the same statistics, the means,
+    one update). Returns the per-step metrics, ms a step, the parameters
+    before and after (flat, on the host)."""
+    from difffacto_torch.parallel import init_train_state, make_train_step, replicate, shard_batch
+    from difffacto_torch.parallel.train import fold_rng
+
+    model = build_train_model(dev, dropout=0.0, dtype=None)
+    if mesh is not None:
+        replicate(mesh, model)
+    tx = build_train_optimizer()
+    step = make_train_step(model, tx, mesh=mesh)
+    state = init_train_state(model, tx)
+    batch = mg_train_batch()
+    before = mg_flat(model.parameters())
+    local = to_device(shard_batch(mesh, batch) if mesh is not None else batch, dev)
+    metrics, ms = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if reference_world is None:
+            state, m = step(state, local, MG_SEED, 0)
+        else:
+            W = reference_world
+            b = MG_TRAIN_BATCH // W
+            start = [x.clone() for x in step.buffers]
+            parts = []
+            for d in range(W):
+                for buf, s0 in zip(step.buffers, start):
+                    buf.copy_(s0)
+                sl = {k: v[d * b:(d + 1) * b] for k, v in local.items()}
+                rng = fold_rng(MG_SEED, d) if W > 1 else MG_SEED
+                parts.append(step.local(state, sl, rng, 0) + ([x.clone() for x in step.buffers],))
+            with torch.no_grad():
+                for buf, s0 in zip(step.buffers, [sum(p[3][i] for p in parts) / W
+                                                  for i in range(len(start))]):
+                    buf.copy_(s0)
+            mean_m = {k: sum(p[1][k] for p in parts) / W for k in parts[0][1]}
+            state, m = step.apply(state, sum(p[0] for p in parts) / W, mean_m,
+                                  [sum(g) / W for g in zip(*(p[2] for p in parts))], start)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        metrics.append({k: float(v) for k, v in m.items()})
+    after = mg_flat(model.parameters())
+    del model, state, step
+    torch.cuda.empty_cache()
+    return dict(metrics=metrics, ms=ms, before=before, after=after)
+
+
+def mg_generate(mesh, dev, noise_scale):
+    """Phase 13's batch-16 generation, every draw injected, over ``mesh``
+    (None: one rank): (pred on the host, seconds, the chain's steps)."""
+    from difffacto_torch import sample_generation
+
+    model = build_model(noise_scale, dev)
+    steps = model.num_timesteps
+    d = mg_gen_draws(dev, steps)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pred = sample_generation(model, MG_GEN_BATCH, mesh=mesh, **d)["pred"].float()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    del model
+    return pred.cpu(), dt, steps
+
+
+def mg_device(rank):
+    """A rank's card: its own where there are enough, else shared."""
+    return torch.device("cuda", rank % torch.cuda.device_count())
+
+
+def mg_digest(t):
+    import hashlib
+
+    return hashlib.sha256(t.numpy().tobytes()).hexdigest()[:16]
+
+
+def multi_gpu_rank(argv):
+    """One rank of a phase-13 run: ``--rank R W BACKEND WORKDIR NOISE_SCALE``.
+    Writes rank<R>.json (launches, metrics, timings, digests) and, on rank 0,
+    rank0.pt (the tensors the parent holds against its one-rank runs)."""
+    import torch.distributed as dist
+
+    from difffacto_torch.parallel import make_mesh
+    from difffacto_torch.parallel.mesh import COLLECTIVES
+    from difffacto_torch.runner.evaluation import evaluate_gen
+
+    rank, world, backend, work, noise_scale = (int(argv[0]), int(argv[1]), argv[2], argv[3],
+                                               float(argv[4]))
+    dev = mg_device(rank)
+    torch.cuda.set_device(dev)
+    dist.init_process_group(backend, store=dist.FileStore(os.path.join(work, "store"), world),
+                            rank=rank, world_size=world)
+    try:
+        mesh = make_mesh()
+        out, tensors = dict(rank=rank, world=world, backend=dist.get_backend(), device=str(dev),
+                            card=torch.cuda.get_device_name(dev)), {}
+        mg_counts(zero=True)
+        t = mg_train(mesh, MG_TRAIN_STEPS, dev)
+        out["train"] = dict(launches=mg_counts(), metrics=t["metrics"], ms=t["ms"],
+                            digest=mg_digest(t["after"]))
+        tensors["train_after"] = t["after"]
+        mg_generate(mesh, dev, noise_scale)  # warm-up: a new process's first generation
+        mg_counts(zero=True)
+        pred, dt, steps = mg_generate(mesh, dev, noise_scale)
+        out["gen"] = dict(launches=mg_counts(), s=dt, steps=steps, digest=mg_digest(pred))
+        tensors["gen"] = pred
+        if world % 2 == 0:
+            sp = make_mesh(axis_names=("data", "points"), mesh_shape=(world // 2, 2))
+            mg_generate(sp, dev, noise_scale)
+            mg_counts(zero=True)
+            pred, dt, steps = mg_generate(sp, dev, noise_scale)
+            out["sp_gen"] = dict(launches=mg_counts(), s=dt, steps=steps, digest=mg_digest(pred))
+            tensors["sp_gen"] = pred
+            mg_counts(zero=True)
+            t = mg_train(sp, 1, dev)
+            out["sp_train"] = dict(launches=mg_counts(), metrics=t["metrics"], ms=t["ms"],
+                                   digest=mg_digest(t["after"]))
+            tensors["sp_train_after"] = t["after"]
+        with np.load(os.path.join(work, "protocol.npz")) as f:
+            gen, refs = f["gen"], f["refs"]
+        mg_counts(zero=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = evaluate_gen(gen, refs, device=dev, mesh=mesh)
+        torch.cuda.synchronize()
+        out["protocol"] = dict(launches=mg_counts(), s=time.perf_counter() - t0,
+                               metrics={k: float(v) for k, v in metrics.items()})
+        out["collectives"] = dict(COLLECTIVES)
+        with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+        if rank == 0:
+            torch.save(tensors, os.path.join(work, "rank0.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def mg_free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def mg_cli_run(world, work):
+    """``tools/run_net_torch.py --launcher pytorch`` under
+    ``torch.distributed.run`` with ``world`` ranks on this node: 2 epochs of
+    configs/bench_train_tpu.py. Returns the epoch seconds rank 0 logged."""
+    keys = dict(MG_CLI_OVERRIDES, work_dir=os.path.join(work, "cli"))
+    cfg = os.path.join(work, "bench_train_mg.py")
+    with open(cfg, "w") as f:
+        f.write(f"_base_ = [{os.path.join(ROOT, RUNNER_CONFIG)!r}]\n")
+        f.write("".join(f"{k} = {v!r}\n" for k, v in keys.items()))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", str(world),
+           "--master_addr", "127.0.0.1", "--master_port", str(mg_free_port()),
+           os.path.join(ROOT, "tools", "run_net_torch.py"), "--launcher", "pytorch",
+           "--config-file", cfg, "--task", "train"]
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=MG_CLI_TIMEOUT,
+                              cwd=work)
+    except subprocess.TimeoutExpired:
+        fail(f"--launcher pytorch with {world} ranks did not finish in {MG_CLI_TIMEOUT} s")
+    wall = time.perf_counter() - t0
+    text = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        print(text[-6000:])
+        fail(f"--launcher pytorch with {world} ranks exited {proc.returncode}")
+    epochs = [float(line.split("trained in ")[1].split()[0]) for line in text.splitlines()
+              if "trained in " in line]
+    started = [line.split("] ", 1)[-1] for line in text.splitlines()
+               if "[difffacto_torch] rank " in line or "ranks (" in line]
+    ckpt = os.path.join(work, "cli", "checkpoints", "ckpt_2.pt")
+    if len(epochs) != 2 or not os.path.exists(ckpt) or "validation @ epoch 2" not in text:
+        print(text[-6000:])
+        fail("--launcher pytorch: expected 2 logged epochs, val at epoch 2 and ckpt_2.pt")
+    return dict(epoch_s=epochs, wall_s=wall, started=started)
+
+
+def multi_gpu_phase(dev, noise_scale, phase6):
+    """Phase 13: the runs of the multi-GPU path (see the docstring)."""
+    import tempfile
+
+    count = torch.cuda.device_count()
+    print(f"torch.cuda.device_count() = {count}")
+    runs = [("nccl", min(count, 4))] if count > 1 else [("nccl", 1), ("gloo", 2)]
+    torch.cuda.empty_cache()
+    refs = {}
+    for _, world in runs:  # the one-rank arithmetic of each run, in this process
+        if world not in refs:
+            refs[world] = mg_train(None, MG_TRAIN_STEPS, dev, reference_world=world)
+            if world % 2 == 0:
+                refs[f"sp{world}"] = mg_train(None, 1, dev, reference_world=world // 2)
+    gen_ref, gen_ref_s, _ = mg_generate(None, dev, noise_scale)
+    torch.cuda.empty_cache()
+    total = {}
+    report = []
+    for backend, world in runs:
+        label = f"{backend} x{world}" + (" sharing one card" if world > count else "")
+        os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as work:
+            np.savez(os.path.join(work, "protocol.npz"), gen=phase6["gen"], refs=phase6["refs"])
+            t0 = time.perf_counter()
+            procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--rank",
+                                       str(r), str(world), backend, work, str(noise_scale)],
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                     for r in range(world)]
+            outs = []
+            for p in procs:
+                try:
+                    outs.append(p.communicate(timeout=MG_RUN_TIMEOUT)[0])
+                except subprocess.TimeoutExpired:
+                    for q in procs:
+                        q.kill()
+                        q.wait()
+                    fail(f"phase 13 {label}: a rank did not finish in {MG_RUN_TIMEOUT} s")
+            for r, (p, o) in enumerate(zip(procs, outs)):
+                if p.returncode != 0:
+                    print(o[-6000:])
+                    fail(f"phase 13 {label}: rank {r} exited {p.returncode}")
+            ranks = [json.load(open(os.path.join(work, f"rank{r}.json"))) for r in range(world)]
+            got = torch.load(os.path.join(work, "rank0.pt"))
+            wall = time.perf_counter() - t0
+            cli = mg_cli_run(world, work)
+        print(f"{label}: ranks {[(r['rank'], r['backend'], r['device']) for r in ranks]}, "
+              f"{wall:.1f} s")
+        for r in ranks:
+            if r["collectives"]:
+                print(f"  rank {r['rank']}: gloo on CUDA tensors ran {r['collectives']}")
+        row = dict(backend=backend, world=world, label=label, wall_s=wall, cli=cli)
+
+        def hold_train(key, ref, steps, lr_steps):
+            """Per step: the loss dict and grad_norm at phase 9's tolerances;
+            the parameters' change: mean |difference| within RUNNER_UPDATE_REL
+            of the mean |update|."""
+            worst = 0.0
+            for s in range(steps):
+                mine, want = ranks[0][key]["metrics"][s], ref["metrics"][s]
+                for k in ("total_loss", "mse_loss", "fit_loss"):
+                    worst = max(worst, abs(mine[k] - want[k]) / max(abs(want[k]), 1e-12))
+                gn = abs(mine["grad_norm"] - want["grad_norm"]) / want["grad_norm"]
+                if mine["skipped_nonfinite"] or gn > STEP_GNORM_RTOL:
+                    fail(f"phase 13 {label} {key} step {s}: grad_norm {mine['grad_norm']} vs "
+                         f"{want['grad_norm']}")
+            upd = ref["after"] - ref["before"]
+            diff = (got[f"{key}_after"] - ref["after"]).abs().mean().item()
+            rel = diff / upd.abs().mean().item()
+            digests = {r[key]["digest"] for r in ranks}
+            launches = [(r[key]["launches"]["fused_trunk_train_fwd"],
+                         r[key]["launches"]["fused_trunk_train_bwd"]) for r in ranks]
+            print(f"  {key}: {steps} steps, loss dict off by at most {worst:.3e} (tol "
+                  f"{STEP_LOSS_RTOL}), update difference {rel:.4f} of the mean update (tol "
+                  f"{RUNNER_UPDATE_REL}), ms a step {ranks[0][key]['ms']}, B2/B3 launches a "
+                  f"rank {launches}, ranks agree: {len(digests) == 1}")
+            if worst > STEP_LOSS_RTOL or rel > RUNNER_UPDATE_REL or len(digests) != 1:
+                fail(f"phase 13 {label}: {key} disagrees with the one-rank run")
+            if any(l != (steps, steps) for l in launches):
+                fail(f"phase 13 {label}: {key} launched B2/B3 {launches}, not once a step a rank")
+            return dict(loss_rel=worst, update_rel=rel, ms=ranks[0][key]["ms"])
+
+        def hold_gen(key):
+            d = (got[key] - gen_ref).norm() / gen_ref.norm()
+            launches = [r[key]["launches"]["fused_core"] for r in ranks]
+            digests = {r[key]["digest"] for r in ranks}
+            print(f"  {key}: batch {MG_GEN_BATCH}, relative L2 to the one-rank run {d:.3e} (tol "
+                  f"{E2E_REL_L2}), {ranks[0][key]['s']:.2f} s (one rank {gen_ref_s:.2f} s), B1 "
+                  f"launches a rank {launches}, ranks agree: {len(digests) == 1}")
+            if not torch.isfinite(got[key]).all() or d > E2E_REL_L2 or len(digests) != 1:
+                fail(f"phase 13 {label}: {key} disagrees with the one-rank generation")
+            steps = ranks[0][key]["steps"]
+            if any(n != steps for n in launches):
+                fail(f"phase 13 {label}: {key} launched B1 {launches} times, not {steps} a rank")
+            return dict(rel_l2=d.item(), s=ranks[0][key]["s"])
+
+        row["train"] = hold_train("train", refs[world], MG_TRAIN_STEPS, MG_TRAIN_STEPS)
+        row["gen"] = hold_gen("gen")
+        if world % 2 == 0:
+            row["sp_gen"] = hold_gen("sp_gen")
+            row["sp_train"] = hold_train("sp_train", refs[f"sp{world}"], 1, 1)
+        m6 = {k: float(v) for k, v in phase6["metrics"].items()}
+        emd = [r["protocol"]["launches"]["emd_hybrid"] for r in ranks]
+        fps_l = [r["protocol"]["launches"]["fps"] for r in ranks]
+        same = all(r["protocol"]["metrics"] == m6 for r in ranks)
+        print(f"  protocol 64 v 64: {ranks[0]['protocol']['s']:.2f} s, B5 launches a rank {emd}, "
+              f"B4 {fps_l}, equal to phase 6's metrics on every rank: {same}")
+        if not same:
+            print(json.dumps({"phase6": m6, "rank0": ranks[0]["protocol"]["metrics"]}))
+            fail(f"phase 13 {label}: the sharded protocol differs from phase 6's metrics")
+        if min(emd) == 0 or min(fps_l) == 0:
+            fail(f"phase 13 {label}: a rank launched no B5 or B4 in the protocol")
+        row["protocol"] = dict(s=ranks[0]["protocol"]["s"], emd_launches=emd)
+        print(f"  --launcher pytorch, {world} rank(s){' sharing one card' if world > count else ''}"
+              f": epoch seconds {cli['epoch_s']} ({'ranks sharing one card: no scaling number' if world > count else 'not a scaling number'}), "
+              f"{cli['wall_s']:.1f} s with start-up; {cli['started']}")
+        for r in ranks:
+            for part in ("train", "gen", "sp_gen", "sp_train", "protocol"):
+                for k, v in r.get(part, {}).get("launches", {}).items():
+                    total[k] = total.get(k, 0) + v
+        report.append(row)
+    print(json.dumps({"multi_gpu": report}, default=float))
+    return total
+
+
 def main():
     phase("1 device")
     if not torch.cuda.is_available():
@@ -2106,6 +2487,7 @@ def main():
     t_eval = time.perf_counter() - t0
     counts = dict(fused_core=fc.launches, fps=fpsm.launches, emd_hybrid=eh.launches)
     ev.emd_cost_eval = emd_cost_eval
+    phase6 = dict(gen=gen, refs=refs, metrics=metrics)
 
     per_launch = ev.emd_pairs_per_launch(2048, 32, dev)
     sweeps = (R * S, R * (R - 1) // 2, S * (S - 1) // 2)
@@ -2595,6 +2977,9 @@ def main():
     run12 = phase12(dev, fc, fct, fpsm, eh, ff, fb, run9["checkpoint"])
     kept.cleanup()
 
+    phase("13 multi-GPU")
+    mg_launches = multi_gpu_phase(dev, noise_scale, phase6)
+
     print(card)
     trunk["launches_runner"] = on_path["fused_core"]
     trunk["launches_editing"] = editing_launches["fused_core"]
@@ -2607,13 +2992,14 @@ def main():
     trunk["pt_load_s"] = run12["msgpack"]["load_pt_s"]
     trunk["launches_pretrain"] = run12["pretrain"]["launches"]["fused_core"]
     trunk["pretrain_epoch_and_val_s"] = run12["pretrain"]["s"]
+    trunk["launches_multi_gpu"] = mg_launches["fused_core"]
     headless = {
         "name": "fused_core_headless", "route": "cuda",
         "source": "difffacto_torch/csrc/fused_core.cu",
         "replaces": "difffacto_tpu/ops/fused_core.py:33", "launches": run11["headless_launches"],
         "max_abs_err": max(headless_err, run11["headless_err"]), "ms": run11["headless_ms"],
         "plain_ms": run11["headless_plain_ms"], "bound_ms": run11["headless_bound_ms"],
-        "bound_by": run11["headless_bound_by"], "library_ms": None,
+        "bound_by": run11["headless_bound_by"], "library_ms": None, "launches_multi_gpu": 0,
     }
     print(json.dumps({"kernels": [trunk, headless, {
         "name": "fps", "route": "cuda", "source": "difffacto_torch/csrc/fps.cu",
@@ -2626,7 +3012,7 @@ def main():
         "bound_ms_at_400_clouds": fps_t[400]["bound"],
         "latency_floor_ms_at_400_clouds": fps_t[400]["floor"],
         "launches_runner": on_path["fps"], "crop_loader_s": run9["crop_s"],
-        "launches_editing": editing_launches["fps"],
+        "launches_editing": editing_launches["fps"], "launches_multi_gpu": mg_launches["fps"],
     }, {
         "name": "emd_hybrid", "route": "cuda", "source": "difffacto_torch/csrc/emd_hybrid.cu",
         "replaces": "difffacto_tpu/ops/emd_pallas.py:51", "launches": counts["emd_hybrid"],
@@ -2641,6 +3027,7 @@ def main():
         "protocol_s": t_eval, "launches_runner": on_path["emd_hybrid"],
         "launches_editing": editing_launches["emd_hybrid"],
         "launches_msgpack_val_gen": run12["msgpack"]["launches"]["emd_hybrid"],
+        "launches_multi_gpu": mg_launches["emd_hybrid"],
     }, {
         "name": "fused_trunk_train_fwd", "route": "cuda",
         "source": "difffacto_torch/csrc/fused_core_train.cu",
@@ -2651,6 +3038,7 @@ def main():
         "bound_by": bounds["fwd"][1], "library_ms": None,
         "launches_runner": on_path["fused_trunk_train_fwd"],
         "launches_editing": editing_launches["fused_trunk_train_fwd"],
+        "launches_multi_gpu": mg_launches["fused_trunk_train_fwd"],
     }, {
         "name": "fused_trunk_train_bwd", "route": "cuda",
         "source": "difffacto_torch/csrc/fused_core_train.cu",
@@ -2664,6 +3052,7 @@ def main():
         "train_shapes_per_s": 1e3 * TRAIN_BATCH / step_ms, "train_peak_gib": train_peak_gib,
         "launches_runner": on_path["fused_trunk_train_bwd"],
         "launches_editing": editing_launches["fused_trunk_train_bwd"],
+        "launches_multi_gpu": mg_launches["fused_trunk_train_bwd"],
         "runner_epoch_s_first": run9["epoch_s_first"],
         "runner_epoch_s_later": run9["epoch_s_later"],
         "runner_epoch_s_later_min": run9["epoch_s_later_min"],
@@ -2685,6 +3074,7 @@ def main():
         "unet_forward_ms": unet_ms, "launches_runner": on_path["fused_block"],
         "launches_editing": editing_launches["fused_block"],
         "launches_unet_training": run12["unet"]["launches"]["fused_block"],
+        "launches_multi_gpu": 0,
         "unet_train_step_ms": run12["unet"]["step_ms"],
     }, {
         "name": "fused_ff", "route": "cuda", "source": "difffacto_torch/csrc/fused_ff.cu",
@@ -2702,7 +3092,7 @@ def main():
         "plain_ms_at_search_d256": run10["search_ff"]["plain_ms"],
         "bound_ms_at_search_d256": run10["search_ff"]["bound_ms"],
         "search_tokens": run10["search_ff"]["tokens"],
-        "editing_path_launches_reported": run10["ff_path"],
+        "editing_path_launches_reported": run10["ff_path"], "launches_multi_gpu": 0,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2711,4 +3101,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--rank"]:
+        multi_gpu_rank(sys.argv[2:])
+    else:
+        main()

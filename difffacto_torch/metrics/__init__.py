@@ -10,5 +10,6 @@ from .eval import (
     lgan_mmd_cov,
     pairwise_cd_emd,
     pairwise_self_cd_emd,
+    set_default_eval_mesh,
 )
 from .iou import aabb_iou

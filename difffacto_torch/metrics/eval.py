@@ -16,9 +16,14 @@ the card ``EMD_CHUNKS_PER_LAUNCH`` chunks go into one EMD kernel launch: one
 thread block works on one pair, and a launch of ``batch_size`` pairs would
 leave most of the card idle.
 
-Not carried over: the ``mesh=`` argument and ``set_default_eval_mesh``
-(multi-GPU sweeps come with the multi-GPU slice; passing ``mesh`` is a
-``TypeError``), and the jit caches and the ``DIFFFACTO_PAIRWISE_ROWS``,
+With ``mesh`` (a ``parallel.mesh.Mesh``; or the process default,
+``set_default_eval_mesh``) the padded pair list's chunks of ``batch_size``
+pairs are dealt out to the mesh's ranks in contiguous blocks, each rank
+computes its block as one rank computes it, and the values are gathered on
+every rank: the sweep's result is the one-rank sweep's bit for bit, as in
+the JAX package. Every rank of the mesh calls the sweep with the same inputs.
+
+Not carried over: the jit caches and the ``DIFFFACTO_PAIRWISE_ROWS``,
 ``_REF_BLOCK`` and ``_SELF_CHUNKS`` knobs, which exist in the JAX package to
 bound XLA tracing and the length of one TPU dispatch. PyTorch runs eagerly
 and needs neither.
@@ -36,6 +41,7 @@ import torch
 from ..ops.chamfer import chamfer_split
 from ..ops.emd import emd_cost_eval, resolved_emd_eval_config
 from ..ops.points import fps, gather_points_nd
+from ..parallel.mesh import all_gather_cat
 from ..utils.device import resolve_device
 from .iou import aabb_iou
 
@@ -64,6 +70,24 @@ def _emd_config(dev):
     return (resolved_emd_eval_config(None, dev), EMD_EPS(), EMD_ITERS())
 
 
+# ------------------------------------------------------------- mesh support
+_DEFAULT_EVAL_MESH = None
+
+
+def set_default_eval_mesh(mesh) -> None:
+    """Process-default mesh for the metric sweeps: the ``Runner`` sets it so
+    the dataset ``evaluate`` hooks, which call the sweeps without it, shard
+    too; an explicit ``mesh=`` overrides it."""
+    global _DEFAULT_EVAL_MESH
+    _DEFAULT_EVAL_MESH = mesh
+
+
+def _eval_mesh(mesh):
+    """The explicit mesh or the process default; None where it has one rank."""
+    m = mesh if mesh is not None else _DEFAULT_EVAL_MESH
+    return m if m is not None and m.size > 1 else None
+
+
 # --------------------------------------------------------------- pairwise
 def emd_pairs_per_launch(n: int, batch_size: int, dev) -> int:
     """Pairs that ``_pairs_cd_emd`` hands to one ``emd_cost_eval`` call."""
@@ -71,12 +95,16 @@ def emd_pairs_per_launch(n: int, batch_size: int, dev) -> int:
     return batch_size * (EMD_CHUNKS_PER_LAUNCH if hybrid_kernel else 1)
 
 
-def _pairs_cd_emd(a, b, mask_a, mask_b, ii, jj, batch_size, compute_emd, dev, verbose=""):
+def _pairs_cd_emd(a, b, mask_a, mask_b, ii, jj, batch_size, compute_emd, dev, verbose="",
+                  mesh=None):
     """CD and EMD of the pairs (a[ii[k]], b[jj[k]]) -> two (P,) f32 arrays.
 
     a (S, N, 3), b (R, N, 3) and the masks (S, N), (R, N) are numpy arrays or
     None; masks weight the CD means only. The list is padded to a multiple of
-    ``batch_size`` by repeating it from the start, and cropped again.
+    ``batch_size`` by repeating it from the start, and cropped again. With
+    ``mesh`` (more than one rank) this rank takes its block of the padded
+    list's chunks (the chunk count padded, the same way, to a multiple of
+    the ranks) and the blocks are gathered.
     """
     P = len(ii)
     N = a.shape[1]
@@ -90,6 +118,10 @@ def _pairs_cd_emd(a, b, mask_a, mask_b, ii, jj, batch_size, compute_emd, dev, ve
 
     ma_t, mb_t = mask_t(mask_a, a_t), mask_t(mask_b, b_t)
     order = np.arange(P + (-P) % batch_size) % P
+    if mesh is not None:
+        per_rank = -(-len(order) // (batch_size * mesh.size)) * batch_size
+        r = mesh.index()
+        order = order[np.arange(r * per_rank, (r + 1) * per_rank) % len(order)]
     ii_t = torch.as_tensor(np.asarray(ii)[order], dtype=torch.int64, device=dev)
     jj_t = torch.as_tensor(np.asarray(jj)[order], dtype=torch.int64, device=dev)
 
@@ -106,9 +138,11 @@ def _pairs_cd_emd(a, b, mask_a, mask_b, ii, jj, batch_size, compute_emd, dev, ve
             emds.append(emd_cost_eval(xa, xb, EMD_EPS(), EMD_ITERS()))
         if verbose:
             print(f"{verbose} {min(s + group, P)}/{P}")
-    cd = _to_np(torch.cat(cds))[:P]
-    emd = _to_np(torch.cat(emds))[:P] if compute_emd else np.zeros_like(cd)
-    return cd, emd
+    cd = torch.cat(cds)
+    emd = torch.cat(emds) if compute_emd else torch.zeros_like(cd)
+    if mesh is not None:
+        cd, emd = all_gather_cat(cd, mesh.group), all_gather_cat(emd, mesh.group)
+    return _to_np(cd)[:P], _to_np(emd)[:P]
 
 
 def pairwise_cd_emd(
@@ -120,6 +154,7 @@ def pairwise_cd_emd(
     mask_ref: Optional[np.ndarray] = None,
     verbose: bool = False,
     device="cuda",
+    mesh=None,
 ):
     """All-pairs CD and EMD matrices: (S, N, 3) x (R, N, 3) -> (S, R) each.
 
@@ -136,7 +171,7 @@ def pairwise_cd_emd(
     jj = np.tile(np.arange(Rp) % R, S)
     cd, emd = _pairs_cd_emd(
         sample, ref, mask_sample, mask_ref, ii, jj, batch_size, compute_emd, dev,
-        verbose="pairwise" if verbose else "",
+        verbose="pairwise" if verbose else "", mesh=_eval_mesh(mesh),
     )
     return cd.reshape(S, Rp)[:, :R], emd.reshape(S, Rp)[:, :R]
 
@@ -149,6 +184,7 @@ def pairwise_self_cd_emd(
     mask: Optional[np.ndarray] = None,
     verbose: bool = False,
     device="cuda",
+    mesh=None,
 ):
     """X-vs-X pairwise CD and EMD: (S, N, 3) -> symmetric (S, S) matrices.
 
@@ -169,7 +205,7 @@ def pairwise_self_cd_emd(
     iu, ju = np.triu_indices(S, k=1)
     cd_v, emd_v = _pairs_cd_emd(
         pts, pts, mask, mask, iu, ju, batch_size, compute_emd, dev,
-        verbose="pairwise-self" if verbose else "",
+        verbose="pairwise-self" if verbose else "", mesh=_eval_mesh(mesh),
     )
     cd_m[iu, ju] = cd_v
     cd_m[ju, iu] = cd_v
@@ -247,6 +283,7 @@ def compute_all_metrics(
     compute_emd: bool = True,
     ref_self_cache: Optional[dict] = None,
     device="cuda",
+    mesh=None,
 ) -> Dict[str, float]:
     """MMD/COV/1-NNA over CD and EMD (evaluation_utils.py:500-541).
 
@@ -265,7 +302,8 @@ def compute_all_metrics(
     sample_pcs, ref_pcs = _to_np(sample_pcs), _to_np(ref_pcs)
     results: Dict[str, float] = {}
     M_rs_cd, M_rs_emd = pairwise_cd_emd(
-        ref_pcs, sample_pcs, batch_size, compute_emd=compute_emd, mask_ref=mask, device=dev
+        ref_pcs, sample_pcs, batch_size, compute_emd=compute_emd, mask_ref=mask, device=dev,
+        mesh=mesh,
     )
     for name, M in (("CD", M_rs_cd), ("EMD", M_rs_emd)):
         if not compute_emd and name == "EMD":
@@ -292,9 +330,10 @@ def compute_all_metrics(
 
     def self_sweep(pts, m):
         if symmetric:
-            return pairwise_self_cd_emd(pts, batch_size, compute_emd=compute_emd, mask=m, device=dev)
+            return pairwise_self_cd_emd(pts, batch_size, compute_emd=compute_emd, mask=m,
+                                        device=dev, mesh=mesh)
         return pairwise_cd_emd(pts, pts, batch_size, compute_emd=compute_emd,
-                               mask_sample=m, mask_ref=m, device=dev)
+                               mask_sample=m, mask_ref=m, device=dev, mesh=mesh)
 
     if cache_key is not None and cache_key in ref_self_cache:
         M_rr_cd, M_rr_emd = ref_self_cache[cache_key]
@@ -316,13 +355,15 @@ def compute_all_metrics(
     return results
 
 
-def emd_cd_paired(sample_pcs, ref_pcs, batch_size: int = 32, reduced: bool = True, device="cuda"):
+def emd_cd_paired(sample_pcs, ref_pcs, batch_size: int = 32, reduced: bool = True, device="cuda",
+                  mesh=None):
     """Paired reconstruction MMD-CD / MMD-EMD (evaluation_utils.py:106-140):
     pair k is (sample_k, ref_k)."""
     dev = resolve_device(device)
     sample_pcs, ref_pcs = _to_np(sample_pcs), _to_np(ref_pcs)
     k = np.arange(sample_pcs.shape[0])
-    cd, emd = _pairs_cd_emd(sample_pcs, ref_pcs, None, None, k, k, batch_size, True, dev)
+    cd, emd = _pairs_cd_emd(sample_pcs, ref_pcs, None, None, k, k, batch_size, True, dev,
+                            mesh=_eval_mesh(mesh))
     if reduced:
         return {"MMD-CD": float(cd.mean()), "MMD-EMD": float(emd.mean())}
     return {"MMD-CD": cd, "MMD-EMD": emd}

@@ -25,6 +25,8 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..parallel.axes import fold_generator
+from ..parallel.mesh import all_gather_cat
 from ..utils.device import randn, resolve_device
 from ..utils.gaussian import reparameterize_gaussian
 from ..utils.registry import DIFFUSIONS, ENCODERS, MODELS, NETS, SAMPLERS, build_from_cfg
@@ -331,36 +333,72 @@ class AnchorDiffAE(nn.Module):
 @torch.inference_mode()
 def decode(model: AnchorDiffAE, anchors, ctx=None, variance=None, seg_mask=None, valid_id=None,
            noise=None, step_noise=None, generator: Optional[torch.Generator] = None,
-           ret_traj: Optional[bool] = None, ret_interval: Optional[int] = None):
+           ret_traj: Optional[bool] = None, ret_interval: Optional[int] = None, mesh=None):
     """The reverse diffusion chain (``anchor_diff.py:486-597``) -> {'pred': (B, N, 3)},
     with 'traj' and 'traj_t' where ``ret_traj`` (default: the model's, every
     ``ret_interval``-th step). ``step_noise`` is (len(model.diff.steps), B, N,
-    3): T draws for the full chain, ``ddim_nsteps`` with DDIM."""
+    3): T draws for the full chain, ``ddim_nsteps`` with DDIM.
+
+    With ``mesh`` (``parallel/mesh.py``), where the JAX package shards
+    (no trajectory, B a multiple of the data axis and N of the points axis),
+    each rank runs its batch slice, and under ("data", "points") its point
+    slice, through the chain against the replicated context: a point token
+    cross-attends only to the 4 context tokens, so a shard needs no
+    collective. Every rank passes the same inputs; the injected ``noise``
+    and ``step_noise`` are cut to the rank's shard, the drawn ones come from
+    ``generator`` folded by the rank where the mesh has more than one, and
+    'pred' is gathered whole on every rank. Elsewhere every rank runs the
+    whole chain, as one device does.
+    """
     ret_traj = model.ret_traj if ret_traj is None else ret_traj
     ret_interval = model.ret_interval if ret_interval is None else ret_interval
-    return model.diff.p_sample_loop(
-        model.denoise, anchors, ctx=ctx, variance=variance, seg_mask=seg_mask,
-        valid_id=valid_id, noise=noise, ret_traj=ret_traj, ret_interval=ret_interval,
-        step_noise=step_noise, generator=generator,
-    )
+    B, N = anchors.shape[:2]
+    nd = mesh.shape[mesh.axis_names[0]] if mesh is not None else 1
+    npts = mesh.axis_size("points") if mesh is not None else 1
+    if mesh is None or ret_traj or B % nd or N % npts:
+        return model.diff.p_sample_loop(
+            model.denoise, anchors, ctx=ctx, variance=variance, seg_mask=seg_mask,
+            valid_id=valid_id, noise=noise, ret_traj=ret_traj, ret_interval=ret_interval,
+            step_noise=step_noise, generator=generator,
+        )
+    d = mesh.index(mesh.axis_names[0])
+    p = mesh.index("points") if npts > 1 else 0
+    rows = slice(d * B // nd, (d + 1) * B // nd)
+    cols = slice(p * N // npts, (p + 1) * N // npts)
+    shape = lambda x: None if x is None else x[rows]
+    point = lambda x: None if x is None else x[rows, cols]
+    if mesh.size > 1:
+        generator = fold_generator(generator, mesh.index())
+    pred = model.diff.p_sample_loop(
+        model.denoise, point(anchors), ctx=shape(ctx), variance=point(variance),
+        seg_mask=point(seg_mask), valid_id=shape(valid_id), noise=point(noise),
+        ret_traj=False, step_noise=None if step_noise is None else step_noise[:, rows, cols],
+        generator=generator,
+    )["pred"]
+    if npts > 1:
+        pred = all_gather_cat(pred, mesh.groups["points"], dim=1)
+    return {"pred": all_gather_cat(pred, mesh.groups[mesh.axis_names[0]], dim=0)}
 
 
 @torch.inference_mode()
 def sample_generation(model: AnchorDiffAE, sample_num: int, valid_id=None, fixed_id=None,
                       epoch: int = 0, ret_traj: bool = False,
                       generator: Optional[torch.Generator] = None, z=None, cimle_noise=None,
-                      noise=None, step_noise=None):
+                      noise=None, step_noise=None, mesh=None):
     """Unconditional generation (``anchor_diff.py:600-651``): flow prior ->
     aligner (K CIMLE hypotheses) -> reverse chain. ``step_noise`` is
     (len(model.diff.steps), S*K, N, 3). Returns a dict with 'pred'
-    (S*K, N, 3), 'seg_mask', 'valid_id', 'anchors', 'variance', 'latents'."""
+    (S*K, N, 3), 'seg_mask', 'valid_id', 'anchors', 'variance', 'latents'.
+    With ``mesh`` every rank draws the same latents from the same
+    ``generator`` and the chain is sharded as ``decode`` says."""
     if fixed_id is None:
         fixed_id = torch.zeros(model.num_anchors, device=model.device)
     ctx, mean_pp, var_pp, seg_mask, vid, latents = model.prepare_generation(
         sample_num, fixed_id, valid_id, epoch, generator=generator, z=z, cimle_noise=cimle_noise
     )
     out = decode(model, mean_pp, ctx=ctx, variance=var_pp, seg_mask=seg_mask, valid_id=vid,
-                 noise=noise, step_noise=step_noise, generator=generator, ret_traj=ret_traj)
+                 noise=noise, step_noise=step_noise, generator=generator, ret_traj=ret_traj,
+                 mesh=mesh)
     out.update(seg_mask=seg_mask, valid_id=vid, anchors=mean_pp, variance=var_pp, latents=latents)
     return out
 

@@ -22,6 +22,7 @@ import torch
 
 from ..ops.schedule import (DiffusionSchedule, ddim_steps, ddim_xt_dir_coeff, extract,
                             make_beta_schedule, make_schedule)
+from ..parallel.axes import fold_points, psum_points, sp_size
 from ..utils.device import randn
 from ..utils.gaussian import gaussian_log_likelihood, normal_kl
 from ..utils.registry import DIFFUSIONS
@@ -366,11 +367,11 @@ class AnchoredDiffusion:
         nll = -gaussian_log_likelihood(x_start, out["mean"], out["log_variance"], dim=C).sum(-1)
         if flags is not None:
             f = flags.reshape(flags.shape[0], -1)
-            denom = f.sum(1) * math.log(2.0)
-            kl, nll = (kl * f).sum(1) / denom, (nll * f).sum(1) / denom
+            denom = psum_points(f.sum(1)) * math.log(2.0)
+            kl, nll = psum_points((kl * f).sum(1)) / denom, psum_points((nll * f).sum(1)) / denom
         else:
-            denom = kl.shape[-1] * math.log(2.0)
-            kl, nll = kl.sum(-1) / denom, nll.sum(-1) / denom
+            denom = kl.shape[-1] * sp_size() * math.log(2.0)
+            kl, nll = psum_points(kl.sum(-1)) / denom, psum_points(nll.sum(-1)) / denom
         return torch.where(t == 0, nll, kl)
 
     def training_losses(self, model_fn: Callable, x_start, t, anchors=None, variance=None,
@@ -387,7 +388,9 @@ class AnchoredDiffusion:
         if anchors is None:
             anchors = torch.zeros_like(x_start)
         if noise is None:
-            noise = randn(x_start.shape, generator, x_start.device, x_start.dtype)
+            # per-point: decorrelated across point shards (the timesteps were
+            # drawn upstream from the unfolded stream)
+            noise = randn(x_start.shape, fold_points(generator), x_start.device, x_start.dtype)
         nd = x_start.ndim
         anchors_eff = self._anchors(anchors)
         x_t = self.q_sample(x_start, t, anchors_eff, noise=noise, variance=variance)
@@ -396,7 +399,8 @@ class AnchoredDiffusion:
                                 valid_id)
         if self.model_var_type in (LEARNED, LEARNED_RANGE):
             model_output, var_values = model_output.chunk(2, dim=-1)
-            loss_dict["model_var_value"] = var_values.sum() / var_values.numel()
+            loss_dict["model_var_value"] = psum_points(var_values.sum()) / (
+                var_values.numel() * sp_size())
             frozen = torch.cat([model_output.detach(), var_values], dim=-1)
             vb = self._vb_terms(model_fn, x_start, x_t, t, anchors, ctx, variance, frozen,
                                 seg_mask, flags).mean()
@@ -428,9 +432,9 @@ class AnchoredDiffusion:
             diff = diff * flags[..., None]
         if reduce:
             if flags is not None:
-                diff = diff.mean(-1).sum() / flags.sum()
+                diff = psum_points(diff.mean(-1).sum()) / psum_points(flags.sum())
             else:
-                diff = diff.sum() / diff.numel()
+                diff = psum_points(diff.sum()) / (diff.numel() * sp_size())
         if self.scale_loss:
             b, acp = extract(s.betas, t, diff.ndim), extract(s.alphas_cumprod, t, diff.ndim)
             diff = diff * b * b / (2 * (1.0 - b) * (1.0 - acp))

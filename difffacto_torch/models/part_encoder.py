@@ -21,6 +21,7 @@ from torch import nn
 from ..utils.device import randn, resolve_device
 from ..utils.registry import ENCODERS, build_from_cfg
 from ..nn.layers import default_generator
+from ..parallel.axes import fold_points, psum_points
 from ..utils.gaussian import gaussian_entropy, gaussian_log_likelihood, reparameterize_gaussian
 from .flow import PerPartFlow
 
@@ -233,7 +234,7 @@ class PartEncoderForTransformerDecoder(nn.Module):
         t = self.fit_loss_type
         if t == 0:
             ll = -gaussian_log_likelihood(ref, mean_pp, logvar_pp).mean(-1)
-            return (ll * flag_pp).sum(-1) / flag_pp.sum(-1)
+            return psum_points((ll * flag_pp).sum(-1)) / psum_points(flag_pp.sum(-1))
         if t == 1:
             err = (torch.cat([mean, torch.exp(logvar)], -1) - torch.cat([gt_shift, gt_var], -1)) ** 2
             return (err * valid_id[..., None]).sum(dim=(-1, -2)) / valid_id.sum(-1)
@@ -246,10 +247,10 @@ class PartEncoderForTransformerDecoder(nn.Module):
             gt_mean_pp = gather_per_point(gt_shift, seg_mask)
             gt_var_pp = gather_per_point(gt_var, seg_mask)
             if eps is None:
-                eps = randn(gt_var_pp.shape, generator, ref.device, ref.dtype)
+                eps = randn(gt_var_pp.shape, fold_points(generator), ref.device, ref.dtype)
             samples = eps * torch.sqrt(gt_var_pp) + gt_mean_pp
             ll = -gaussian_log_likelihood(samples, mean_pp, logvar_pp).mean(-1)
-            return (ll * flag_pp).sum(-1) / flag_pp.sum(-1)
+            return psum_points((ll * flag_pp).sum(-1)) / psum_points(flag_pp.sum(-1))
         if t == 4:
             err = (torch.cat([mean, logvar], -1)
                    - torch.cat([gt_shift, torch.log(gt_var)], -1)) ** 2

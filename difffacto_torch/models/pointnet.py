@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..parallel.axes import allmax_points
 from ..nn.layers import (ConvBNReLUStack, Dense, LayerNorm, TorchBatchNorm, default_generator,
                          lecun_normal, param)
 from ..utils.device import resolve_device
@@ -96,7 +97,7 @@ class PointNetV2(nn.Module):
         weighted = h[:, :, None, :] * attn_weight[:, :, :, None].to(h.dtype)
         if self.reweight_by_anchor:
             weighted = weighted * self.num_anchors
-        pooled = weighted.amax(dim=1)  # (B, K, 512)
+        pooled = allmax_points(weighted.amax(dim=1))  # (B, K, 512)
         return self.mlp_m(pooled, train), self.mlp_v(pooled, train)
 
 
@@ -115,5 +116,5 @@ class PointNet(nn.Module):
         self.mlp_m = _HeadMLP(zdim * num_anchors, **kw)
 
     def forward(self, points, train: bool = False):
-        g = self.pnet(points, train).amax(dim=1)
+        g = allmax_points(self.pnet(points, train).amax(dim=1))
         return self.mlp_m(g, train).reshape(points.shape[0], self.num_anchors, self.zdim)

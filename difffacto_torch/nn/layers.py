@@ -20,6 +20,7 @@ import torch
 from torch import nn
 
 from ..ops.fused_ff import fused_ln_geglu_ff, pick_tile
+from ..parallel.axes import point_axis, psum_points, sp_size
 from ..ops.fused_ff import takes as ff_takes
 from ..utils.device import kernel_dtype
 from .functional import gelu, ln_stats_f32
@@ -272,6 +273,11 @@ class TorchBatchNorm(nn.Module):
     statistics by ``running = 0.9 running + 0.1 batch``; torch's own
     BatchNorm1d would store the unbiased variance. In eval the running
     statistics normalise.
+
+    Under a point-sharded training step (``parallel/axes.py``) the batch
+    statistics span every point shard of the (B, N) slab, as the JAX
+    ``TorchBatchNorm`` passes the point axis to flax; the data axis stays
+    local, and the step averages the running statistics afterwards.
     """
 
     def __init__(self, shape, momentum: float = 0.1, eps: float = 1e-5,
@@ -289,8 +295,10 @@ class TorchBatchNorm(nn.Module):
         xf = x.to(st)
         if train:
             dims = tuple(range(x.ndim - self.scale.ndim))
-            mean = xf.mean(dims)
-            var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
+            mean, mean2 = xf.mean(dims), (xf * xf).mean(dims)
+            if point_axis() is not None:
+                mean, mean2 = (psum_points(torch.stack([mean, mean2])) / sp_size()).unbind(0)
+            var = torch.clamp(mean2 - mean * mean, min=0.0)
             with torch.no_grad():
                 self.mean.mul_(1.0 - self.momentum).add_(self.momentum * mean.to(self.mean.dtype))
                 self.var.mul_(1.0 - self.momentum).add_(self.momentum * var.to(self.var.dtype))

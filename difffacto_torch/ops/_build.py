@@ -38,6 +38,11 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is")
 
 
+def sources():
+    """Every CUDA source of the port, by name."""
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
 def library_path(name: str) -> Path:
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):

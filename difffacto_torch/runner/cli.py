@@ -5,7 +5,17 @@ The peer of ``tools/run_net.py`` with the same flags (``--config-file``,
 ``--task``, ``--seed``, ``--no_eval``, ``--short_val``, ``--gen_num``,
 ``--part_id``, ``--interpolation_dir``, ``--prefix``, ``--save_dir``), run
 on the card unless ``--cpu`` is given; ``--runner pretrain`` trains each
-part's own denoiser (``runner/extra_runners.py``). ``main(argv)`` returns what it ran:
+part's own denoiser (``runner/extra_runners.py``). ``--launcher pytorch``
+joins the ranks that ``torch.distributed.run`` started (the reference's
+launcher, ``tools/run_net.py:33-40``):
+
+    python -m torch.distributed.run --nproc_per_node 4 tools/run_net_torch.py \
+        --launcher pytorch --config-file configs/bench_train_tpu.py --task train
+
+Each rank runs on ``cuda:LOCAL_RANK`` over NCCL (ranks share the cards,
+over gloo, where a node runs more ranks than it has cards); with ``--cpu``
+the ranks run on the CPU over gloo. A launcher that cannot start its
+process group raises. ``main(argv)`` returns what it ran:
 the ``Runner`` after ``train``, the metric dict after ``val`` and
 ``val_gen``, the written arrays after ``interpolation`` and ``mixing``. A
 caller that changes a few keys writes a config whose ``_base_`` names the
@@ -42,7 +52,35 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--interpolation_dir", default=None,
                    help="where --task interpolation writes (default work_dir/interpolation)")
     p.add_argument("--cpu", action="store_true", help="run on the CPU instead of the card")
+    p.add_argument("--launcher", default="none", choices=["none", "pytorch"],
+                   help="'pytorch': join the ranks torch.distributed.run started")
+    p.add_argument("--local_rank", "--local-rank", type=int, default=None,
+                   help="accepted as torch.distributed.launch passes it; LOCAL_RANK is read")
     return p.parse_args(argv)
+
+
+def start_ranks(cpu: bool):
+    """``--launcher pytorch``: this rank's device, the process group, and the
+    kernels built once a node (local rank 0 builds, the others wait) so that
+    two nvcc runs never race on one library."""
+    import torch
+    import torch.distributed as dist
+
+    from ..parallel.mesh import initialize_distributed, rank_device
+
+    device = rank_device(cpu)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    initialize_distributed(strict=True, device=device)
+    if device.type == "cuda":
+        from ..ops import _build
+
+        if int(os.environ.get("LOCAL_RANK", 0)) == 0:
+            _build.build(_build.sources())
+        dist.barrier()
+    print(f"[difffacto_torch] rank {dist.get_rank()}/{dist.get_world_size()} on {device} "
+          f"({dist.get_backend()})", flush=True)
+    return device
 
 
 def main(argv: Optional[Sequence[str]] = None):
@@ -52,7 +90,10 @@ def main(argv: Optional[Sequence[str]] = None):
     from .runner import Runner
 
     args = parse_args(argv)
-    device = resolve_device("cpu" if args.cpu else "cuda")
+    if args.launcher == "pytorch":
+        device = start_ranks(args.cpu)
+    else:
+        device = resolve_device("cpu" if args.cpu else "cuda")
     init_cfg(args.config_file)
     cfg = get_cfg()
     if args.prefix:

@@ -20,7 +20,7 @@ from ..utils.device import resolve_device
 
 def generate_samples(model, num_gen: int = 400, batch: int = 128, seed: int = 0,
                      refs: Optional[np.ndarray] = None,
-                     ref_self_cache: Optional[dict] = None, epoch: int = 0):
+                     ref_self_cache: Optional[dict] = None, epoch: int = 0, mesh=None):
     """Unconditional generation protocol: ``num_gen`` shapes in batches of
     ``batch``, part-presence patterns drawn from ``np.random.RandomState(seed)``,
     the chain's noise from a ``torch.Generator`` seeded with ``seed + 17`` on
@@ -29,7 +29,8 @@ def generate_samples(model, num_gen: int = 400, batch: int = 128, seed: int = 0,
     ``cimle_start_epoch`` its noise is zero (``runner.py:567-576``).
 
     Returns the (num_gen, N, 3) float32 clouds, or with ``refs`` the metric
-    dict of ``evaluate_gen(gen, refs)``.
+    dict of ``evaluate_gen(gen, refs)``. ``mesh`` shards each batch's chain
+    (``models.decode``) and the sweeps; every rank gets the whole result.
     """
     rng_np = np.random.RandomState(seed)
     dev = model.device
@@ -43,22 +44,23 @@ def generate_samples(model, num_gen: int = 400, batch: int = 128, seed: int = 0,
         presence = sample_part_presence(rng_np, b, model.num_anchors)
         out = sample_generation(
             model, b, valid_id=torch.as_tensor(presence, device=dev), epoch=epoch,
-            generator=generator)
+            generator=generator, mesh=mesh)
         preds.append(out["pred"].float().reshape(b, K, -1, 3)[:, 0].cpu().numpy())
         remaining -= b
     gen = np.concatenate(preds)[:num_gen]
     if refs is None:
         return gen
-    return evaluate_gen(gen, refs, ref_self_cache=ref_self_cache, device=dev)
+    return evaluate_gen(gen, refs, ref_self_cache=ref_self_cache, device=dev, mesh=mesh)
 
 
 def evaluate_gen(gen: np.ndarray, refs: np.ndarray, ref_self_cache: Optional[dict] = None,
-                 device="cuda") -> Dict[str, float]:
+                 device="cuda", mesh=None) -> Dict[str, float]:
     """FPS to 2048 points where a set has more, bbox-normalize, then
     ``compute_all_metrics(gen, refs, batch_size=32)``.
 
     ``ref_self_cache`` is a dict the caller keeps for the life of its val
     set: the ref-vs-ref block is then paid once over a curve of checkpoints.
+    ``mesh`` deals the sweeps' pairs out to its ranks (``metrics/eval.py``).
     """
     dev = resolve_device(device)
 
@@ -73,5 +75,6 @@ def evaluate_gen(gen: np.ndarray, refs: np.ndarray, ref_self_cache: Optional[dic
     gen = bbox_normalize(gen)
     refs = bbox_normalize(refs)
     return compute_all_metrics(
-        gen, refs, batch_size=32, one_way=False, ref_self_cache=ref_self_cache, device=dev
+        gen, refs, batch_size=32, one_way=False, ref_self_cache=ref_self_cache, device=dev,
+        mesh=mesh,
     )

@@ -1,6 +1,7 @@
 """Runner: the config-driven train, val and val_gen loops.
 
-The port of ``difffacto_tpu/runner/runner.py:Runner`` for one device:
+The port of ``difffacto_tpu/runner/runner.py:Runner``, on one device or on
+the ranks of a ``torch.distributed`` group (``--launcher pytorch``):
 
 * ``train`` runs ``make_train_step`` once per batch; metrics reach the host
   only every ``log_interval`` steps, so the host collates the next batch
@@ -23,7 +24,21 @@ The model computes in float32 on the card and on the CPU, as the JAX
 PointNetV2, the aligner and the chain in float32, and bf16 only at the
 operands of the hand-written kernels, which cast at the call
 (``utils/device.kernel_dtype``). ``make_pack_spec`` and ``pack_batch`` (a TPU
-transfer-link measure) and the device meshes come with the multi-GPU port.
+transfer-link measure) are not ported.
+
+Where a process group exists, the meshes are those of the JAX ``Runner``
+(``runner.py:198-258``): the data mesh over the largest rank count that
+divides the batch (ranks past it idle), the eval mesh over it for the metric
+sweeps where it has more than one rank on the card, the generation mesh of
+``sp_devices`` and the step mesh of ``train_sp_devices`` over the data
+mesh's ranks (the JAX package lays them over all its devices). Every rank
+reads the same global batch order and takes its slice (``shard_batch``), so
+a W-rank step is the dp arithmetic of the one-device step on that global
+batch. ``cache_noise`` selects the CIMLE noise of each rank's slice and
+gathers the table on every rank; generation is sharded by
+``models.decode``. Rank 0 alone logs and writes checkpoints, with a barrier
+after each; every rank resumes from the same file, and ``replicate`` gives
+every rank rank 0's weights.
 """
 
 from __future__ import annotations
@@ -34,11 +49,15 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import yaml
 
 from .. import data  # noqa: F401  (registers the datasets)
 from ..config.config import get_cfg
+from ..metrics.eval import set_default_eval_mesh
 from ..models import reconstruct, sample_generation, select_best_noise
+from ..parallel.axes import fold_generator
+from ..parallel.mesh import all_gather_cat, barrier, make_mesh, replicate, shard_batch
 from ..parallel.optim import build_optimizer_from_cfg
 from ..parallel.train import init_train_state, make_train_step
 from ..utils import loggers  # noqa: F401  (registers RunLogger)
@@ -97,19 +116,34 @@ def device_batch(batch: Dict, device, slim_attn: bool = False) -> Dict[str, torc
     return out
 
 
+class _QuietLogger:
+    """The logger of every rank but 0: it writes and prints nothing."""
+
+    def log(self, data, step=None, total_steps=None):
+        pass
+
+    def print_log(self, msg):
+        pass
+
+
 class Runner:
     """``Runner(args, cfg, device)``: ``cfg`` defaults to the loaded config
     singleton; ``args`` carries ``seed``, ``no_eval`` and ``short_val`` as the
-    CLI parses them."""
+    CLI parses them. Under a process group every rank builds one, with the
+    same arguments."""
 
     def __init__(self, args=None, cfg=None, device="cuda"):
         self.cfg = cfg if cfg is not None else get_cfg()
         cfg = self.cfg
         self.device = resolve_device(device)
         self.work_dir = cfg.work_dir
-        os.makedirs(self.work_dir, exist_ok=True)
-        self.logger = build_from_cfg(cfgdict(cfg.logger) or dict(type="RunLogger"), HOOKS,
-                                     work_dir=self.work_dir)
+        self.rank0 = not dist.is_initialized() or dist.get_rank() == 0
+        if self.rank0:
+            os.makedirs(self.work_dir, exist_ok=True)
+            self.logger = build_from_cfg(cfgdict(cfg.logger) or dict(type="RunLogger"), HOOKS,
+                                         work_dir=self.work_dir)
+        else:
+            self.logger = _QuietLogger()
 
         self.max_epoch = cfg.max_epoch
         self.max_iter = cfg.max_iter
@@ -149,12 +183,13 @@ class Runner:
             max_norm=self.max_norm,
             lr_scale_fn=lr_scale_fn,
         )
-        for key in ("sp_devices", "train_sp_devices"):
-            if int(cfg.get(key, 0) or 0) > 1:
-                self.logger.print_log(f"{key}={cfg[key]} needs several cards; the runner "
-                                      "stays on one device")
+        self.mesh = self.gen_mesh = self.step_mesh = self.eval_mesh = None
+        if dist.is_initialized():
+            self._build_meshes(cfgdict(cfg.dataset.train))
+        self.spare = self.mesh is not None and not self.mesh.member
         self._step_fn = make_train_step(self.model, self.tx, trainable_filter=trainable_filter,
-                                        skip_grad_norm=cfg.get("skip_grad_norm"))
+                                        skip_grad_norm=cfg.get("skip_grad_norm"),
+                                        mesh=self.step_mesh)
         self.state = init_train_state(self.model, self.tx)
 
         self.epoch = 0
@@ -166,11 +201,12 @@ class Runner:
         self.cache_interval = cfg.cimle_cache_interval
         self._ref_self_cache: dict = {}
 
-        with open(os.path.join(self.work_dir, "config.yaml"), "w") as f:
-            yaml.dump(cfg.dump(), f)
-        if args is not None:
-            with open(os.path.join(self.work_dir, "args.yaml"), "w") as f:
-                yaml.dump(vars(args), f)
+        if self.rank0:
+            with open(os.path.join(self.work_dir, "config.yaml"), "w") as f:
+                yaml.dump(cfg.dump(), f)
+            if args is not None:
+                with open(os.path.join(self.work_dir, "args.yaml"), "w") as f:
+                    yaml.dump(vars(args), f)
 
         if cfg.pretrained_weights:
             self.load(cfg.pretrained_weights, model_only=bool(cfg.model_only))
@@ -182,6 +218,47 @@ class Runner:
         resume = cfg.resume_path or (search_ckpt(self.work_dir) if auto else None)
         if resume:
             self.load(self._norm_ckpt(resume), model_only=bool(cfg.model_only))
+        if self.mesh is not None and not self.spare:
+            replicate(self.mesh, self.model)
+
+    def _build_meshes(self, train_cfg):
+        """The data, generation, step and eval meshes (``runner.py:198-258``)."""
+        cfg, world = self.cfg, dist.get_world_size()
+        bs = int(train_cfg["batch_size"])
+        nd = world
+        while nd > 1 and bs % nd:
+            nd -= 1
+        self.mesh = self.gen_mesh = self.step_mesh = make_mesh(range(nd))
+        sp = int(cfg.get("sp_devices", 0) or 0)
+        if sp > 1:
+            if nd % sp == 0:
+                self.gen_mesh = make_mesh(range(nd), ("data", "points"), (nd // sp, sp))
+            else:
+                self.logger.print_log(f"sp_devices={sp} does not divide the data mesh's {nd} "
+                                      "ranks; generation stays on the data mesh")
+        train_sp = int(cfg.get("train_sp_devices", 0) or 0)
+        if train_sp > 1:
+            npoints = int(train_cfg.get("npoints", 0) or 0)
+            if nd % train_sp == 0 and npoints % train_sp == 0:
+                self.step_mesh = make_mesh(range(nd), ("data", "points"),
+                                           (nd // train_sp, train_sp))
+            else:
+                self.logger.print_log(f"train_sp_devices={train_sp} does not divide the data "
+                                      f"mesh's {nd} ranks or the points; training stays on the "
+                                      "data mesh")
+        # The JAX package gates the sharded sweeps on a real TPU (on its
+        # virtual CPU mesh they buy no time); the port on the card.
+        self.eval_mesh = self.mesh if nd > 1 and self.device.type == "cuda" else None
+        self.logger.print_log(
+            f"{world} ranks ({dist.get_backend()}): data mesh {nd}, generation mesh "
+            f"{self.gen_mesh.shape}, step mesh {self.step_mesh.shape}, sharded sweeps "
+            f"{'on' if self.eval_mesh is not None else 'off'}")
+        if self.rank0 and nd < world:
+            print(f"[difffacto_torch] the batch {bs} splits over {nd} of {world} ranks; "
+                  f"ranks {nd}..{world - 1} idle", flush=True)
+        if not self.mesh.member:
+            self.gen_mesh = self.step_mesh = self.eval_mesh = None
+        set_default_eval_mesh(self.eval_mesh)
 
     @staticmethod
     def _norm_ckpt(path):
@@ -227,10 +304,13 @@ class Runner:
                               "holds no CIMLE table: none until the next re-cache")
 
     def save(self):
-        path = save_checkpoint(self.work_dir, self.epoch, self.state,
-                               meta={"iter": self.iter, "config": self.cfg.dump()},
-                               noise_table=getattr(self.train_loader.dataset, "noises", None))
-        self.logger.print_log(f"saved checkpoint {path}")
+        if self.rank0:
+            path = save_checkpoint(self.work_dir, self.epoch, self.state,
+                                   meta={"iter": self.iter, "config": self.cfg.dump()},
+                                   noise_table=getattr(self.train_loader.dataset, "noises", None))
+            self.logger.print_log(f"saved checkpoint {path}")
+        if self.mesh is not None:
+            barrier(self.mesh)
 
     # --------------------------------------------------------------- loops
     @property
@@ -240,6 +320,8 @@ class Runner:
         return self.iter >= (self.max_iter or 0)
 
     def run(self):
+        if self.spare:
+            return
         self.logger.print_log("Start running")
         trained = False
         saved_final = False
@@ -264,6 +346,7 @@ class Runner:
             self.save()
 
     def train(self):
+        t_epoch = time.perf_counter()
         seed = self.seed + 7919  # folded with state.step by the step function
         # ips is a rolling rate over the last log window
         if not hasattr(self, "_rate_t"):
@@ -276,6 +359,8 @@ class Runner:
             profiler = torch.profiler.profile(activities=acts)
             profiler.start()
         for batch in self.train_loader:
+            if self.step_mesh is not None:
+                batch = shard_batch(self.step_mesh, batch)
             db = device_batch(batch, self.device, self._slim_train)
             self.state, metrics = self._step_fn(self.state, db, seed, self.epoch)
             self.iter += 1
@@ -292,10 +377,14 @@ class Runner:
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             profiler.stop()
-            out = os.path.join(self.work_dir, "profile")
-            os.makedirs(out, exist_ok=True)
-            profiler.export_chrome_trace(os.path.join(out, f"epoch_{self.epoch}.json"))
-            self.logger.print_log(f"profile trace -> {out}")
+            if self.rank0:
+                out = os.path.join(self.work_dir, "profile")
+                os.makedirs(out, exist_ok=True)
+                profiler.export_chrome_trace(os.path.join(out, f"epoch_{self.epoch}.json"))
+                self.logger.print_log(f"profile trace -> {out}")
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.logger.print_log(f"epoch {self.epoch} trained in {time.perf_counter() - t_epoch:.4f} s")
         self.epoch += 1
 
     # --------------------------------------------------------------- CIMLE
@@ -304,16 +393,33 @@ class Runner:
         the dataset. ``inject`` gives each batch's draws in the loader's order
         (``noise``: the (B * N, D) candidates; ``part_code_eps``: the part
         code's draw); what it leaves out is drawn from a generator seeded with
-        ``seed + epoch``."""
+        ``seed + epoch``. On a data mesh each rank selects for its slice of a
+        batch, from that generator folded by its data rank, and the rows are
+        gathered, so every rank stores the same table (a ragged batch, whole
+        on every rank, takes the unfolded generator)."""
         self.logger.print_log("caching CIMLE noise")
         all_noise, all_ids = [], []
         gen = torch.Generator(device=self.device).manual_seed(self.seed + self.epoch)
         for i, batch in enumerate(self.train_loader):
-            db = device_batch(batch, self.device, self._slim_train)
             extra = dict(inject[i]) if inject is not None else {}
             noise = extra.pop("noise", None)
+            local, g = batch, gen
+            sharded = False
+            if self.mesh is not None:
+                B = len(batch["ref"])
+                local = shard_batch(self.mesh, dict(batch, **extra))
+                sharded = len(local["ref"]) < B
+                if noise is not None:
+                    noise = shard_batch(self.mesh, {"n": noise.reshape(B, -1, noise.shape[-1])})["n"]
+                    noise = noise.reshape(-1, noise.shape[-1])
+                extra = {k: local.pop(k) for k in extra}
+                if sharded:
+                    g = fold_generator(gen, self.mesh.index())
+            db = device_batch(local, self.device, self._slim_train)
             db.update(extra)
-            _, _, selected = select_best_noise(self.model, db, generator=gen, noise=noise)
+            _, _, selected = select_best_noise(self.model, db, generator=g, noise=noise)
+            if sharded:
+                selected = all_gather_cat(selected.contiguous(), self.mesh.groups["data"])
             # One non-finite cached noise would poison every later step on that
             # shape; zero is the distribution's mean.
             selected = selected.float().cpu().numpy()
@@ -337,7 +443,7 @@ class Runner:
                 fixed[i] = 1
             out = sample_generation(model, B, valid_id=db["present"].float(), fixed_id=fixed,
                                     epoch=self.epoch, ret_traj=model.ret_traj,
-                                    generator=generator)
+                                    generator=generator, mesh=self.gen_mesh)
             name = "gen_fixed" + "".join(str(int(i)) for i in fixed.tolist())
         else:
             noise = None
@@ -378,6 +484,8 @@ class Runner:
         return [(pred, name)]
 
     def val(self):
+        if self.spare:
+            return {}
         self.logger.print_log(f"validation @ epoch {self.epoch}")
         results: Dict[str, List[Dict]] = {}
         gen = torch.Generator(device=self.device).manual_seed(self.seed + 13)
@@ -389,12 +497,13 @@ class Runner:
         all_metrics = {}
         for name, res in results.items():
             save_dict, metrics = self.val_loader.evaluate(res, self.save_num_batch, self.device)
-            out_dir = os.path.join(self.work_dir, "val")
-            os.makedirs(out_dir, exist_ok=True)
-            np.savez(
-                os.path.join(out_dir, f"{name}_{self.epoch}.npz"),
-                **{k: v for k, v in save_dict.items() if isinstance(v, np.ndarray)},
-            )
+            if self.rank0:
+                out_dir = os.path.join(self.work_dir, "val")
+                os.makedirs(out_dir, exist_ok=True)
+                np.savez(
+                    os.path.join(out_dir, f"{name}_{self.epoch}.npz"),
+                    **{k: v for k, v in save_dict.items() if isinstance(v, np.ndarray)},
+                )
             metrics = {f"{name}/{k}": float(v) for k, v in metrics.items()}
             all_metrics.update(metrics)
             self.logger.log(metrics, step=self.iter)
@@ -403,8 +512,10 @@ class Runner:
     # --------------------------------------------------- val_gen protocol
     def generate_samples(self, num_gen: int = 400, batch: int = 128):
         """Unconditional generation against the val set's references."""
+        if self.spare:
+            return {}
         gen = generate_samples(self.model, num_gen=num_gen, batch=batch, seed=self.seed,
-                               epoch=self.epoch)
+                               epoch=self.epoch, mesh=self.gen_mesh)
         refs = np.concatenate([np.asarray(vb["ref"]) for vb in self.val_loader])
         return self.evaluate_gen(gen, refs)
 
@@ -412,6 +523,6 @@ class Runner:
         """FPS to 2048 points, bbox-normalize and the metric suite; the
         ref-vs-ref block is computed once for the runner's life."""
         metrics = evaluate_gen(gen, refs, ref_self_cache=self._ref_self_cache,
-                               device=self.device)
+                               device=self.device, mesh=self.eval_mesh)
         self.logger.log({f"gen/{k}": float(v) for k, v in metrics.items()}, step=self.iter)
         return metrics

@@ -182,8 +182,9 @@ def test_compute_all_metrics_options_match_jax():
     for kw in (dict(compute_emd=False), dict(one_way=True)):
         assert_metrics_close(te.compute_all_metrics(gen, ref, 4, device=CPU, **kw),
                              je.compute_all_metrics(gen, ref, 4, **kw))
-    with pytest.raises(TypeError):
-        te.compute_all_metrics(gen, ref, 4, mesh=None)
+    # mesh=None is the one-rank sweep (the sharded sweeps: test_torch_metrics_mesh.py)
+    assert te.compute_all_metrics(gen, ref, 4, device=CPU, mesh=None) == \
+        te.compute_all_metrics(gen, ref, 4, device=CPU)
 
 
 def test_ref_self_cache_hit_and_miss(monkeypatch):

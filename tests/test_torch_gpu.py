@@ -738,3 +738,45 @@ def test_card_runner_computes_in_float32_as_the_jax_runner(cuda, tmp_path):
     for k in prior:
         np.testing.assert_allclose(card[k], cpu[k], rtol=1e-4, err_msg=k)
     np.testing.assert_allclose(card["mse_loss"], cpu["mse_loss"], rtol=2e-2)
+
+
+@pytest.mark.gpu
+def test_world_size_1_nccl_step_equals_the_plain_step(cuda, tmp_path):
+    """One NCCL rank through the mesh step (gen_chair at full width, depth
+    cut, N = 512, float32, B2/B3 once each): the all-reduce of the flat
+    gradient, scalar and statistics buffer over one rank and the step's
+    update equal the plain step's update of the same local gradients bit
+    for bit (parameters, BatchNorm statistics, loss, gradient norm). Two
+    independent steps are not compared bit for bit: B3 sums its weight
+    gradients with f32 atomics, in no fixed order."""
+    from torch_dist_ranks import spawn
+
+    r = spawn("card", 1, tmp_path, backend="nccl")[0]
+    np.testing.assert_array_equal(r["launches"], [1, 1])
+    for k in ("params", "stats", "total", "gnorm"):
+        np.testing.assert_array_equal(r[k], r[f"ref_{k}"])
+    assert np.abs(r["params"] - r["before"]).max() > 0
+
+
+@pytest.mark.gpu
+def test_gloo_two_ranks_sharing_the_card_step_as_one(cuda, tmp_path):
+    """Two gloo ranks on one card (CUDA tensors; what gloo cannot reduce on
+    them goes through the host) take one dp step of the same model, 2 of
+    the 4 shapes each, against the two slices' arithmetic on one rank:
+    loss 1e-5 relative, gradient norm 1e-4 relative (B3's atomics), the
+    mean |difference| of the parameters within a quarter of the mean
+    |update| (phase 9's tolerance: Adam's first update is lr in size
+    whatever the gradient), the statistics 1e-4 relative, both ranks equal,
+    B2 and B3 once on each."""
+    from torch_dist_ranks import spawn
+
+    ranks = spawn("card", 2, tmp_path, backend="gloo")
+    r = ranks[0]
+    for x in ranks:
+        np.testing.assert_array_equal(x["launches"], [1, 1])
+    np.testing.assert_array_equal(ranks[1]["digest"], r["digest"])
+    np.testing.assert_allclose(r["total"], r["ref_total"], rtol=1e-5)
+    np.testing.assert_allclose(r["gnorm"], r["ref_gnorm"], rtol=1e-4)
+    upd = np.abs(r["ref_params"] - r["before"]).mean()
+    assert np.abs(r["params"] - r["ref_params"]).mean() <= 0.25 * upd
+    np.testing.assert_allclose(r["stats"], r["ref_stats"], rtol=1e-4, atol=1e-6)
