@@ -184,8 +184,7 @@ Phases, each fatal (non-zero exit, no "ok" line):
    count, then runs ranks of this script (``--rank``, a ``FileStore`` under a
    temporary directory): NCCL over ``min(count, 4)`` cards where there are
    several; on one card NCCL at world size 1 through the whole distributed
-   path, then 2 ranks sharing the card over gloo (which collectives gloo ran
-   on CUDA tensors directly, and which through the host, is printed). Each
+   path, then 2 ranks sharing the card over gloo with CUDA tensors. Each
    run prints its backend and world size and holds, at full width: 3 dp
    training steps at dropout 0 on one global batch of 32 x 2048, every draw
    injected, against the same ranks' arithmetic done by this process on one
@@ -1790,13 +1789,18 @@ def mg_gen_draws(device, steps):
 def mg_counts(zero=False):
     from difffacto_torch.ops import emd_hybrid as eh
     from difffacto_torch.ops import fps as fpsm
+    from difffacto_torch.ops import fused_block as fb
     from difffacto_torch.ops import fused_core as fc
     from difffacto_torch.ops import fused_core_train as fct
+    from difffacto_torch.ops import fused_ff as ff
 
     if zero:
-        fc.launches = fct.launches_fwd = fct.launches_bwd = eh.launches = fpsm.launches = 0
-    return dict(fused_core=fc.launches, fused_trunk_train_fwd=fct.launches_fwd,
-                fused_trunk_train_bwd=fct.launches_bwd, emd_hybrid=eh.launches, fps=fpsm.launches)
+        fc.launches = fc.launches_headless = fct.launches_fwd = fct.launches_bwd = 0
+        fpsm.launches = eh.launches = ff.launches = fb.launches = 0
+    return dict(fused_core=fc.launches, fused_core_headless=fc.launches_headless,
+                fused_trunk_train_fwd=fct.launches_fwd, fused_trunk_train_bwd=fct.launches_bwd,
+                emd_hybrid=eh.launches, fps=fpsm.launches, fused_ff=ff.launches,
+                fused_block=fb.launches)
 
 
 def mg_flat(tensors):
@@ -1890,7 +1894,6 @@ def multi_gpu_rank(argv):
     import torch.distributed as dist
 
     from difffacto_torch.parallel import make_mesh
-    from difffacto_torch.parallel.mesh import COLLECTIVES
     from difffacto_torch.runner.evaluation import evaluate_gen
 
     rank, world, backend, work, noise_scale = (int(argv[0]), int(argv[1]), argv[2], argv[3],
@@ -1934,7 +1937,6 @@ def multi_gpu_rank(argv):
         torch.cuda.synchronize()
         out["protocol"] = dict(launches=mg_counts(), s=time.perf_counter() - t0,
                                metrics={k: float(v) for k, v in metrics.items()})
-        out["collectives"] = dict(COLLECTIVES)
         with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
             json.dump(out, f)
         if rank == 0:
@@ -2033,12 +2035,9 @@ def multi_gpu_phase(dev, noise_scale, phase6):
             cli = mg_cli_run(world, work)
         print(f"{label}: ranks {[(r['rank'], r['backend'], r['device']) for r in ranks]}, "
               f"{wall:.1f} s")
-        for r in ranks:
-            if r["collectives"]:
-                print(f"  rank {r['rank']}: gloo on CUDA tensors ran {r['collectives']}")
         row = dict(backend=backend, world=world, label=label, wall_s=wall, cli=cli)
 
-        def hold_train(key, ref, steps, lr_steps):
+        def hold_train(key, ref, steps):
             """Per step: the loss dict and grad_norm at phase 9's tolerances;
             the parameters' change: mean |difference| within RUNNER_UPDATE_REL
             of the mean |update|."""
@@ -2081,11 +2080,11 @@ def multi_gpu_phase(dev, noise_scale, phase6):
                 fail(f"phase 13 {label}: {key} launched B1 {launches} times, not {steps} a rank")
             return dict(rel_l2=d.item(), s=ranks[0][key]["s"])
 
-        row["train"] = hold_train("train", refs[world], MG_TRAIN_STEPS, MG_TRAIN_STEPS)
+        row["train"] = hold_train("train", refs[world], MG_TRAIN_STEPS)
         row["gen"] = hold_gen("gen")
         if world % 2 == 0:
             row["sp_gen"] = hold_gen("sp_gen")
-            row["sp_train"] = hold_train("sp_train", refs[f"sp{world}"], 1, 1)
+            row["sp_train"] = hold_train("sp_train", refs[f"sp{world}"], 1)
         m6 = {k: float(v) for k, v in phase6["metrics"].items()}
         emd = [r["protocol"]["launches"]["emd_hybrid"] for r in ranks]
         fps_l = [r["protocol"]["launches"]["fps"] for r in ranks]
@@ -2999,7 +2998,8 @@ def main():
         "replaces": "difffacto_tpu/ops/fused_core.py:33", "launches": run11["headless_launches"],
         "max_abs_err": max(headless_err, run11["headless_err"]), "ms": run11["headless_ms"],
         "plain_ms": run11["headless_plain_ms"], "bound_ms": run11["headless_bound_ms"],
-        "bound_by": run11["headless_bound_by"], "library_ms": None, "launches_multi_gpu": 0,
+        "bound_by": run11["headless_bound_by"], "library_ms": None,
+        "launches_multi_gpu": mg_launches["fused_core_headless"],
     }
     print(json.dumps({"kernels": [trunk, headless, {
         "name": "fps", "route": "cuda", "source": "difffacto_torch/csrc/fps.cu",
@@ -3074,7 +3074,7 @@ def main():
         "unet_forward_ms": unet_ms, "launches_runner": on_path["fused_block"],
         "launches_editing": editing_launches["fused_block"],
         "launches_unet_training": run12["unet"]["launches"]["fused_block"],
-        "launches_multi_gpu": 0,
+        "launches_multi_gpu": mg_launches["fused_block"],
         "unet_train_step_ms": run12["unet"]["step_ms"],
     }, {
         "name": "fused_ff", "route": "cuda", "source": "difffacto_torch/csrc/fused_ff.cu",
@@ -3092,7 +3092,8 @@ def main():
         "plain_ms_at_search_d256": run10["search_ff"]["plain_ms"],
         "bound_ms_at_search_d256": run10["search_ff"]["bound_ms"],
         "search_tokens": run10["search_ff"]["tokens"],
-        "editing_path_launches_reported": run10["ff_path"], "launches_multi_gpu": 0,
+        "editing_path_launches_reported": run10["ff_path"],
+        "launches_multi_gpu": mg_launches["fused_ff"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,10 +16,9 @@ parameters. A point shard of the reverse chain needs no collective (each
 point token cross-attends to 4 replicated context tokens); a point shard of
 the training loss reduces over the points where ``parallel/axes.py`` says.
 
-Gloo runs only some collectives on CUDA tensors. The port uses four
-(all-reduce, all-gather, broadcast, barrier); where gloo refuses one for a
-CUDA tensor, that collective is staged through host copies from then on,
-the switch is printed, and ``COLLECTIVES`` records how each one ran.
+The port uses four collectives (all-reduce, all-gather, broadcast,
+barrier). Gloo runs all four on CUDA tensors where ranks share a card, so
+they are called directly under either backend.
 """
 
 from __future__ import annotations
@@ -37,9 +36,6 @@ import torch.distributed as dist
 POINT_AXIS_BATCH_KEYS = frozenset(
     {"input", "ref", "seg_mask", "ref_seg_mask", "attn_map", "ref_attn_map", "diffusion_noise"}
 )
-
-# How each collective ran where gloo met CUDA tensors: "direct" or "host".
-COLLECTIVES: Dict[str, str] = {}
 
 
 @dataclasses.dataclass
@@ -149,30 +145,9 @@ def shard_batch(mesh: Mesh, batch: Dict) -> Dict:
 
 
 # ---------------------------------------------------------------- collectives
-def _collective(name: str, fn, tensors: List[torch.Tensor], group) -> None:
-    """Run ``fn(tensors)``; for CUDA tensors under gloo, through host copies
-    once gloo has refused ``name`` for them."""
-    if not (tensors and tensors[0].is_cuda and dist.get_backend(group) == "gloo"):
-        fn(tensors)
-        return
-    if COLLECTIVES.get(name) != "host":
-        try:
-            fn(tensors)
-            COLLECTIVES[name] = "direct"
-            return
-        except RuntimeError as e:  # gloo refuses before it communicates
-            print(f"[difffacto_torch] gloo cannot run {name} on CUDA tensors ({e}); "
-                  "staging it through the host", flush=True)
-            COLLECTIVES[name] = "host"
-    host = [t.cpu() for t in tensors]
-    fn(host)
-    for t, h in zip(tensors, host):
-        t.copy_(h)
-
-
 def all_reduce_(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
     """In-place all-reduce of a contiguous tensor over ``group``."""
-    _collective("all_reduce", lambda ts: dist.all_reduce(ts[0], op=op, group=group), [x], group)
+    dist.all_reduce(x, op=op, group=group)
     return x
 
 
@@ -181,11 +156,7 @@ def all_gather_stack(x: torch.Tensor, group) -> torch.Tensor:
     x = x.contiguous()
     out = torch.empty((dist.get_world_size(group),) + tuple(x.shape), dtype=x.dtype,
                       device=x.device)
-
-    def gather(ts):
-        dist.all_gather(list(ts[1].unbind(0)), ts[0], group=group)
-
-    _collective("all_gather", gather, [x, out], group)
+    dist.all_gather(list(out.unbind(0)), x, group=group)
     return out
 
 
@@ -217,12 +188,8 @@ def all_reduce_mean_(tensors: Sequence[torch.Tensor], mesh: Mesh) -> None:
 
 def replicate(mesh: Mesh, module: torch.nn.Module) -> torch.nn.Module:
     """Give every rank of the mesh its first rank's parameters and buffers."""
-    def bcast(flat):
-        _collective("broadcast",
-                    lambda ts: dist.broadcast(ts[0], src=mesh.ranks[0], group=mesh.group),
-                    [flat], mesh.group)
-
-    _flat(list(module.parameters()) + list(module.buffers()), bcast)
+    _flat(list(module.parameters()) + list(module.buffers()),
+          lambda flat: dist.broadcast(flat, src=mesh.ranks[0], group=mesh.group))
     return module
 
 
@@ -264,12 +231,12 @@ def default_backend(device) -> str:
     return "nccl" if ranks_here <= torch.cuda.device_count() else "gloo"
 
 
-def initialize_distributed(backend: Optional[str] = None, strict: bool = False,
-                           device="cpu") -> bool:
+def initialize_distributed(device, strict: bool = False) -> bool:
     """Join the ranks that ``torch.distributed.run`` started (``RANK``,
-    ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT`` from the environment).
+    ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT`` from the environment)
+    over ``default_backend(device)``, ``device`` being this rank's.
 
-    ``backend`` defaults to ``default_backend(device)``. Returns True once
+    Returns True once
     the process group exists. Without that environment, or where joining
     fails, it raises with ``strict`` (an explicit ``--launcher pytorch``: a
     rank that trained alone against a shared work_dir would corrupt the
@@ -283,7 +250,7 @@ def initialize_distributed(backend: Optional[str] = None, strict: bool = False,
         if missing:
             raise RuntimeError(f"no torch.distributed.run environment ({', '.join(missing)} "
                                "unset)")
-        dist.init_process_group(backend or default_backend(device), init_method="env://")
+        dist.init_process_group(default_backend(device), init_method="env://")
         return True
     except (ValueError, RuntimeError) as e:
         if strict:

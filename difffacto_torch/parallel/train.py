@@ -19,8 +19,9 @@ The model's parameters and BatchNorm buffers are updated in place.
 Over a mesh each rank takes ``autograd.grad`` of the loss of its own slice of
 the batch (``mesh.shard_batch``); the gradients, the total, the metrics and
 the BatchNorm running statistics are then averaged over every rank of the
-mesh in one all-reduce of one flat buffer (``pmean`` over the data and points
-axes in the JAX package), and the norm, the clip and the guards run on the
+mesh, the gradients and statistics in one all-reduce of one flat buffer and
+the scalars in another (``pmean`` over the data and points axes in the JAX
+package), and the norm, the clip and the guards run on the
 averaged gradients, so every rank takes the same branch and holds the same
 parameters after the update. Under a "points" axis the loss runs inside
 ``axes.points_sharded``. The streams are folded by the data rank where the
@@ -42,7 +43,7 @@ import torch
 
 from ..models.anchor_diff import AnchorDiffAE, ensure_attn_maps
 from .axes import fold_generator, fold_seed, points_sharded
-from .mesh import Mesh, all_reduce_mean_
+from .mesh import Mesh, all_reduce_mean_, pmean_metrics
 from .optim import Optimizer, global_norm
 
 
@@ -128,10 +129,9 @@ class TrainStep:
         old_buffers = [b.clone() for b in self.buffers]
         total, metrics, grads = self.local(state, batch, rng, epoch)
         if self.mesh is not None:
-            scalars = torch.stack([total.float()] + [v.float().reshape(()) for v in metrics.values()])
-            all_reduce_mean_(grads + [scalars] + self.buffers, self.mesh)
-            total = scalars[0].to(total.dtype)
-            metrics = {k: s.to(v.dtype) for (k, v), s in zip(metrics.items(), scalars[1:])}
+            all_reduce_mean_(grads + self.buffers, self.mesh)
+            metrics = pmean_metrics(dict(metrics, total_loss=total), self.mesh)
+            total = metrics.pop("total_loss")
         return self.apply(state, total, metrics, grads, old_buffers)
 
     def local(self, state: TrainState, batch, rng, epoch):

@@ -15,7 +15,8 @@ launcher, ``tools/run_net.py:33-40``):
 Each rank runs on ``cuda:LOCAL_RANK`` over NCCL (ranks share the cards,
 over gloo, where a node runs more ranks than it has cards); with ``--cpu``
 the ranks run on the CPU over gloo. A launcher that cannot start its
-process group raises. ``main(argv)`` returns what it ran:
+process group raises, and so does one asked for ``--runner pretrain`` or
+``--task interpolation`` / ``mixing``, which run on one device. ``main(argv)`` returns what it ran:
 the ``Runner`` after ``train``, the metric dict after ``val`` and
 ``val_gen``, the written arrays after ``interpolation`` and ``mixing``. A
 caller that changes a few keys writes a config whose ``_base_`` names the
@@ -33,6 +34,9 @@ NOT_PORTED = {
     "gan": "queue A item 6, the secondary families",
     "language": "queue A item 6, the secondary families",
 }
+# Runners and tasks with no sharded path: under --launcher pytorch every rank
+# would redo the whole work and write the same files.
+SINGLE_DEVICE = ("pretrain", "interpolation", "mixing")
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -90,10 +94,6 @@ def main(argv: Optional[Sequence[str]] = None):
     from .runner import Runner
 
     args = parse_args(argv)
-    if args.launcher == "pytorch":
-        device = start_ranks(args.cpu)
-    else:
-        device = resolve_device("cpu" if args.cpu else "cuda")
     init_cfg(args.config_file)
     cfg = get_cfg()
     if args.prefix:
@@ -106,6 +106,15 @@ def main(argv: Optional[Sequence[str]] = None):
         if what in NOT_PORTED:
             raise NotImplementedError(
                 f"'{what}' is not ported yet (ROADMAP.md, {NOT_PORTED[what]})")
+    if args.launcher == "pytorch":
+        for what in (kind, args.task):
+            if what in SINGLE_DEVICE:
+                raise NotImplementedError(
+                    f"'{what}' runs on one device; --launcher pytorch takes the default runner's "
+                    "train, val and val_gen (ROADMAP.md, queue A item 5)")
+        device = start_ranks(args.cpu)
+    else:
+        device = resolve_device("cpu" if args.cpu else "cuda")
 
     runner_cls = PretrainRunner if kind == "pretrain" else Runner
     runner = runner_cls(args=args, cfg=cfg, device=device)

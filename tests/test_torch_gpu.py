@@ -743,8 +743,8 @@ def test_card_runner_computes_in_float32_as_the_jax_runner(cuda, tmp_path):
 @pytest.mark.gpu
 def test_world_size_1_nccl_step_equals_the_plain_step(cuda, tmp_path):
     """One NCCL rank through the mesh step (gen_chair at full width, depth
-    cut, N = 512, float32, B2/B3 once each): the all-reduce of the flat
-    gradient, scalar and statistics buffer over one rank and the step's
+    cut, N = 512, float32, B2/B3 once each): the all-reduces of the flat
+    gradient and statistics buffer and of the scalars over one rank and the step's
     update equal the plain step's update of the same local gradients bit
     for bit (parameters, BatchNorm statistics, loss, gradient norm). Two
     independent steps are not compared bit for bit: B3 sums its weight
@@ -760,8 +760,8 @@ def test_world_size_1_nccl_step_equals_the_plain_step(cuda, tmp_path):
 
 @pytest.mark.gpu
 def test_gloo_two_ranks_sharing_the_card_step_as_one(cuda, tmp_path):
-    """Two gloo ranks on one card (CUDA tensors; what gloo cannot reduce on
-    them goes through the host) take one dp step of the same model, 2 of
+    """Two gloo ranks on one card (collectives on CUDA tensors) take one dp
+    step of the same model, 2 of
     the 4 shapes each, against the two slices' arithmetic on one rank:
     loss 1e-5 relative, gradient norm 1e-4 relative (B3's atomics), the
     mean |difference| of the parameters within a quarter of the mean

@@ -174,7 +174,19 @@ def test_launcher_without_a_process_group_refuses(monkeypatch):
         monkeypatch.delenv(key, raising=False)
     with pytest.raises(RuntimeError, match="--launcher pytorch requested"):
         main(["--config-file", TINY, "--launcher", "pytorch", "--cpu"])
-    assert initialize_distributed() is False
+    assert initialize_distributed("cpu") is False
+
+
+@pytest.mark.parametrize("flags", [["--runner", "pretrain"], ["--task", "interpolation"],
+                                   ["--task", "mixing"]])
+def test_launcher_refuses_the_single_device_paths(flags):
+    """``--launcher pytorch`` with the pretrain runner or an editing task,
+    which have no sharded path, raises before it joins a process group."""
+    from difffacto_torch.runner.cli import main
+
+    with pytest.raises(NotImplementedError, match="--launcher pytorch"):
+        main(["--config-file", TINY, "--launcher", "pytorch", "--cpu"] + flags)
+    assert not torch.distributed.is_initialized()
 
 
 def test_launcher_rank_without_a_card_refuses(monkeypatch):
