@@ -5,9 +5,10 @@ step, gen_chair generation with two-attention blocks beside the UNet
 denoiser, the training loop users run (the runner and its CLI),
 reconstruction and part-level editing on weights read from a reference
 ``.pth``, the chain's variants (DDIM, a learned variance with guidance,
-t added to x) with the checkpoint-curve scorer, and the JAX package's
+t added to x) with the checkpoint-curve scorer, the JAX package's
 ``.msgpack`` checkpoints, training through two-attention blocks and UNet,
-and per-part pretraining.
+per-part pretraining, multi-GPU, the GAN, language and mixing runners and
+the point-diffusion model on PointNet++.
 
     python3 chip_smoke.py
 
@@ -204,6 +205,29 @@ Phases, each fatal (non-zero exit, no "ok" line):
    its epoch seconds printed with what they are (ranks sharing one card
    measure no scaling). Launch counts are set to 0 before each run and read
    after; the kernels line carries ``launches_multi_gpu``.
+14. the last runner families and PDM, full width (gen_chair's zdim 256, 4
+   parts, 2048 points, T = 100): ``--runner gan`` through the CLI on a
+   config whose ``_base_`` is ``configs/bench_train_tpu.py`` (the JAX
+   defaults of ``Generator`` and ``Discriminator``) for one epoch and its
+   val (100 trunk launches a val batch, EMD launches, nothing else), then
+   one critic and one generator step against a CPU runner resumed from the
+   card's checkpoint; ``--runner language --no_eval`` on
+   ``SyntheticLanguagePart`` at 2048 points (no kernel launch, every
+   parameter outside the language modules bit for bit as it was), then one
+   step against the CPU; ``MixingRunner.mixing`` on one val batch of 32
+   (100 trunk launches), then ``combine_latent`` on 2 shapes against the
+   CPU with every draw injected; ``PDM`` on ``PointNet2SSG(4, 256, 1)`` and
+   ``PointwiseNet``: 3 training steps and one predict at batch 32 (2 FPS
+   launches a forward pass, 2048 -> 512 and 512 -> 128, each held index for
+   index against the plain FPS), one step at batch 4 and a predict of 2
+   shapes against the CPU (the steps and the predict are float32 on both
+   sides: losses within 1e-4, updates within 1e-2 of the mean update, PDM's
+   gradient norm within 1e-3, the predict within 1e-4); a forward pass of ``PointNet2SSG`` and
+   ``PointNet2MSG`` timed beside its FPS launches and ball queries. The
+   first trunk launch of the GAN's val and of the mixing, and the val's
+   first EMD launch, are held against their plain versions. Every kernel's
+   entry in the kernels line gains ``launches_gan``, ``launches_language``,
+   ``launches_mixing`` and ``launches_pdm``.
 
 The last line is {"ok": true, "device": {...}}.
 """
@@ -1102,7 +1126,6 @@ def hold_editing_launches(recorder):
     reaches the hundreds, where one bf16 step (1.0 at 200) is larger than the
     FF branch the kernel adds. Returns the largest differences by kernel
     name and what the path's FF launches showed."""
-    from difffacto_torch.ops import emd_hybrid as eh
     from difffacto_torch.ops import fused_ff as ff
 
     errs = dict(fused_core=recorder.hold_core("phase 10"), fused_ff=0.0)
@@ -1125,7 +1148,17 @@ def hold_editing_launches(recorder):
         if not torch.isfinite(out.float()).all():
             fail(f"fused_ff as phase 10 launched it at T={T} gave non-finite values")
         ff_path.append(seen)
-    (_, n), (args, kw, got) = recorder.launches("emd_assignment_hybrid", "phase 10")[0]
+    errs["emd_hybrid"] = hold_emd(recorder, "phase 10")
+    return errs, ff_path
+
+
+def hold_emd(recorder, label):
+    """Fail unless the first recorded EMD launch's matched cost on its first
+    EDIT_EMD_PAIRS pairs is within EMD_COST_RTOL of its plain version's;
+    returns the share of differing indices."""
+    from difffacto_torch.ops import emd_hybrid as eh
+
+    (_, n), (args, kw, got) = recorder.launches("emd_assignment_hybrid", label)[0]
     pairs = args[0].shape[0]
     a, b, got = args[0][:EDIT_EMD_PAIRS], args[1][:EDIT_EMD_PAIRS], got[:EDIT_EMD_PAIRS]
     with torch.inference_mode():
@@ -1133,13 +1166,12 @@ def hold_editing_launches(recorder):
     cg, cw = matched_cost(a, b, got), matched_cost(a, b, want)
     rel = ((cg - cw).abs() / cw).max().item()
     share = (got != want).float().mean().item()
-    print(f"emd_hybrid as phase 10 launched it, first {EDIT_EMD_PAIRS} of {pairs} pairs at "
+    print(f"emd_hybrid as {label} launched it, first {EDIT_EMD_PAIRS} of {pairs} pairs at "
           f"n={n}: matched cost off by {rel:.3e} (tol {EMD_COST_RTOL}), share of differing "
           f"indices {share:.6f}")
     if not rel <= EMD_COST_RTOL:
-        fail("the EMD launch of phase 10 disagrees with its plain version")
-    errs["emd_hybrid"] = share
-    return errs, ff_path
+        fail(f"the EMD launch of {label} disagrees with its plain version")
+    return share
 
 
 def editing_phase(dev, fc, fct, fpsm, eh, ff, fb):
@@ -1751,6 +1783,476 @@ def _gen_chair_net():
     from difffacto_torch import Config
 
     return Config(os.path.join(ROOT, "configs", "gen_chair.py")).model.dump()["diffusion"]["net"]
+
+
+# Phase 14: the last runner families and PDM at gen_chair's widths (zdim 256,
+# 4 parts, 2048 points, T = 100). GAN: --runner gan for one epoch and its val
+# through the CLI. Language: --runner language --no_eval on
+# SyntheticLanguagePart at 2048 points, LANG_BATCH triplets a step. Mixing:
+# MixingRunner.mixing on one val batch of 32. PDM: PointNet2SSG(4, 256, 1) and
+# PointwiseNet, PDM_STEPS steps and one predict at PDM_BATCH. Each path is
+# held against the same path on the CPU on the same weights with every draw
+# injected: the GAN's and the language runner's steps, each from the
+# card's Adam state after its epoch, so that an update depends on the
+# gradient's size; the mixing of MIX_CHECK shapes (the CPU's trunk given bf16
+# operands, as the kernel takes them: within E2E_REL_L2); one PDM step at
+# P14_CHECK_BATCH, its gradient norm held too, as Adam's first update is about
+# lr * sign(g) whatever the gradient's size; and a PDM predict at MIX_CHECK
+# shapes. The steps and the predict run in float32 with no inexact kernel on
+# either side; their tolerances are about 20 times their readings on an H100
+# (losses 9e-7 to 5.5e-6 relative, updates at most 6e-4 of the mean update,
+# the predict 1.5e-7 relative L2).
+P14_LOSS_RTOL, P14_UPDATE_REL, P14_GNORM_RTOL, P14_PREDICT_REL_L2 = 1e-4, 1e-2, 1e-3, 1e-4
+P14_POINTS = 2048
+# Keys a CPU rehearsal sets in the runners' configs to cut them to size
+# (the model's, the datasets'); none on the card.
+P14_MODEL, P14_DATA = {}, {}
+LANG_BATCH, LANG_SIZE = 8, 16
+MIX_CHECK = 2
+PDM_BATCH, PDM_STEPS, P14_CHECK_BATCH = 32, 3, 4
+PDM_CFG = dict(
+    type="PDM", encoder=dict(type="PointNet2SSG", additioinal_dim=4, zdim=256, num_anchors=1),
+    diffusion=dict(type="PointDiffusion", net=dict(type="PointwiseNet", context_dim=256),
+                   beta_1=1e-4, beta_T=0.02, mode="linear"),
+    sampler=dict(type="Uniform"), num_timesteps=100, npoints=P14_POINTS)
+# PointNet++'s two samples a forward pass (points, samples), and the radii and
+# neighbourhood sizes of each level's balls (``models/pointnet2.py``)
+SA_FPS = ((P14_POINTS, 512), (512, 128))
+SA_BALLS = {"PointNet2SSG": (((0.2, 64),), ((0.4, 64),)),
+            "PointNet2MSG": (((0.1, 16), (0.2, 32), (0.4, 128)),
+                             ((0.2, 32), (0.4, 64), (0.8, 128)))}
+
+
+def only(**launches):
+    """The launch counts of a path that launches ``launches`` and nothing else."""
+    return dict({k: 0 for k in mg_counts()}, **launches)
+
+
+def timed_methods(cls, names, times):
+    """Wrap ``cls``'s methods ``names`` to add their synchronised wall time to
+    ``times[name]``; returns the function that puts them back."""
+    own = {n: cls.__dict__.get(n) for n in names}
+    for n in names:
+        fn = getattr(cls, n)
+
+        def run(self, *a, _fn=fn, _n=n, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = _fn(self, *a, **k)
+            torch.cuda.synchronize()
+            times[_n] = times.get(_n, 0.0) + time.perf_counter() - t0
+            return out
+        setattr(cls, n, run)
+
+    def restore():
+        for n, fn in own.items():
+            if fn is None:
+                delattr(cls, n)
+            else:
+                setattr(cls, n, fn)
+    return restore
+
+
+def on_cpu(tree):
+    if torch.is_tensor(tree):
+        return tree.detach().cpu()
+    if isinstance(tree, dict):
+        return {k: on_cpu(v) for k, v in tree.items()}
+    return [on_cpu(v) for v in tree]
+
+
+def hold_updates(label, card, cpu, gnorms=None):
+    """(loss relative difference, updates' mean abs difference over the CPU's
+    mean abs update[, gradient norm's relative difference]) of one float32
+    step on each side; fails beyond phase 14's tolerances. ``card`` and
+    ``cpu`` are (loss dict, updates), ``gnorms`` the (card, CPU) gradient
+    norms where the step reports them."""
+    (mc, uc), (mh, uh) = card, cpu
+    rel = max(abs(mc[k] - mh[k]) / max(abs(mh[k]), 1e-12) for k in mh)
+    upd = (torch.cat([(a - b).abs().flatten() for a, b in zip(uc, uh)]).mean()
+           / torch.cat([b.abs().flatten() for b in uh]).mean().clamp_min(1e-30)).item()
+    held = dict(loss_rel=rel, update_rel=upd)
+    text = ""
+    if gnorms is not None:
+        held["grad_norm_rel"] = abs(gnorms[0] / gnorms[1] - 1)
+        text = f", gradient norm by {held['grad_norm_rel']:.3e} (tol {P14_GNORM_RTOL})"
+    print(f"{label}, card against CPU: losses off by {rel:.3e} (tol {P14_LOSS_RTOL}), updates "
+          f"by {upd:.3e} of the mean abs update (tol {P14_UPDATE_REL}){text}")
+    if (not rel <= P14_LOSS_RTOL or not upd <= P14_UPDATE_REL
+            or not held.get("grad_norm_rel", 0.0) <= P14_GNORM_RTOL):
+        fail(f"{label} on the card disagrees with the CPU")
+    return held
+
+
+def step_on(mods, step):
+    """(losses, updates) of ``step()`` (a dict of 0-dim losses) on the
+    parameters of the modules ``mods``."""
+    before = [p.detach().clone() for m in mods for p in m.parameters()]
+    losses = {k: float(v) for k, v in step().items()}
+    after = [p.detach() for m in mods for p in m.parameters()]
+    return losses, [(a - b).float().cpu() for a, b in zip(after, before)]
+
+
+def gan_run(dev, work, recorder):
+    """Phase 14: --runner gan through the CLI, then one critic and one
+    generator step against a CPU runner resumed from the card's checkpoint
+    with the card's generator, critic and their Adam states."""
+    from difffacto_torch.config import Config
+    from difffacto_torch.runner import GanRunner
+    from difffacto_torch.runner.cli import main as cli_main
+
+    cfg = write_config(work, "gan", work_dir=os.path.join(work, "gan"), max_epoch=1,
+                       eval_interval=1, checkpoint_interval=None, cimle_cache_interval=None,
+                       log_interval=1, model=P14_MODEL, dataset=P14_DATA)
+    times = {}
+    restore = timed_methods(GanRunner, ("train", "val"), times)
+    try:
+        mg_counts(zero=True)
+        t0 = time.perf_counter()
+        with recorder:
+            runner = cli_main(["--config-file", cfg, "--runner", "gan"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = mg_counts()
+    finally:
+        restore()
+    T, steps = runner.model.num_timesteps, len(runner.train_loader)
+    recs = [json.loads(line) for line in open(os.path.join(runner.work_dir, "scalars.jsonl"))]
+    losses = [(r["d_loss"], r["g_loss"]) for r in recs if "d_loss" in r]
+    val = [r for r in recs if any(k.endswith("1-NN-CD-acc") for k in r)]
+    G, D = runner.generator, runner.discriminator
+    print(f"--runner gan: {wall:.2f} s (runner built), epoch {times['train']:.3f} s, val "
+          f"{times['val']:.2f} s, (d_loss, g_loss) by step {np.round(losses, 4).tolist()}, "
+          f"critic input width {D.dense0.kernel.shape[0]}, launches {counts}")
+    want = only(fused_core=T * len(runner.val_loader))
+    bad = {k: v for k, v in counts.items() if k != "emd_hybrid" and v != want[k]}
+    if type(runner) is not GanRunner or runner.epoch != 1 or len(losses) != steps:
+        fail(f"--runner gan ran {type(runner).__name__} to epoch {runner.epoch}, {losses}")
+    if not np.isfinite(losses).all() or len(val) != 1 or not all(
+            np.isfinite(v) for k, v in val[0].items() if "/" in k):
+        fail(f"--runner gan: losses {losses}, val {val}")
+    if bad or counts["emd_hybrid"] == 0:
+        fail(f"--runner gan launched {counts}: expected {T} trunk launches a val batch, EMD "
+             "launches in its val and nothing else")
+    codes = runner.generate_codes(64, torch.Generator(device=dev).manual_seed(0))
+    if tuple(codes.shape) != (64, G.n_class, G.out_dim) or not torch.isfinite(codes).all():
+        fail(f"generate_codes gave {tuple(codes.shape)}")
+    # one critic and one generator step on each side from the same state
+    cpu = GanRunner(cfg=Config(cfg), device="cpu")  # resumes the card's checkpoint
+    for name in ("generator", "discriminator"):
+        getattr(cpu, name).load_state_dict(on_cpu(getattr(runner, name).state_dict()))
+    cpu.d_opt, cpu.g_opt = on_cpu(runner.d_opt), on_cpu(runner.g_opt)
+    batch = next(iter(runner.train_loader))
+    B = len(batch["ref"])
+    rng = np.random.RandomState(140)
+    z_d, z_g = (torch.as_tensor(rng.randn(*G.noise_shape(B)), dtype=torch.float32)
+                for _ in range(2))
+    out = {}
+    for label, r, where in (("card", runner, dev), ("cpu", cpu, "cpu")):
+        codes, nets = r.real_codes(batch), (r.generator, r.discriminator)
+        d = step_on(nets, lambda: {"d_loss": r.d_step(codes, z=z_d.to(where))})
+        g = step_on(nets, lambda: {"g_loss": r.g_step(B, z=z_g.to(where))})
+        out[label] = (dict(d[0], **g[0]), d[1] + g[1])
+    held = hold_updates("--runner gan, one critic and one generator step", out["card"],
+                        out["cpu"])
+    return dict(launches=counts, s=wall, epoch_s=times["train"], val_s=times["val"], **held)
+
+
+def language_run(dev, work):
+    """Phase 14: --runner language --no_eval through the CLI, every parameter
+    outside the language modules bit for bit as it was, then one step against
+    a CPU runner resumed from the card's checkpoint."""
+    from difffacto_torch.config import Config
+    from difffacto_torch.runner import LanguageRunner
+    from difffacto_torch.runner.cli import main as cli_main
+
+    data = lambda size, split: dict(_cover_=True, type="SyntheticLanguagePart", split=split,
+                                    batch_size=LANG_BATCH, size=size, npoints=P14_POINTS)
+    cfg = write_config(work, "language", work_dir=os.path.join(work, "language"), max_epoch=1,
+                       checkpoint_interval=None, cimle_cache_interval=None, log_interval=1,
+                       model=P14_MODEL,
+                       dataset=dict(train=data(LANG_SIZE, "train"), val=data(LANG_BATCH, "test")))
+    frozen = {}
+    original = LanguageRunner.train
+
+    def train(self):
+        frozen.update({n: p.detach().clone() for n, p in self.model.named_parameters()
+                       if not n.startswith(("language_enc.", "update_mlp."))})
+        return original(self)
+
+    times = {}
+    LanguageRunner.train = train
+    restore = timed_methods(LanguageRunner, ("train",), times)
+    try:
+        mg_counts(zero=True)
+        t0 = time.perf_counter()
+        runner = cli_main(["--config-file", cfg, "--runner", "language", "--no_eval"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = mg_counts()
+    finally:
+        restore()
+        LanguageRunner.train = original
+    recs = [json.loads(line) for line in open(os.path.join(runner.work_dir, "scalars.jsonl"))]
+    losses = [r["total_loss"] for r in recs if "total_loss" in r]
+    moved = [n for n, p in runner.model.named_parameters() if n in frozen
+             and not torch.equal(p, frozen[n])]
+    print(f"--runner language: {wall:.2f} s (runner built), epoch {times['train']:.3f} s for "
+          f"{len(losses)} steps of {LANG_BATCH} triplets x {P14_POINTS} points, total_loss "
+          f"{[round(v, 4) for v in losses]}, {len(frozen)} frozen parameters, launches {counts}")
+    if type(runner) is not LanguageRunner or runner.epoch != 1 or not losses or not all(
+            np.isfinite(losses)):
+        fail(f"--runner language ran {type(runner).__name__} to epoch {runner.epoch}: {losses}")
+    if moved or any(counts.values()):
+        fail(f"--runner language moved {moved[:5]} or launched {counts}")
+    cpu = LanguageRunner(cfg=Config(cfg), device="cpu")  # resumes the card's checkpoint
+    batch = next(iter(runner.train_loader))
+    rng = np.random.RandomState(141)
+    B = len(batch["text"])
+    zdim = runner.model.encoder["encoder"]["zdim"]
+    inject = dict(part_code_eps=rng.randn(B * 3, 4, zdim).astype(np.float32),
+                  text_keep=rng.rand(B, batch["text"].shape[1], 100) > 0.5)
+    out = {}
+    for label, r, where in (("card", runner, dev), ("cpu", cpu, "cpu")):
+        db = {k: torch.as_tensor(np.asarray(v), device=where) for k, v in dict(
+            batch, **inject).items() if k in inject or k in (
+            "input", "ref", "attn_map", "part_indicator", "text")}
+
+        def step(r=r, db=db):
+            r.state, metrics = r.language_step(r.state, db, {})
+            return {k: v for k, v in metrics.items() if "loss" in k}
+        before = {n: p.detach().clone() for n, p in r.model.named_parameters()}
+        out[label] = step_on([r.model], step)
+        if any(not torch.equal(p, before[n]) for n, p in r.model.named_parameters()
+               if n in frozen):
+            fail(f"a language step on the {label} moved a parameter outside the language modules")
+    held = hold_updates("--runner language, one step", out["card"], out["cpu"])
+    return dict(launches=counts, s=wall, epoch_s=times["train"], **held)
+
+
+def mixing_run(dev, work, recorder):
+    """Phase 14: MixingRunner.mixing on one val batch, then combine_latent on
+    MIX_CHECK shapes against the CPU with every draw injected."""
+    from difffacto_torch.config import Config
+    from difffacto_torch.models import denoiser
+    from difffacto_torch.runner import MixingRunner
+    from difffacto_torch.runner.editing import combine_latent
+    from difffacto_torch.runner.runner import device_batch
+
+    cfg = write_config(work, "mixing", work_dir=os.path.join(work, "mixing"), model=P14_MODEL,
+                       dataset=dict(P14_DATA, val=dict(dict(size=32), **P14_DATA.get("val", {}))))
+    runner = MixingRunner(cfg=Config(cfg), device=dev)
+    T, N = runner.model.num_timesteps, runner.model.npoints
+    B, nb = len(runner.val_loader.dataset), len(runner.val_loader)
+    zdim = runner.model.encoder["encoder"]["zdim"]
+    mg_counts(zero=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with recorder:
+        merged = runner.mixing(seed=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = mg_counts()
+    print(f"MixingRunner.mixing, {nb} val batch(es), {B} shapes: {wall:.2f} s, launches {counts}, "
+          f"{sorted(merged)}")
+    if counts != only(fused_core=T * nb) or not os.path.exists(
+            os.path.join(runner.work_dir, "mixing", "mixing.pkl")):
+        fail(f"MixingRunner.mixing launched {counts} (expected {T * nb} trunk launches) or wrote no "
+             "mixing.pkl")
+    if merged["pred"].shape != (B, N, 3) or not np.isfinite(merged["pred"]).all():
+        fail(f"MixingRunner.mixing gave {merged['pred'].shape}")
+    batch = {k: v[:MIX_CHECK] for k, v in next(iter(runner.val_loader)).items()}
+    rng = np.random.RandomState(142)
+    draws = dict(part_code_eps=rng.randn(MIX_CHECK, 4, zdim), perm_seed=3,
+                 cimle_noise=rng.randn(MIX_CHECK, 32), x_T=rng.randn(MIX_CHECK, N, 3),
+                 step_noise=rng.randn(T, MIX_CHECK, N, 3))
+    draws = {k: v.astype(np.float32) if isinstance(v, np.ndarray) else v for k, v in draws.items()}
+    cpu = MixingRunner(cfg=Config(cfg), device="cpu")  # the same seeded weights
+    real = denoiser.kernel_dtype
+    runs = {"card": combine_latent(runner.model, device_batch(batch, dev), **draws)["pred"]}
+    denoiser.kernel_dtype = lambda device, dt: torch.bfloat16  # the kernel's operands
+    try:
+        runs["cpu"] = combine_latent(cpu.model, device_batch(batch, "cpu"), **draws)["pred"]
+    finally:
+        denoiser.kernel_dtype = real
+    rel = float(np.linalg.norm(runs["card"] - runs["cpu"]) / np.linalg.norm(runs["cpu"]))
+    print(f"combine_latent on {MIX_CHECK} shapes, card against CPU (bf16 trunk operands both), "
+          f"every draw injected: relative L2 {rel:.4e} (tol {E2E_REL_L2})")
+    if not np.isfinite(runs["card"]).all() or not rel <= E2E_REL_L2:
+        fail("mixing on the card disagrees with the CPU")
+    return dict(launches=counts, s=wall, rel_l2=rel)
+
+
+def pdm_run(dev, recorder):
+    """Phase 14: PDM on PointNet2SSG: PDM_STEPS training steps and a predict
+    at PDM_BATCH (launch counts, ms a step, seconds a predict), then one
+    step and a predict against the CPU."""
+    from difffacto_torch import MODELS, build_from_cfg
+    from difffacto_torch.data import SyntheticPart
+    from difffacto_torch.parallel import init_train_state, make_train_step
+    from difffacto_torch.runner.runner import device_batch
+
+    def batch(B, seed):
+        loader, _ = SyntheticPart(batch_size=B, npoints=P14_POINTS, size=B, shuffle=False)
+        b = next(iter(loader))
+        rng = np.random.RandomState(seed)
+        b.update(diffusion_t=rng.randint(0, T, (B,)).astype(np.int64),
+                 diffusion_noise=rng.randn(B, P14_POINTS, 3).astype(np.float32),
+                 encoder_keep=rng.rand(B, 256) > 0.5)
+        return b
+
+    def pdm(where):
+        return build_from_cfg(dict(PDM_CFG), MODELS, device=where, seed=0)
+
+    T = PDM_CFG["num_timesteps"]
+
+    def on(b, where):
+        out = device_batch(b, where)
+        out.update({k: torch.as_tensor(b[k], device=where)
+                    for k in ("diffusion_t", "diffusion_noise", "encoder_keep")})
+        return out
+
+    model = pdm(dev)
+    tx = build_train_optimizer()
+    step, state = make_train_step(model, tx), init_train_state(model, tx)
+    data = on(batch(PDM_BATCH, 143), dev)
+    losses, times = [], []
+    mg_counts(zero=True)
+    with recorder:
+        for i in range(PDM_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, met = step(state, data, i, 0)
+            losses.append(float(met["total_loss"]))
+            times.append(1e3 * (time.perf_counter() - t0))
+    train_counts = mg_counts()
+    mg_counts(zero=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pred = model.predict(data, torch.Generator(device=dev).manual_seed(0))["pred"]
+    torch.cuda.synchronize()
+    predict_s = time.perf_counter() - t0
+    predict_counts = mg_counts()
+    print(f"PDM (PointNet2SSG + PointwiseNet), batch {PDM_BATCH} x {P14_POINTS}: total_loss by step "
+          f"{[round(v, 4) for v in losses]}, ms a step {[round(t, 1) for t in times]}, launches "
+          f"{train_counts}; predict (T = {model.num_timesteps}) {predict_s:.3f} s, launches "
+          f"{predict_counts}")
+    sa = len(SA_FPS)
+    if train_counts != only(fps=sa * PDM_STEPS) or predict_counts != only(fps=sa):
+        fail(f"PDM launched {train_counts} in training and {predict_counts} in predict: expected "
+             f"{sa} FPS launches a forward pass and nothing else")
+    if not all(np.isfinite(losses)) or float(met["skipped_nonfinite"]):
+        fail(f"PDM training losses {losses}")
+    if tuple(pred.shape) != (PDM_BATCH, P14_POINTS, 3) or not torch.isfinite(pred).all():
+        fail(f"PDM.predict gave {tuple(pred.shape)}")
+    del model, state, step, data
+    torch.cuda.empty_cache()
+    small = batch(P14_CHECK_BATCH, 144)
+    rng = np.random.RandomState(145)
+    x_T = torch.as_tensor(rng.randn(MIX_CHECK, P14_POINTS, 3), dtype=torch.float32)
+    steps = torch.as_tensor(rng.randn(T, MIX_CHECK, P14_POINTS, 3), dtype=torch.float32)
+    runs, preds, gnorms = {}, {}, {}
+    for label, where in (("card", dev), ("cpu", "cpu")):
+        m = pdm(where)
+        tx = build_train_optimizer()
+        sub = {k: v[:MIX_CHECK] for k, v in on(small, where).items()}
+        preds[label] = m.predict(sub, noise=x_T.to(where),
+                                 step_noise=steps.to(where))["pred"].float().cpu()
+        s = make_train_step(m, tx)
+        st = init_train_state(m, tx)
+
+        def one(s=s, st=st, where=where, label=label):
+            met = s(st, on(small, where), 0, 0)[1]
+            gnorms[label] = float(met["grad_norm"])
+            return {"total_loss": met["total_loss"]}
+        runs[label] = step_on([m], one)
+        del m
+    held = hold_updates(f"PDM, one step at batch {P14_CHECK_BATCH}", runs["card"], runs["cpu"],
+                        (gnorms["card"], gnorms["cpu"]))
+    rel = ((preds["card"] - preds["cpu"]).norm() / preds["cpu"].norm()).item()
+    print(f"PDM.predict on {MIX_CHECK} shapes, card against CPU (float32 both), x_T and the "
+          f"steps' draws injected: relative L2 {rel:.4e} (tol {P14_PREDICT_REL_L2})")
+    if not rel <= P14_PREDICT_REL_L2:
+        fail("PDM.predict on the card disagrees with the CPU")
+    return dict(launches={k: train_counts[k] + predict_counts[k] for k in train_counts},
+                step_ms=float(np.median(times[1:])), predict_s=predict_s, predict_rel_l2=rel,
+                **held)
+
+
+def pointnet2_times(dev, fpsm):
+    """Phase 14: one forward pass of PointNet2SSG and PointNet2MSG (4, 256, 1)
+    at PDM_BATCH x P14_POINTS in eval mode, CUDA events over 5 calls, beside the
+    time of its FPS launches and of its ball queries at the same shapes; FPS
+    at each set abstraction's shape beside its plain version and bound."""
+    from difffacto_torch.models import PointNet2MSG, PointNet2SSG
+    from difffacto_torch.ops.points import ball_query, fps
+
+    rng = np.random.RandomState(146)
+    B = PDM_BATCH
+    x = torch.as_tensor(np.concatenate([0.4 * rng.randn(B, P14_POINTS, 3), np.eye(4)[
+        rng.randint(0, 4, (B, P14_POINTS))]], -1), dtype=torch.float32, device=dev)
+    clouds = {n: x[:, :n, :3].contiguous() for n, _ in SA_FPS}
+    centres = {(n, m): fps(clouds[n], m) for n, m in SA_FPS}
+    out = {}
+    for n, m in SA_FPS:
+        ms = cuda_ms(lambda: fpsm.furthest_point_sample(clouds[n], m), 20)
+        plain = cuda_ms(lambda: fpsm.furthest_point_sample_reference(clouds[n], m), 2)
+        bound, by = fps_bound_ms(B, n, m)
+        out[f"{n}_to_{m}"] = dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by)
+        print(f"fps at PointNet++'s {B} x {n} -> {m}: {ms:.4f} ms (plain {plain:.3f} ms, bound "
+              f"{bound:.4f} ms by {by})")
+    fps_ms = sum(v["ms"] for v in out.values())
+    for cls in (PointNet2SSG, PointNet2MSG):
+        enc = cls(additioinal_dim=4, zdim=256, num_anchors=1, device=dev)
+        with torch.inference_mode():
+            ms = cuda_ms(lambda: enc(x), 5)
+            bq = sum(cuda_ms(lambda: ball_query(centres[(n, m)], clouds[n], r, k), 5)
+                     for (n, m), balls in zip(SA_FPS, SA_BALLS[cls.__name__])
+                     for r, k in balls)
+        out[cls.__name__] = dict(forward_ms=ms, fps_ms=fps_ms, ball_query_ms=bq)
+        print(f"{cls.__name__} forward at {B} x {P14_POINTS} x 7: {ms:.3f} ms; its FPS launches "
+              f"{fps_ms:.3f} ms ({100 * fps_ms / ms:.1f}%), its ball queries {bq:.3f} ms "
+              f"({100 * bq / ms:.1f}%)")
+        del enc
+    return out
+
+
+def phase14(dev, fc, fct, fpsm, eh, ff, fb):
+    """Phase 14: the GAN, language and mixing runners and PDM on PointNet++;
+    returns each path's numbers. The first B1 launch of the GAN's val and of
+    the mixing, the GAN val's first EMD launch and PDM's first FPS launch at
+    each set abstraction's shape are held against their plain versions."""
+    import tempfile
+
+    from difffacto_torch.models import denoiser
+    from difffacto_torch.ops import points
+
+    t_phase = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as work:
+        rec = KernelRecorder((denoiser, "fused_core"), (eh, "emd_assignment_hybrid"))
+        out["gan"] = gan_run(dev, work, rec)
+        out["gan"]["core_err"] = rec.hold_core("--runner gan's val")
+        out["gan"]["emd_share"] = hold_emd(rec, "--runner gan's val")
+        out["language"] = language_run(dev, work)
+        rec = KernelRecorder((denoiser, "fused_core"))
+        out["mixing"] = mixing_run(dev, work, rec)
+        out["mixing"]["core_err"] = rec.hold_core("MixingRunner.mixing")
+    rec = KernelRecorder((points, "furthest_point_sample"))
+    out["pdm"] = pdm_run(dev, rec)
+    shapes = []
+    for (B, N), (args, _, got) in rec.launches("furthest_point_sample", "PDM training"):
+        want = fpsm.furthest_point_sample_reference(*args)
+        if not torch.equal(got, want):
+            fail(f"FPS as PDM launched it, {B} x {N} -> {args[1]}, chose other points than "
+                 "its plain version")
+        shapes.append(f"{B} x {N} -> {args[1]}")
+    print(f"FPS as PDM launched it ({', '.join(shapes)}): index for index its plain version's")
+    if len(shapes) != len(SA_FPS):
+        fail(f"PDM launched FPS at {shapes}, not at each set abstraction's shape")
+    out["pointnet2"] = pointnet2_times(dev, fpsm)
+    print(f"phase 14: {time.perf_counter() - t_phase:.1f} s")
+    return out
 
 
 # Phase 13. The global batches of the multi-GPU runs; the 3 training steps
@@ -2979,6 +3481,14 @@ def main():
     phase("13 multi-GPU")
     mg_launches = multi_gpu_phase(dev, noise_scale, phase6)
 
+    phase("14 the GAN, language and mixing runners, PDM on PointNet++, full width")
+    run14 = phase14(dev, fc, fct, fpsm, eh, ff, fb)
+    p14 = {f"launches_{path}": run14[path]["launches"]
+           for path in ("gan", "language", "mixing", "pdm")}
+
+    def phase14_launches(name):
+        return {k: v[name] for k, v in p14.items()}
+
     print(card)
     trunk["launches_runner"] = on_path["fused_core"]
     trunk["launches_editing"] = editing_launches["fused_core"]
@@ -2992,6 +3502,11 @@ def main():
     trunk["launches_pretrain"] = run12["pretrain"]["launches"]["fused_core"]
     trunk["pretrain_epoch_and_val_s"] = run12["pretrain"]["s"]
     trunk["launches_multi_gpu"] = mg_launches["fused_core"]
+    trunk.update(phase14_launches("fused_core"), gan_epoch_s=run14["gan"]["epoch_s"],
+                 gan_val_s=run14["gan"]["val_s"], language_epoch_s=run14["language"]["epoch_s"],
+                 mixing_s=run14["mixing"]["s"])
+    trunk["max_abs_err"] = max(trunk["max_abs_err"], run14["gan"]["core_err"],
+                               run14["mixing"]["core_err"])
     headless = {
         "name": "fused_core_headless", "route": "cuda",
         "source": "difffacto_torch/csrc/fused_core.cu",
@@ -3000,7 +3515,9 @@ def main():
         "plain_ms": run11["headless_plain_ms"], "bound_ms": run11["headless_bound_ms"],
         "bound_by": run11["headless_bound_by"], "library_ms": None,
         "launches_multi_gpu": mg_launches["fused_core_headless"],
+        **phase14_launches("fused_core_headless"),
     }
+    sa = run14["pointnet2"]
     print(json.dumps({"kernels": [trunk, headless, {
         "name": "fps", "route": "cuda", "source": "difffacto_torch/csrc/fps.cu",
         "replaces": "difffacto_tpu/ops/fps_pallas.py:27", "launches": counts["fps"],
@@ -3013,6 +3530,11 @@ def main():
         "latency_floor_ms_at_400_clouds": fps_t[400]["floor"],
         "launches_runner": on_path["fps"], "crop_loader_s": run9["crop_s"],
         "launches_editing": editing_launches["fps"], "launches_multi_gpu": mg_launches["fps"],
+        **phase14_launches("fps"),
+        **{f"{k}_at_sa_{shape}": v for shape in (f"{n}_to_{m}" for n, m in SA_FPS)
+           for k, v in sa[shape].items()},
+        "pdm_train_step_ms": run14["pdm"]["step_ms"], "pdm_predict_s": run14["pdm"]["predict_s"],
+        **{f"{cls}_{k}": v for cls in ("PointNet2SSG", "PointNet2MSG") for k, v in sa[cls].items()},
     }, {
         "name": "emd_hybrid", "route": "cuda", "source": "difffacto_torch/csrc/emd_hybrid.cu",
         "replaces": "difffacto_tpu/ops/emd_pallas.py:51", "launches": counts["emd_hybrid"],
@@ -3027,7 +3549,7 @@ def main():
         "protocol_s": t_eval, "launches_runner": on_path["emd_hybrid"],
         "launches_editing": editing_launches["emd_hybrid"],
         "launches_msgpack_val_gen": run12["msgpack"]["launches"]["emd_hybrid"],
-        "launches_multi_gpu": mg_launches["emd_hybrid"],
+        "launches_multi_gpu": mg_launches["emd_hybrid"], **phase14_launches("emd_hybrid"),
     }, {
         "name": "fused_trunk_train_fwd", "route": "cuda",
         "source": "difffacto_torch/csrc/fused_core_train.cu",
@@ -3039,6 +3561,7 @@ def main():
         "launches_runner": on_path["fused_trunk_train_fwd"],
         "launches_editing": editing_launches["fused_trunk_train_fwd"],
         "launches_multi_gpu": mg_launches["fused_trunk_train_fwd"],
+        **phase14_launches("fused_trunk_train_fwd"),
     }, {
         "name": "fused_trunk_train_bwd", "route": "cuda",
         "source": "difffacto_torch/csrc/fused_core_train.cu",
@@ -3053,6 +3576,7 @@ def main():
         "launches_runner": on_path["fused_trunk_train_bwd"],
         "launches_editing": editing_launches["fused_trunk_train_bwd"],
         "launches_multi_gpu": mg_launches["fused_trunk_train_bwd"],
+        **phase14_launches("fused_trunk_train_bwd"),
         "runner_epoch_s_first": run9["epoch_s_first"],
         "runner_epoch_s_later": run9["epoch_s_later"],
         "runner_epoch_s_later_min": run9["epoch_s_later_min"],
@@ -3074,7 +3598,7 @@ def main():
         "unet_forward_ms": unet_ms, "launches_runner": on_path["fused_block"],
         "launches_editing": editing_launches["fused_block"],
         "launches_unet_training": run12["unet"]["launches"]["fused_block"],
-        "launches_multi_gpu": mg_launches["fused_block"],
+        "launches_multi_gpu": mg_launches["fused_block"], **phase14_launches("fused_block"),
         "unet_train_step_ms": run12["unet"]["step_ms"],
     }, {
         "name": "fused_ff", "route": "cuda", "source": "difffacto_torch/csrc/fused_ff.cu",
@@ -3093,7 +3617,7 @@ def main():
         "bound_ms_at_search_d256": run10["search_ff"]["bound_ms"],
         "search_tokens": run10["search_ff"]["tokens"],
         "editing_path_launches_reported": run10["ff_path"],
-        "launches_multi_gpu": mg_launches["fused_ff"],
+        "launches_multi_gpu": mg_launches["fused_ff"], **phase14_launches("fused_ff"),
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,4 +11,5 @@ from .dataset_utils import (
     shapenet_part_normal_cat_to_id,
 )
 from .shapenet_seg import ShapeNetSeg, ShapeNetSegDataset, ShapeNetSegPart, ShapeNetSegPartDataset
-from .synthetic import SyntheticPart, SyntheticPartDataset
+from .synthetic import (SyntheticLanguageDataset, SyntheticLanguagePart, SyntheticPart,
+                        SyntheticPartDataset)

@@ -5,7 +5,9 @@ procedural 4-part "chairs" (Gaussian blobs placed like seat, back, legs and
 arms) with the item contract of ``ShapeNetSegPartDataset``, so that the whole
 train and eval stack runs without the ShapeNet download. Items are built
 from the same seeds as the JAX package's and equal them bit for bit.
-``SyntheticLanguageDataset`` waits for the language family.
+``SyntheticLanguageDataset`` stacks three of its shapes (target, to edit,
+distractor) with a prompt's tokens and the part it names, the layout the
+language runner trains on.
 """
 
 from __future__ import annotations
@@ -171,6 +173,50 @@ class SyntheticPartDataset:
             using_whole_chair_only=self.using_whole_chair_only,
             device=device,
         )
+
+
+class SyntheticLanguageDataset:
+    """Triplet language-editing data (``synthetic.py:174-215``): target, to-edit
+    and distractor shapes, a text prompt and the part indicator it names."""
+
+    PROMPTS = [
+        ("a chair with thick legs", 2),
+        ("a chair with a tall back", 1),
+        ("a chair with a thin seat", 0),
+        ("a chair with arm rests", 3),
+    ]
+
+    def __init__(self, npoints=128, size=16, n_class=4, seed=0):
+        self.base = SyntheticPartDataset(npoints=npoints, size=size * 3, seed=seed)
+        self.size = size
+        self.n_class = n_class
+
+    def __len__(self):
+        return self.size
+
+    def __getitem__(self, index):
+        from ..models.language import tokenizing
+
+        items = [self.base[3 * index + i] for i in range(3)]
+        prompt, part = self.PROMPTS[index % len(self.PROMPTS)]
+        ind = np.zeros(self.n_class, np.float32)
+        ind[part] = 1
+        out = {k: np.stack([it[k] for it in items]) for k in (
+            "input", "ref", "attn_map", "ref_attn_map", "seg_mask", "ref_seg_mask")}
+        out.update(part_indicator=ind, text=tokenizing(prompt), id=np.int32(index),
+                   token=f"lang_{index}")
+        return out
+
+    def evaluate(self, results, save_num_batch, device=None):
+        return {}, {}
+
+
+@DATASETS.register_module()
+def SyntheticLanguagePart(batch_size, npoints=128, size=16, split="train", shuffle=True,
+                          drop_last=False, distributed=False, **_):
+    ds = SyntheticLanguageDataset(npoints=npoints, size=size,
+                                  seed=0 if split in ("train", "trainval") else 1)
+    return DataLoader(ds, batch_size=batch_size, shuffle=shuffle, drop_last=drop_last), None
 
 
 @DATASETS.register_module()

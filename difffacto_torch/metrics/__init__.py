@@ -13,3 +13,4 @@ from .eval import (
     set_default_eval_mesh,
 )
 from .iou import aabb_iou
+from . import common  # noqa: F401  (registers the METRICS entries)

@@ -68,12 +68,13 @@ class AnchorDiffAE(nn.Module):
     (``anchor_diff.py:83-111``). ``seed`` fixes the initial weights (drawn on
     the CPU, so they are the same on every device).
 
-    ``learn_var``, ``detach_variance``, ``clip_weight``, ``triplet_weight``
-    and ``triplet_thresh`` are kept and read nowhere, as in the JAX
-    ``AnchorDiffAE`` (the last three only with ``train_language``);
-    ``train_language`` and a ``language_encoder`` raise (``ROADMAP.md`` queue A
-    item 6). ``pretrain_prior`` builds one denoiser a part, ``net_list_<i>``
-    as the JAX module names them, ``net`` being the first.
+    ``learn_var`` and ``detach_variance`` are kept and read nowhere, as in
+    the JAX ``AnchorDiffAE``. ``pretrain_prior`` builds one denoiser a part,
+    ``net_list_<i>`` as the JAX module names them, ``net`` being the first.
+    ``train_language`` adds the text encoder ``language_enc``
+    (``language_encoder``, an ``LSTM`` by default) and ``update_mlp``, which
+    ``language_train_step`` (weighted by ``clip_weight``, ``triplet_weight``
+    and ``triplet_thresh``) and ``language_edit_latents`` use.
     """
 
     def __init__(self, encoder: dict, diffusion: dict, num_anchors: int, num_timesteps: int,
@@ -90,9 +91,6 @@ class AnchorDiffAE(nn.Module):
                  *, dtype=None, device="cuda", seed: int = 0):
         super().__init__()
         device = resolve_device(device)
-        if train_language or language_encoder is not None:
-            raise NotImplementedError("train_language and language_encoder are not ported yet "
-                                      "(ROADMAP.md, queue A item 6: models/language.py)")
         g = torch.Generator().manual_seed(seed)
         self.num_anchors, self.num_timesteps, self.npoints = num_anchors, num_timesteps, npoints
         self.cimle_sample_num, self.ret_traj = cimle_sample_num, ret_traj
@@ -122,6 +120,17 @@ class AnchorDiffAE(nn.Module):
         self.diff = build_diffusion(diffusion, num_timesteps)
         self.t_sampler = build_from_cfg(dict(sampler or dict(type="Uniform")), SAMPLERS,
                                         num_timesteps=num_timesteps)
+        self.train_language = train_language
+        if train_language:
+            # the text encoder and the zero-initialised update MLP
+            # (anchor_diff.py:130-139); flax infers the MLP's input width
+            from .language import ZeroMLP
+
+            zdim = encoder["encoder"]["zdim"]
+            self.language_enc = build_from_cfg(dict(language_encoder or dict(type="LSTM")),
+                                               ENCODERS, **kw)
+            self.update_mlp = ZeroMLP(self.language_enc.text_dim + zdim,
+                                      [zdim * 2, zdim * 2, zdim], dtype=dtype, device=device)
 
     @property
     def device(self) -> torch.device:
@@ -328,6 +337,54 @@ class AnchorDiffAE(nn.Module):
                 step_noise=None if step_noise is None else step_noise[i], generator=generator)
             outs.append(out["pred"])
         return outs
+
+    # ------------------------------------------------------------- language
+    def language_train_step(self, batch, rngs=None):
+        """The contrastive language-editing losses (``anchor_diff.py:373-415``).
+
+        batch: input (B, 3, N, 3) triplets (target, to edit, distractor),
+        attn_map (B, 3, N, K), part_indicator (B, K), text (B, L) tokens.
+        ``rngs`` holds the "sample" generator (the part codes' draw) and the
+        "dropout" one (the text encoder's); the batch may inject
+        ``part_code_eps`` (B * 3, K, zdim) and ``text_keep``, the text
+        encoder's dropout keep mask."""
+        from .language import clip_style_loss, triplet_loss
+
+        rngs = rngs or {}
+        x, attn = batch["input"], batch["attn_map"]
+        B, _, N, _ = x.shape
+        K = self.num_anchors
+        text_feat, _ = self.language_enc(batch["text"], train=True, generator=rngs.get("dropout"),
+                                         keep=batch.get("text_keep"))
+        means, logvars = self.encoder_mod.get_part_code(
+            x.reshape(B * 3, N, 3), attn.reshape(B * 3, N, K).to(x.dtype), train=True)
+        codes = means
+        if self.encoder_mod.gen:
+            codes = reparameterize_gaussian(means, logvars, rngs.get("sample"),
+                                            batch.get("part_code_eps"))
+        part_id = torch.argmax(batch["part_indicator"], dim=-1)
+        ref_lat = codes.reshape(B, 3, K, -1)[torch.arange(B, device=x.device), :, part_id]
+        tgt, to_edit, distractor = ref_lat[:, 0], ref_lat[:, 1], ref_lat[:, 2]
+        modified = to_edit + self.update_mlp(torch.cat([text_feat, to_edit], dim=-1))
+        clip_l, cos = clip_style_loss(modified, tgt, distractor)
+        trip_l, pos_d, neg_d = triplet_loss(modified, tgt, distractor, self.triplet_thresh)
+        return {
+            "clip_loss": self.clip_weight * clip_l,
+            "triplet_loss": self.triplet_weight * trip_l.mean(),
+            "cos_sim_pos": cos[:, 0].mean(),
+            "cos_sim_neg": cos[:, 1].mean(),
+            "pos_diff": pos_d,
+            "neg_diff": neg_d,
+        }
+
+    def language_edit_latents(self, part_code, text_tokens, part_id: int):
+        """A text edit of one part's latent (``anchor_diff.py:417-423``):
+        part_code (B, K, zdim) -> the codes with part ``part_id`` moved."""
+        text_feat, _ = self.language_enc(text_tokens)
+        selected = part_code[:, part_id]
+        out = part_code.clone()
+        out[:, part_id] = selected + self.update_mlp(torch.cat([text_feat, selected], dim=-1))
+        return out
 
 
 @torch.inference_mode()

@@ -115,6 +115,8 @@ class PointNet(nn.Module):
         self.pnet = ConvBNReLUStack(point_dim, (128, 128, 256, 512), relu_last=False, **kw)
         self.mlp_m = _HeadMLP(zdim * num_anchors, **kw)
 
-    def forward(self, points, train: bool = False):
+    def forward(self, points, train: bool = False, generator=None, keep=None):
+        """``generator`` and ``keep`` are the whole-shape encoders' draws
+        (``PointNet2SSG``'s head dropout); PointNet has none and ignores them."""
         g = allmax_points(self.pnet(points, train).amax(dim=1))
         return self.mlp_m(g, train).reshape(points.shape[0], self.num_anchors, self.zdim)

@@ -1,9 +1,12 @@
 """Point-cloud primitive ops: gathers, pairwise distances, furthest point sampling.
 
-The counterpart of ``difffacto_tpu/ops/points.py`` for the eval protocol:
-``gather_points``, ``gather_points_nd``, ``square_distance``,
-``furthest_point_sample``, ``fps`` and ``assign_anchor``. ``ball_query``,
-``group_points``, ``three_nn`` and ``three_interpolate`` come with PointNet++.
+The counterpart of ``difffacto_tpu/ops/points.py``: ``gather_points``,
+``gather_points_nd``, ``square_distance``, ``furthest_point_sample``,
+``fps`` and ``assign_anchor`` for the eval protocol; ``ball_query``,
+``group_points``, ``three_nn`` and ``three_interpolate`` for PointNet++.
+The JAX package computes the last four in XLA, with no Pallas kernel, and
+here they are plain PyTorch, keeping the semantics of the original CUDA
+extension that the JAX code emulates.
 
 All ops take batch-first tensors and run on the device their inputs lie on.
 """
@@ -55,6 +58,46 @@ def fps(data: torch.Tensor, number: int, ret_id: bool = False):
     if ret_id:
         return out, idx
     return out
+
+
+def ball_query(new_xyz: torch.Tensor, xyz: torch.Tensor, radius: float,
+               nsample: int) -> torch.Tensor:
+    """Fixed-radius neighbourhoods (``points.py:109-136``): centres (B, S, 3),
+    points (B, N, 3) -> (B, S, nsample) int32 indices. The slots take the
+    in-ball points (squared distance below radius^2) in index order; the
+    slots left empty take the first in-ball index, or 0 where the ball is
+    empty."""
+    d2 = square_distance(new_xyz, xyz)
+    N = xyz.shape[1]
+    arange = torch.arange(N, device=xyz.device, dtype=torch.int64)
+    cand = torch.where(d2 < radius * radius, arange, N)
+    # the nsample smallest candidates, ascending: the in-ball indices in order
+    picked = torch.topk(cand, min(nsample, N), dim=-1, largest=False, sorted=True).values
+    first = picked[..., :1]
+    first = torch.where(first >= N, 0, first)
+    return torch.where(picked >= N, first, picked).to(torch.int32)
+
+
+def group_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Per-neighbourhood features: (B, C, N), (B, S, K) -> (B, C, S, K)."""
+    B, C, _ = points.shape
+    S, K = idx.shape[1], idx.shape[2]
+    return gather_points(points, idx.reshape(B, S * K)).reshape(B, C, S, K)
+
+
+def three_nn(unknown: torch.Tensor, known: torch.Tensor):
+    """The 3 nearest known points of each unknown one: (B, N, 3), (B, M, 3) ->
+    (distances (B, N, 3), indices (B, N, 3) int32), nearest first, ties to
+    the lowest index as ``lax.top_k`` takes them (a stable sort: the order of
+    ``torch.topk``'s ties is not specified)."""
+    d2 = square_distance(unknown, known)
+    vals, idx = torch.sort(d2, dim=-1, stable=True)
+    return torch.sqrt(vals[..., :3].clamp_min(0.0)), idx[..., :3].to(torch.int32)
+
+
+def three_interpolate(points: torch.Tensor, idx: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """Weighted 3-NN interpolation: (B, C, M), (B, N, 3), (B, N, 3) -> (B, C, N)."""
+    return (group_points(points, idx) * weight[:, None]).sum(-1)
 
 
 def assign_anchor(data: torch.Tensor, anchors: torch.Tensor) -> torch.Tensor:

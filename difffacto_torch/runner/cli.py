@@ -5,7 +5,9 @@ The peer of ``tools/run_net.py`` with the same flags (``--config-file``,
 ``--task``, ``--seed``, ``--no_eval``, ``--short_val``, ``--gen_num``,
 ``--part_id``, ``--interpolation_dir``, ``--prefix``, ``--save_dir``), run
 on the card unless ``--cpu`` is given; ``--runner pretrain`` trains each
-part's own denoiser (``runner/extra_runners.py``). ``--launcher pytorch``
+part's own denoiser, ``--runner gan`` a latent GAN over the frozen encoder's
+part codes and ``--runner language`` the text encoder and update MLP of
+language editing (``runner/extra_runners.py``). ``--launcher pytorch``
 joins the ranks that ``torch.distributed.run`` started (the reference's
 launcher, ``tools/run_net.py:33-40``):
 
@@ -15,8 +17,9 @@ launcher, ``tools/run_net.py:33-40``):
 Each rank runs on ``cuda:LOCAL_RANK`` over NCCL (ranks share the cards,
 over gloo, where a node runs more ranks than it has cards); with ``--cpu``
 the ranks run on the CPU over gloo. A launcher that cannot start its
-process group raises, and so does one asked for ``--runner pretrain`` or
-``--task interpolation`` / ``mixing``, which run on one device. ``main(argv)`` returns what it ran:
+process group raises, and so does one asked for ``--runner pretrain``,
+``gan`` or ``language`` or ``--task interpolation`` / ``mixing``, which run
+on one device. ``main(argv)`` returns what it ran:
 the ``Runner`` after ``train``, the metric dict after ``val`` and
 ``val_gen``, the written arrays after ``interpolation`` and ``mixing``. A
 caller that changes a few keys writes a config whose ``_base_`` names the
@@ -30,13 +33,9 @@ import os
 from typing import Optional, Sequence
 
 RUNNERS = ("auto", "default", "pretrain", "gan", "language")
-NOT_PORTED = {
-    "gan": "queue A item 6, the secondary families",
-    "language": "queue A item 6, the secondary families",
-}
 # Runners and tasks with no sharded path: under --launcher pytorch every rank
 # would redo the whole work and write the same files.
-SINGLE_DEVICE = ("pretrain", "interpolation", "mixing")
+SINGLE_DEVICE = ("pretrain", "gan", "language", "interpolation", "mixing")
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -90,7 +89,7 @@ def start_ranks(cpu: bool):
 def main(argv: Optional[Sequence[str]] = None):
     from ..config import get_cfg, init_cfg
     from ..utils.device import resolve_device
-    from .extra_runners import PretrainRunner
+    from .extra_runners import GanRunner, LanguageRunner, PretrainRunner
     from .runner import Runner
 
     args = parse_args(argv)
@@ -102,10 +101,6 @@ def main(argv: Optional[Sequence[str]] = None):
     kind = args.runner
     if kind == "auto":
         kind = cfg.get("runner", "default")
-    for what in (kind, args.task):
-        if what in NOT_PORTED:
-            raise NotImplementedError(
-                f"'{what}' is not ported yet (ROADMAP.md, {NOT_PORTED[what]})")
     if args.launcher == "pytorch":
         for what in (kind, args.task):
             if what in SINGLE_DEVICE:
@@ -116,7 +111,8 @@ def main(argv: Optional[Sequence[str]] = None):
     else:
         device = resolve_device("cpu" if args.cpu else "cuda")
 
-    runner_cls = PretrainRunner if kind == "pretrain" else Runner
+    runner_cls = {"default": Runner, "pretrain": PretrainRunner, "gan": GanRunner,
+                  "language": LanguageRunner}[kind]
     runner = runner_cls(args=args, cfg=cfg, device=device)
     if args.task == "train":
         runner.run()

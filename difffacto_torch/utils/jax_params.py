@@ -12,6 +12,8 @@ the mapping is a renaming:
 * UNet's ``GroupNorm_0`` -> ``group_norm``, ``emb_{i}`` -> ``emb.{i}``,
   ``ln_{i}`` -> ``ln.{i}``, ``prior_block_{i}`` -> ``prior_blocks.{i}``,
   ``lang_block_{i}`` -> ``lang_blocks.{i}``;
+* the language encoder's ``OptimizedLSTMCell_0`` -> ``cell`` (its gate
+  kernels ``ii`` ... ``ho`` keep flax's names);
 * the per-part flow parameters come stacked on a leading part axis
   (``flow/flows/chain_{j}/Dense_{k}/kernel`` is (4, in, out)) and split into
   ``flow.flows.{p}``; the per-part PointNetV2 heads stay stacked, as the port
@@ -52,6 +54,7 @@ _RENAMES = (
     (re.compile(r"^GroupNorm_0$"), "group_norm"),
     (re.compile(r"^(emb|ln)_(\d+)$"), r"\1.\2"),
     (re.compile(r"^(prior|lang)_block_(\d+)$"), r"\1_blocks.\2"),
+    (re.compile(r"^OptimizedLSTMCell_0$"), "cell"),
 )
 
 
@@ -64,6 +67,7 @@ _INVERSE = (
     (re.compile(r"^bn(\d+)$"), lambda m: ["TorchBatchNorm_" + m.group(1), "BatchNorm_0"]),
     (re.compile(r"^ln(\d+)$"), lambda m: ["LayerNorm_" + m.group(1)]),
     (re.compile(r"^group_norm$"), lambda m: ["GroupNorm_0"]),
+    (re.compile(r"^cell$"), lambda m: ["OptimizedLSTMCell_0"]),
 )
 
 

@@ -74,11 +74,19 @@ def build_from_cfg(cfg: Any, registry: Registry, **kwargs) -> Any:
     return obj_cls(**params)
 
 
+# The JAX package's 15 registries (``difffacto_tpu/utils/registry.py:102-116``).
+DATASETS = Registry("DATASETS")
 MODELS = Registry("MODELS")
 ENCODERS = Registry("ENCODERS")
+DECOMPOSERS = Registry("DECOMPOSERS")
 DIFFUSIONS = Registry("DIFFUSIONS")
 NETS = Registry("NETS")
-SAMPLERS = Registry("SAMPLERS")
 SCHEDULERS = Registry("SCHEDULERS")
-DATASETS = Registry("DATASETS")
 HOOKS = Registry("HOOKS")
+LOSSES = Registry("LOSSES")
+OPTIMS = Registry("OPTIMS")
+SAMPLERS = Registry("SAMPLERS")
+METRICS = Registry("METRICS")
+SEGMENTORS = Registry("SEGMENTORS")
+GENERATORS = Registry("GENERATORS")
+DISCRIMINATORS = Registry("DISCRIMINATORS")

@@ -780,3 +780,60 @@ def test_gloo_two_ranks_sharing_the_card_step_as_one(cuda, tmp_path):
     upd = np.abs(r["ref_params"] - r["before"]).mean()
     assert np.abs(r["params"] - r["ref_params"]).mean() <= 0.25 * upd
     np.testing.assert_allclose(r["stats"], r["ref_stats"], rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("radius, nsample", [(0.2, 64), (0.4, 64), (0.8, 128)])
+def test_point_ops_on_the_card_match_the_cpu(cuda, radius, nsample):
+    """PointNet++'s neighbourhood ops at its first level (32 clouds of 2048
+    points, 512 FPS centres; f32, TF32 off on both): ``ball_query``'s
+    indices equal the CPU's except where a candidate lies within 1e-6 of
+    r^2, ``three_nn``'s equal except between points whose squared distances
+    tie within 1e-5, the squared distances and ``three_interpolate`` within
+    1e-5."""
+    from difffacto_torch.ops import points
+
+    rng = np.random.RandomState(0)
+    xyz = torch.as_tensor(0.4 * rng.randn(32, 2048, 3), dtype=torch.float32)
+    centres = points.fps(xyz, 512)
+    got = points.ball_query(centres.to(cuda), xyz.to(cuda), radius, nsample).cpu()
+    want = points.ball_query(centres, xyz, radius, nsample)
+    d2 = points.square_distance(centres, xyz).double()
+    for b, s in zip(*torch.nonzero((got != want).any(-1), as_tuple=True)):
+        for i in set(got[b, s].tolist()) ^ set(want[b, s].tolist()):
+            assert abs(d2[b, s, i].item() - radius * radius) <= 1e-6, (b, s, i)
+    dist, idx = points.three_nn(xyz.to(cuda), centres.to(cuda))
+    dist_cpu, idx_cpu = points.three_nn(xyz, centres)
+    torch.testing.assert_close(dist.cpu() ** 2, dist_cpu ** 2, rtol=0, atol=1e-5)
+    differ = idx.cpu() != idx_cpu
+    if differ.any():
+        assert (dist_cpu[differ] ** 2 - dist.cpu()[differ] ** 2).abs().max().item() <= 1e-5
+    feats = torch.as_tensor(rng.randn(32, 16, 512), dtype=torch.float32)
+    w = torch.as_tensor(rng.rand(32, 2048, 3), dtype=torch.float32)
+    torch.testing.assert_close(points.three_interpolate(feats.to(cuda), idx_cpu.to(cuda),
+                                                        w.to(cuda)).cpu(),
+                               points.three_interpolate(feats, idx_cpu, w), rtol=0, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["PointNet2SSG", "PointNet2MSG"])
+def test_pointnet2_forward_on_the_card_matches_the_cpu(cuda, kind):
+    """A seeded PointNet++ encoder (4, 256, 1) in eval mode at 4 x 2048 x 7,
+    FPS through the kernel (2 launches): the codes within a relative L2 of
+    1e-4 of the CPU's (f32 both, TF32 off; sums in another order)."""
+    from difffacto_torch import models
+
+    rng = np.random.RandomState(1)
+    x = torch.as_tensor(np.concatenate([0.4 * rng.randn(4, 2048, 3),
+                                        np.eye(4)[rng.randint(0, 4, (4, 2048))]], -1),
+                        dtype=torch.float32)
+    cls = getattr(models, kind)
+    card = cls(additioinal_dim=4, zdim=256, num_anchors=1, device=cuda)
+    cpu = cls(additioinal_dim=4, zdim=256, num_anchors=1, device="cpu")
+    before = fps_mod.launches
+    with torch.no_grad():
+        got = card(x.to(cuda)).cpu()
+        want = cpu(x)
+    assert fps_mod.launches == before + 2
+    assert got.shape == want.shape == (4, 1, 256)
+    assert ((got - want).norm() / want.norm()).item() <= 1e-4

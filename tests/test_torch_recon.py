@@ -292,12 +292,19 @@ def test_gen_chair_reaches_the_port_with_no_key_dropped():
 
 
 def test_unported_model_options_raise():
-    """A value that selects behaviour not ported yet raises and names its
-    ROADMAP item; DDIM and ``pretrain_prior``, which raised until they were
-    ported, build the JAX package's step subset and one denoiser a part."""
+    """DDIM, ``pretrain_prior`` and the language options, which raised until
+    they were ported, build the JAX package's step subset, one denoiser a
+    part, and (with ``train_language`` only, as in the JAX module) the text
+    encoder and the update MLP under the JAX names."""
     base = Config(TINY).model.dump()
-    with pytest.raises(NotImplementedError, match="item 6"):
-        build_from_cfg(dict(base, language_encoder=dict(type="LSTM")), MODELS, device="cpu")
+    lstm = dict(type="LSTM", text_dim=8)
+    pm = build_from_cfg(dict(base, language_encoder=lstm), MODELS, device="cpu")
+    assert not hasattr(pm, "language_enc") and not hasattr(pm, "update_mlp")
+    pm = build_from_cfg(dict(base, language_encoder=lstm, train_language=True), MODELS,
+                        device="cpu")
+    heads = {n.split(".")[0] for n, _ in pm.named_parameters()}
+    assert {"language_enc", "update_mlp"} <= heads
+    assert pm.update_mlp.dense0.kernel.shape == (8 + 16, 32)
     pm = build_from_cfg(dict(base, pretrain_prior=True), MODELS, device="cpu")
     heads = {n.split(".")[0] for n, _ in pm.named_parameters()}
     assert heads == {"encoder_mod"} | {f"net_list_{i}" for i in range(base["num_anchors"])}

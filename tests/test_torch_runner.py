@@ -474,28 +474,31 @@ def test_cli_trains_resumes_and_scores_on_the_cpu(tmp_path):
     assert len(metrics) == 12 and all(np.isfinite(float(v)) for v in metrics.values())
 
 
-@pytest.mark.parametrize("argv,match", [
-    (["--runner", "pretrain"], None),
-    (["--runner", "language"], "queue A item 6"),
-    (["--runner", "gan"], "queue A item 6"),
+@pytest.mark.parametrize("argv,built", [
+    (["--runner", "pretrain"], "PretrainRunner"),
+    (["--runner", "language"], "LanguageRunner"),
+    (["--runner", "gan"], "GanRunner"),
 ])
-def test_cli_refuses_what_is_not_ported(argv, match, tmp_path):
-    """The runners not ported yet raise and name their ROADMAP item;
-    ``--runner pretrain``, refused until per-part pretraining was ported,
-    builds the PretrainRunner (one denoiser a part; max_epoch 0 trains
-    nothing)."""
+def test_cli_refuses_what_is_not_ported(argv, built, tmp_path):
+    """Every runner family of the JAX command line is ported: ``--runner
+    pretrain``, ``language`` and ``gan``, each refused until its family was
+    ported, build their runners (max_epoch 0 trains nothing): one denoiser
+    a part, the language modules, the latent GAN with its critic as wide as
+    the generator's flattened codes."""
     from difffacto_torch.runner.cli import main
 
-    if match is not None:
-        with pytest.raises(NotImplementedError, match=match):
-            main(["--config-file", TINY, "--cpu"] + argv)
-        return
-    cfg_file = tmp_path / "pretrain.py"
+    cfg_file = tmp_path / "runner.py"
     cfg_file.write_text(f"_base_ = [{TINY!r}]\nwork_dir = {str(tmp_path / 'run')!r}\n"
                         "max_epoch = 0\n")
     runner = main(["--config-file", str(cfg_file), "--cpu"] + argv)
-    assert type(runner).__name__ == "PretrainRunner"
-    assert len(runner.model.net_list) == runner.model.num_anchors and runner.state.step == 0
+    assert type(runner).__name__ == built and runner.state.step == 0
+    if built == "PretrainRunner":
+        assert len(runner.model.net_list) == runner.model.num_anchors
+    elif built == "LanguageRunner":
+        assert runner.model.train_language and hasattr(runner.model, "update_mlp")
+    else:
+        g = runner.generator
+        assert runner.discriminator.dense0.kernel.shape[0] == g.n_class * g.out_dim
 
 
 def test_cli_without_a_card_raises():
