@@ -8,7 +8,8 @@ reconstruction and part-level editing on weights read from a reference
 t added to x) with the checkpoint-curve scorer, the JAX package's
 ``.msgpack`` checkpoints, training through two-attention blocks and UNet,
 per-part pretraining, multi-GPU, the GAN, language and mixing runners and
-the point-diffusion model on PointNet++.
+the point-diffusion model on PointNet++, and AnchorDiffAE's other encoders
+with the anchored generators.
 
     python3 chip_smoke.py
 
@@ -228,6 +229,28 @@ Phases, each fatal (non-zero exit, no "ok" line):
    first EMD launch, are held against their plain versions. Every kernel's
    entry in the kernels line gains ``launches_gan``, ``launches_language``,
    ``launches_mixing`` and ``launches_pdm``.
+15. AnchorDiffAE's other encoders and the anchored generators, full width:
+   gen_chair (bf16, T = 100) on ``PartEncoderForTransformerDecoderKLLoss``
+   (``include_std``): generation at batch 256 (100 trunk launches, the first
+   held against the plain version) and a batch-1 run against the CPU within
+   E2E_REL_L2; gen_chair on ``PartEncodercVAE`` (``encode_ref``, float32): 3
+   steps at batch 32 x 2048 (one training-trunk forward and backward a step,
+   the first held against the plain version, the loss falling) and one step
+   at batch 4 against the CPU at phase 9's tolerances. The base
+   ``PartEncoder`` (the MLP ``PartAligner``, ``include_z``) with
+   ``PointwiseNet`` on bench_train_tpu's model: 64 shapes scored by phase 6's
+   protocol against its 64 clouds of 8192 points (1 FPS and the EMD sweeps'
+   launches, each held against its plain version), 2 shapes against the CPU.
+   ``AnchoredGeneration`` (``PCN``, ``MeanVarianceRegressor``,
+   ``ComponentMixer`` with attention and a global code, ``PointwiseNet``) and
+   ``AnchorDiffGenPartglot`` (``SupSegsEncoder`` on 50 super-segments of 512
+   points): 3 steps at batch 32 (no kernel launch, the loss falling), a
+   predict of 64 shapes scored by the protocol, or a predict,
+   ``interpolate_latent`` and ``combine_latent``; one step and a predict of 2
+   shapes each against the CPU (float32, phase 14's tolerances). One line
+   prints the phase's seconds, the step times and every card-against-CPU
+   reading beside its constant; every kernel's entry in the kernels line
+   gains ``launches_slice15``.
 
 The last line is {"ok": true, "device": {...}}.
 """
@@ -296,6 +319,62 @@ STEP_LOSS_RTOL, STEP_GNORM_RTOL = 2e-2, 5e-2
 # sign. The mean difference is held to a quarter of lr.
 STEP_PARAM_MEAN_LR = 0.25
 LR = 2e-3
+
+# Phase 15: AnchorDiffAE's other encoders and the anchored generators at
+# gen_chair's widths (zdim or latent 256, 4 parts, 2048 points, T = 100).
+# (a) gen_chair with its encoder swapped for a transformer-decoder variant:
+# generation (P15_GEN_BATCH) with PartEncoderForTransformerDecoderKLLoss
+# (include_std), training (phase 12's TRAIN12_* steps and check) with
+# PartEncodercVAE (encode_ref). (b) the base PartEncoder with the MLP
+# PartAligner, include_z and PointwiseNet on bench_train_tpu's model:
+# P15_SHAPES shapes scored by phase 6's protocol. (c) AnchoredGeneration (PCN,
+# MeanVarianceRegressor, ComponentMixer with attention and a global code,
+# PointwiseNet): P15_STEPS steps at P15_TRAIN_BATCH, then a predict of
+# P15_SHAPES shapes scored the same way. (d) AnchorDiffGenPartglot on
+# SupSegsEncoder: P15_STEPS steps at P15_TRAIN_BATCH on seeded super-segments
+# (P15_NSEG segments of P15_NPOINT points, the (S, n_seg, npoint, 3) layout of
+# tools/pack_partglot.py), a predict, an interpolate_latent, a combine_latent.
+# Card against CPU: (a)'s generation within E2E_REL_L2 (the bf16 trunk against
+# its plain version, as phase 4) and its step within phase 9's STEP_LOSS_RTOL,
+# STEP_GNORM_RTOL and RUNNER_UPDATE_REL (float32 models, the card's training
+# trunk in bf16); (b), (c) and (d) run no inexact kernel (their denoisers are
+# pointwise), so their float32 steps and decodes are held to phase 14's
+# P14_* constants, which allow about 20 times what float32 in another
+# summation order gave there.
+P15_GEN_BATCH, P15_SHAPES, P15_TRAIN_BATCH, P15_STEPS, P15_CHECK = 256, 64, 32, 3, 2
+# The steps against the CPU take 8 shapes: the generators' BatchNorm over
+# few rows amplifies float32's rounding. On the CPU alone one float32 step of
+# AnchoredGeneration is 5.8% from the float64 step in its update over 2
+# rows, 0.2% over 4 (on an H100 it read 2.0e-3 of P14_UPDATE_REL's 1e-2
+# against the CPU), 0.016% over 8.
+P15_CHECK_STEP = 8
+P15_NSEG, P15_NPOINT, P15_INTERP_STEPS, P15_T = 50, 512, 10, 100
+# The MLP aligner's heads start from N(0, 0.25^2), the reference's init:
+# untrained, at zdim 256 its logvar passes float32's exp range, so its fc4
+# kernels are scaled by P15_ALIGNER_HEAD before anything runs.
+P15_ALIGNER_HEAD = 0.01
+# Adam's first updates move every weight by about lr whatever its gradient:
+# at gen_chair's LR the seeded MLP stacks of the anchored generators
+# (BatchNorm over their batch) overshoot on the second step; their steps
+# take P15_LR.
+P15_LR = 3e-5
+P15_PW = dict(type="PointwiseNet", point_dim=3, residual=False)
+P15_DIFF = dict(type="AnchoredDiffusion", net=P15_PW, beta_1=1e-4, beta_T=0.02, k=1.0,
+                mode="linear", model_mean_type="epsilon", include_anchors=False, res=False)
+P15_ANCHORED = dict(
+    type="AnchoredGeneration", encoder=dict(type="PCN", point_dim=7, part_latent_dim=256),
+    parameter_regressor=dict(type="MeanVarianceRegressor", latent_dim=256),
+    decomposer=dict(type="ComponentMixer", part_latent_dim=256, include_attention=True,
+                    include_global_feature=True),
+    diffusion=P15_DIFF, sampler=dict(type="Uniform"), num_anchors=4, num_timesteps=P15_T,
+    npoints=2048)
+P15_PARTGLOT = dict(
+    type="AnchorDiffGenPartglot",
+    encoder=dict(type="SupSegsEncoder", sup_segs_dim=64, part_latent_dim=256),
+    decomposer=dict(type="ComponentMixer", part_latent_dim=256, include_attention=True,
+                    include_global_feature=True),
+    diffusion=P15_DIFF, sampler=dict(type="Uniform"), num_anchors=4, num_timesteps=P15_T,
+    npoints=2048)
 
 
 def fail(msg):
@@ -440,9 +519,10 @@ def example_batch(B, npoints, n_class=4, seed=0):
 
 
 def build_train_model(device, stage2=False, dropout=0.2, dtype=torch.bfloat16, net=None,
-                      aligner=None):
+                      aligner=None, encoder=None):
     """gen_chair (or its stage-2 config) at full width as phase 7 trains it;
-    ``net`` replaces the denoiser's keys, ``aligner`` updates the aligner's."""
+    ``net`` replaces the denoiser's keys, ``aligner`` updates the aligner's,
+    ``encoder`` the part encoder's."""
     from difffacto_torch import MODELS, Config, build_from_cfg
 
     name = "train_chair_stage2.py" if stage2 else "gen_chair.py"
@@ -451,6 +531,7 @@ def build_train_model(device, stage2=False, dropout=0.2, dtype=torch.bfloat16, n
     if net is not None:
         mcfg["diffusion"]["net"] = dict(net)
     mcfg["encoder"]["part_aligner"].update(aligner or {})
+    mcfg["encoder"].update(encoder or {})
     mcfg["diffusion"]["net"]["dropout"] = dropout
     if not stage2:
         mcfg["gen"] = False
@@ -458,11 +539,11 @@ def build_train_model(device, stage2=False, dropout=0.2, dtype=torch.bfloat16, n
     return build_from_cfg(mcfg, MODELS, device=device, seed=0)
 
 
-def build_train_optimizer():
+def build_train_optimizer(lr=LR):
     from difffacto_torch.parallel import build_optimizer_from_cfg
 
     return build_optimizer_from_cfg(
-        dict(type="Adam", lr=LR, weight_decay=0.0),
+        dict(type="Adam", lr=lr, weight_decay=0.0),
         scheduler_cfg=dict(type="LinearLR", start_lr=2e-3, end_lr=1e-4, start_epoch=4000,
                            end_epoch=8000),
         iters_per_epoch=1, max_norm=10.0)
@@ -1652,9 +1733,16 @@ def msgpack_round_trip(dev, zero, read, checkpoint, work):
                 metrics_equal=equal)
 
 
-def train_steps_against_cpu(dev, label, zero, read, **model_keys):
-    """Phase 12 (b, c): TRAIN12_STEPS steps of the float32 model on one batch,
-    then one step at TRAIN12_CHECK_BATCH on the card and on the CPU."""
+def train_steps_against_cpu(dev, label, zero, read, launches=None, cvae=False, recorder=None,
+                            **model_keys):
+    """Phase 12 (b, c), phase 15 (a): TRAIN12_STEPS steps of the float32 model
+    on one batch, then one step at TRAIN12_CHECK_BATCH on the card and on the
+    CPU. The steps must launch ``launches`` a step (a dict of kernel counts)
+    and nothing else; none where it is not given. ``cvae`` injects the
+    cVAE encoder's posterior draw; ``recorder`` (a KernelRecorder) is entered
+    for the steps."""
+    from contextlib import nullcontext
+
     from difffacto_torch.parallel import init_train_state, make_train_step
 
     def batch(B, seed):
@@ -1663,6 +1751,8 @@ def train_steps_against_cpu(dev, label, zero, read, **model_keys):
         b.update(diffusion_t=rng.randint(0, 100, (B,)).astype(np.int64),
                  diffusion_noise=rng.randn(B, 2048, 3).astype(np.float32),
                  noise=rng.randn(B, 32).astype(np.float32))
+        if cvae:
+            b["cvae_eps"] = rng.randn(B, 32).astype(np.float32)
         return b
 
     model = build_train_model(dev, dropout=0.0, dtype=None, **model_keys)
@@ -1671,22 +1761,26 @@ def train_steps_against_cpu(dev, label, zero, read, **model_keys):
     data = to_device(batch(TRAIN12_BATCH, 30), dev)
     losses, times = [], []
     zero()
-    for i in range(TRAIN12_STEPS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, met = step(state, data, i, 0)
-        losses.append(float(met["total_loss"]))
-        times.append(1e3 * (time.perf_counter() - t0))
-        if float(met["skipped_nonfinite"]):
-            fail(f"{label}: step {i} was skipped as non-finite")
+    with recorder or nullcontext():
+        for i in range(TRAIN12_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, met = step(state, data, i, 0)
+            losses.append(float(met["total_loss"]))
+            times.append(1e3 * (time.perf_counter() - t0))
+            if float(met["skipped_nonfinite"]):
+                fail(f"{label}: step {i} was skipped as non-finite")
     counts = read()
     print(f"{label}, batch {TRAIN12_BATCH} x 2048: total_loss by step "
           f"{[round(v, 4) for v in losses]}, ms a step {[round(t, 1) for t in times]}, "
           f"launches {counts}")
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         fail(f"{label}: the loss did not fall over {TRAIN12_STEPS} steps: {losses}")
-    if any(counts.values()):
+    if launches is None and any(counts.values()):
         fail(f"{label} launched {counts} under autograd: these blocks train unfused")
+    if launches is not None and counts != dict({k: 0 for k in counts}, **{
+            k: TRAIN12_STEPS * v for k, v in launches.items()}):
+        fail(f"{label} launched {counts}: expected {launches} a step and nothing else")
     del model, state, step, data
     torch.cuda.empty_cache()
     runs = {}
@@ -2252,6 +2346,377 @@ def phase14(dev, fc, fct, fpsm, eh, ff, fb):
         fail(f"PDM launched FPS at {shapes}, not at each set abstraction's shape")
     out["pointnet2"] = pointnet2_times(dev, fpsm)
     print(f"phase 14: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def p15_td_model(where, noise_scale):
+    """gen_chair at full width in bf16 on PartEncoderForTransformerDecoderKLLoss
+    (the std in its part tokens), seeded."""
+    from difffacto_torch import MODELS, Config, build_from_cfg
+
+    mcfg = Config(os.path.join(ROOT, "configs", "gen_chair.py")).model.dump()
+    mcfg.update(npoints=2048, ret_traj=False, cimle_sample_num=1, dtype=torch.bfloat16)
+    mcfg["encoder"]["part_aligner"].update(noise_scale=noise_scale)
+    mcfg["encoder"].update(type="PartEncoderForTransformerDecoderKLLoss", include_std=True)
+    return build_from_cfg(mcfg, MODELS, device=where, seed=0)
+
+
+def p15_base_model(where):
+    """bench_train_tpu's model on the base PartEncoder (the MLP aligner,
+    include_z: a per-point ctx of 4 x 256 + 6) and PointwiseNet, float32."""
+    from difffacto_torch import MODELS, Config, build_from_cfg
+
+    mcfg = Config(os.path.join(ROOT, RUNNER_CONFIG)).model.dump()
+    mcfg.update(npoints=2048, ret_traj=False, cimle=False)
+    mcfg["encoder"].update(type="PartEncoder", include_z=True, include_part_code=False,
+                           include_params=True,
+                           part_aligner=dict(type="PartAligner", n_class=4, width=256))
+    mcfg["diffusion"]["net"] = dict(P15_PW, context_dim=4 * 256 + 6)
+    model = build_from_cfg(mcfg, MODELS, device=where, seed=0)
+    with torch.no_grad():
+        for head in (model.encoder_mod.aligner.fc4_m, model.encoder_mod.aligner.fc4_v):
+            head.kernel.mul_(P15_ALIGNER_HEAD)
+    return model
+
+
+def p15_build(cfg, where):
+    from difffacto_torch import MODELS, build_from_cfg
+
+    return build_from_cfg(dict(cfg), MODELS, device=where, seed=0)
+
+
+def p15_protocol(dev, label, gen, refs):
+    """Phase 6's protocol on ``gen`` against ``refs``: launch counts set to 0
+    just before and read just after (FPS once for the refs, the EMD sweeps),
+    the FPS launch index for index and the first EMD launch by its matched
+    cost against their plain versions. Returns the metrics, launches and
+    seconds."""
+    from difffacto_torch.metrics import eval as ev
+    from difffacto_torch.ops import emd_hybrid as eh
+    from difffacto_torch.ops import fps as fpsm
+    from difffacto_torch.ops import points
+    from difffacto_torch.runner.evaluation import evaluate_gen
+
+    S, R = len(gen), len(refs)
+    per_launch = ev.emd_pairs_per_launch(2048, 32, torch.device(dev))
+    sweeps = (R * S, R * (R - 1) // 2, S * (S - 1) // 2)
+    expected = only(fps=1, emd_hybrid=sum(-(-p // per_launch) for p in sweeps))
+    rec = KernelRecorder((points, "furthest_point_sample"), (eh, "emd_assignment_hybrid"))
+    mg_counts(zero=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with rec:
+        metrics = evaluate_gen(gen, refs, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = mg_counts()
+    metrics = {k: float(v) for k, v in metrics.items()}
+    print(f"{label} scored by phase 6's protocol ({S} v {R}): {wall:.2f} s, launches {counts}, "
+          + json.dumps({k: round(v, 4) for k, v in metrics.items()}))
+    if counts != expected:
+        fail(f"the protocol of {label} launched {counts}, expected {expected}")
+    if not all(np.isfinite(v) for v in metrics.values()):
+        fail(f"the protocol of {label} gave non-finite metrics")
+    for (B, N), (args, _, got) in rec.launches("furthest_point_sample", label):
+        if not torch.equal(got, fpsm.furthest_point_sample_reference(*args)):
+            fail(f"FPS as the protocol of {label} launched it, {B} x {N}, chose other points "
+                 "than its plain version")
+    emd_share = hold_emd(rec, f"the protocol of {label}")
+    return dict(metrics=metrics, launches=counts, s=wall, emd_share=emd_share)
+
+
+def p15_steps(dev, label, model, batch_fn, expected):
+    """P15_STEPS steps of ``model`` on one batch with its draws injected:
+    the loss falls, the launches are ``expected``. Returns (losses, ms a
+    step, launches)."""
+    from difffacto_torch.parallel import init_train_state, make_train_step
+
+    tx = build_train_optimizer(P15_LR)
+    step, state = make_train_step(model, tx), init_train_state(model, tx)
+    data = batch_fn(P15_TRAIN_BATCH, 150, dev)
+    losses, times = [], []
+    mg_counts(zero=True)
+    for i in range(P15_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, met = step(state, data, i, 0)
+        losses.append(float(met["total_loss"]))
+        times.append(1e3 * (time.perf_counter() - t0))
+        if float(met["skipped_nonfinite"]):
+            fail(f"{label}: step {i} was skipped as non-finite")
+    counts = mg_counts()
+    print(f"{label}, batch {P15_TRAIN_BATCH}, Adam at {P15_LR}: total_loss by step "
+          f"{[round(v, 4) for v in losses]}, the last step's "
+          + json.dumps({k: round(float(v), 4) for k, v in met.items() if k.endswith("loss")})
+          + f", ms a step {[round(t, 1) for t in times]}, launches {counts}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"{label}: the loss did not fall over {P15_STEPS} steps: {losses}")
+    if counts != expected:
+        fail(f"{label} launched {counts}, expected {expected}")
+    return losses, float(np.median(times[1:])), counts
+
+
+def p15_step_against_cpu(dev, label, build, batch_fn):
+    """One float32 step at P15_CHECK_STEP shapes of the model ``build(where)``
+    on the card and on the CPU, every draw injected (hold_updates)."""
+    from difffacto_torch.parallel import init_train_state, make_train_step
+
+    runs, gnorms = {}, {}
+    for key, where in (("card", dev), ("cpu", "cpu")):
+        m = build(where)
+        tx = build_train_optimizer(P15_LR)
+        s, st = make_train_step(m, tx), init_train_state(m, tx)
+
+        def one(s=s, st=st, where=where, key=key):
+            met = s(st, batch_fn(P15_CHECK_STEP, 151, where), 0, 0)[1]
+            gnorms[key] = float(met["grad_norm"])
+            return {"total_loss": met["total_loss"]}
+        runs[key] = step_on([m], one)
+        del m
+    return hold_updates(f"{label}, one step at batch {P15_CHECK_STEP}", runs["card"], runs["cpu"],
+                        (gnorms["card"], gnorms["cpu"]))
+
+
+def p15_rel(label, card, cpu, tol):
+    card, cpu = card.float().cpu(), cpu.float().cpu()
+    rel = ((card - cpu).norm() / cpu.norm()).item()
+    print(f"{label}, card against CPU, every draw injected: relative L2 {rel:.4e} (tol {tol})")
+    if not torch.isfinite(card).all() or not rel <= tol:
+        fail(f"{label} on the card disagrees with the CPU")
+    return rel
+
+
+def p15_td(dev, noise_scale):
+    """(a): generation on the KL-prior TD variant, training on the cVAE."""
+    from difffacto_torch import sample_generation
+    from difffacto_torch.models import denoiser
+
+    model = p15_td_model(dev, noise_scale)
+    T = model.num_timesteps
+    rec = KernelRecorder((denoiser, "fused_core"))
+    mg_counts(zero=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with rec:
+        pred = sample_generation(model, P15_GEN_BATCH, valid_id=torch.ones(P15_GEN_BATCH, 4,
+                                                                           device=dev),
+                                 generator=torch.Generator(device=dev).manual_seed(0))["pred"]
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    counts = mg_counts()
+    print(f"generation on PartEncoderForTransformerDecoderKLLoss (include_std), batch "
+          f"{P15_GEN_BATCH}: {gen_s:.2f} s, launches {counts}")
+    if counts != only(fused_core=T) or tuple(pred.shape) != (P15_GEN_BATCH, 2048, 3) or \
+            not torch.isfinite(pred).all():
+        fail(f"the TD variant's generation launched {counts} (expected {T} trunk launches) or "
+             f"gave {tuple(pred.shape)} non-finite samples")
+    core_err = rec.hold_core("the TD variant's generation")
+    rng = np.random.RandomState(152)
+    draws = dict(z=rng.randn(1, 4, 256), cimle_noise=rng.randn(1, 32),
+                 noise=rng.randn(1, 2048, 3), step_noise=rng.randn(T, 1, 2048, 3))
+    runs = {}
+    for where, m in (("card", model), ("cpu", p15_td_model("cpu", noise_scale))):
+        d = {k: torch.as_tensor(v, dtype=torch.float32, device=m.device) for k, v in draws.items()}
+        runs[where] = sample_generation(
+            m, 1, valid_id=torch.as_tensor([[1, 0, 1, 1]], dtype=torch.float32, device=m.device),
+            **d)["pred"]
+    gen_rel = p15_rel("the TD variant's generation, batch 1", runs["card"], runs["cpu"],
+                      E2E_REL_L2)
+    del model, runs
+    torch.cuda.empty_cache()
+    rec = KernelRecorder((denoiser, "fused_trunk_train"))
+    train = train_steps_against_cpu(
+        dev, "PartEncodercVAE (encode_ref) training", lambda: mg_counts(zero=True), mg_counts,
+        launches=dict(fused_trunk_train_fwd=1, fused_trunk_train_bwd=1), cvae=True,
+        recorder=rec, encoder=dict(type="PartEncodercVAE", encode_ref=True))
+    train_errs = rec.hold_train("the cVAE's first training step")  # (forward, backward)
+    launches = {k: counts[k] + train["launches"][k] for k in counts}
+    return dict(launches=launches, gen_s=gen_s, core_err=core_err, gen_rel_l2=gen_rel,
+                train=train, train_errs=train_errs)
+
+
+def p15_base(dev, refs):
+    """(b): the base PartEncoder's per-point ctx on PointwiseNet, generation
+    scored by the protocol; 2 shapes against the CPU."""
+    from difffacto_torch import sample_generation
+    from difffacto_torch.runner.evaluation import generate_samples
+
+    model = p15_base_model(dev)
+    mg_counts(zero=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gen = generate_samples(model, num_gen=P15_SHAPES, batch=P15_SHAPES, seed=0)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    gen_counts = mg_counts()
+    print(f"base PartEncoder + PointwiseNet, {P15_SHAPES} shapes: {gen_s:.2f} s, launches "
+          f"{gen_counts}")
+    if gen_counts != only() or gen.shape != (P15_SHAPES, 2048, 3) or not np.isfinite(gen).all():
+        fail(f"the base encoder's generation launched {gen_counts} or gave {gen.shape} "
+             "non-finite samples")
+    scored = p15_protocol(dev, "the base encoder's samples", gen, refs)
+    rng = np.random.RandomState(153)
+    T = model.num_timesteps
+    draws = dict(z=rng.randn(P15_CHECK, 4, 256), noise=rng.randn(P15_CHECK, 2048, 3),
+                 step_noise=rng.randn(T, P15_CHECK, 2048, 3))
+    runs = {}
+    for where, m in (("card", model), ("cpu", p15_base_model("cpu"))):
+        d = {k: torch.as_tensor(v, dtype=torch.float32, device=m.device) for k, v in draws.items()}
+        runs[where] = sample_generation(m, P15_CHECK, **d)["pred"]
+    rel = p15_rel(f"the base encoder's generation, {P15_CHECK} shapes", runs["card"],
+                  runs["cpu"], P14_PREDICT_REL_L2)
+    del model
+    torch.cuda.empty_cache()
+    return dict(launches=scored["launches"], gen_s=gen_s, rel_l2=rel, scored=scored)
+
+
+def p15_cloud_batch(B, seed, where):
+    """A SyntheticPart batch with the anchored generator's draws injected."""
+    from difffacto_torch.data import SyntheticPart
+    from difffacto_torch.runner.runner import device_batch
+
+    loader, _ = SyntheticPart(batch_size=B, npoints=2048, size=B, shuffle=False)
+    b = next(iter(loader))
+    rng = np.random.RandomState(seed)
+    out = device_batch(b, where)
+    draws = dict(diffusion_t=rng.randint(0, P15_T, (B,)).astype(np.int64),
+                 diffusion_noise=rng.randn(B, 2048, 3).astype(np.float32),
+                 latent_eps=rng.randn(B, 4, 256).astype(np.float32))
+    out.update({k: torch.as_tensor(v, device=where) for k, v in draws.items()})
+    return out
+
+
+def p15_anchored(dev, refs):
+    """(c): AnchoredGeneration's steps and a predict scored by the protocol;
+    a step and a predict of P15_CHECK shapes against the CPU."""
+    model = p15_build(P15_ANCHORED, dev)
+    losses, step_ms, train_counts = p15_steps(dev, "AnchoredGeneration", model, p15_cloud_batch,
+                                              only())
+    batch = p15_cloud_batch(P15_SHAPES, 154, dev)
+    mg_counts(zero=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pred = model.predict(batch, torch.Generator(device=dev).manual_seed(0))["pred"]
+    torch.cuda.synchronize()
+    predict_s = time.perf_counter() - t0
+    counts = mg_counts()
+    print(f"AnchoredGeneration.predict, {P15_SHAPES} shapes: {predict_s:.2f} s, launches {counts}")
+    if counts != only() or tuple(pred.shape) != (P15_SHAPES, 2048, 3) or \
+            not torch.isfinite(pred).all():
+        fail(f"AnchoredGeneration.predict launched {counts} or gave {tuple(pred.shape)} "
+             "non-finite samples")
+    scored = p15_protocol(dev, "AnchoredGeneration's samples", pred.float().cpu().numpy(), refs)
+    del model
+    torch.cuda.empty_cache()
+    held = p15_step_against_cpu(dev, "AnchoredGeneration", lambda w: p15_build(P15_ANCHORED, w),
+                                p15_cloud_batch)
+    rng = np.random.RandomState(155)
+    draws = dict(z=rng.randn(P15_CHECK, 4, 256), noise=rng.randn(P15_CHECK, 2048, 3),
+                 step_noise=rng.randn(P15_T, P15_CHECK, 2048, 3))
+    runs = {}
+    for key, where in (("card", dev), ("cpu", "cpu")):
+        m = p15_build(P15_ANCHORED, where)
+        d = {k: torch.as_tensor(v, dtype=torch.float32, device=where) for k, v in draws.items()}
+        b = {k: batch[k][:P15_CHECK].to(where) for k in ("input", "ref")}
+        runs[key] = m.predict(b, **d)["pred"]
+        del m
+    rel = p15_rel(f"AnchoredGeneration.predict, {P15_CHECK} shapes", runs["card"], runs["cpu"],
+                  P14_PREDICT_REL_L2)
+    return dict(launches=scored["launches"], losses=losses, step_ms=step_ms,
+                predict_s=predict_s, rel_l2=rel, scored=scored, **held)
+
+
+def p15_seg_batch(B, seed, where):
+    """Seeded super-segments, (B, P15_NSEG, P15_NPOINT, 3), the last fifth of
+    each shape's segments invalid, each segment given a part, and the
+    chain's draws injected."""
+    rng = np.random.RandomState(seed)
+    x = (0.3 * rng.randn(B, P15_NSEG, P15_NPOINT, 3) + 0.5 * rng.randn(B, P15_NSEG, 1, 3))
+    geo = np.ones((B, P15_NSEG), np.float32)
+    geo[:, -P15_NSEG // 5:] = 0.0
+    b = dict(input=x.astype(np.float32), ref=x.astype(np.float32), geo_mask=geo,
+             seg_mask=rng.randint(0, 4, (B, P15_NSEG)).astype(np.int32),
+             diffusion_t=rng.randint(0, P15_T, (B * P15_NSEG,)).astype(np.int64),
+             diffusion_noise=rng.randn(B * P15_NSEG, P15_NPOINT, 3).astype(np.float32))
+    return {k: torch.as_tensor(v, device=where) for k, v in b.items()}
+
+
+def p15_partglot(dev):
+    """(d): AnchorDiffGenPartglot's steps, predict, interpolate_latent and
+    combine_latent; a step and a predict of P15_CHECK shapes against the
+    CPU."""
+    model = p15_build(P15_PARTGLOT, dev)
+    losses, step_ms, counts = p15_steps(dev, "AnchorDiffGenPartglot", model, p15_seg_batch,
+                                        only())
+    batch = p15_seg_batch(P15_TRAIN_BATCH, 156, dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    times = {}
+    runs = (("predict", (), P15_TRAIN_BATCH), ("interpolate_latent", (0, 1, 2, P15_INTERP_STEPS),
+                                               P15_INTERP_STEPS),
+            ("combine_latent", ([3, 0, 2, 1],), 1))
+    for name, args, rows in runs:
+        mg_counts(zero=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = getattr(model, name)(batch, *args, generator=gen)
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t0
+        c = mg_counts()
+        print(f"AnchorDiffGenPartglot.{name}: {times[name]:.2f} s, launches {c}, pred "
+              f"{tuple(out['pred'].shape)}")
+        if c != only() or tuple(out["pred"].shape) != (rows, 2048, 3) or \
+                not torch.isfinite(out["pred"]).all():
+            fail(f"AnchorDiffGenPartglot.{name} launched {c} or gave {tuple(out['pred'].shape)} "
+                 "non-finite samples")
+    del model
+    torch.cuda.empty_cache()
+    held = p15_step_against_cpu(dev, "AnchorDiffGenPartglot", lambda w: p15_build(P15_PARTGLOT, w),
+                                p15_seg_batch)
+    rng = np.random.RandomState(157)
+    draws = dict(noise=rng.randn(P15_CHECK, 2048, 3),
+                 step_noise=rng.randn(P15_T, P15_CHECK, 2048, 3))
+    preds = {}
+    for key, where in (("card", dev), ("cpu", "cpu")):
+        m = p15_build(P15_PARTGLOT, where)
+        d = {k: torch.as_tensor(v, dtype=torch.float32, device=where) for k, v in draws.items()}
+        b = {k: batch[k][:P15_CHECK].to(where) for k in ("input", "geo_mask")}
+        preds[key] = m.predict(b, **d)["pred"]
+        del m
+    rel = p15_rel(f"AnchorDiffGenPartglot.predict, {P15_CHECK} shapes", preds["card"],
+                  preds["cpu"], P14_PREDICT_REL_L2)
+    return dict(launches=counts, losses=losses, step_ms=step_ms, rel_l2=rel,
+                **{f"{k}_s": v for k, v in times.items()}, **held)
+
+
+def phase15(dev, noise_scale, refs):
+    """Phase 15: AnchorDiffAE's other encoders and the anchored generators;
+    returns each path's numbers and the launches of the whole phase."""
+    t_phase = time.perf_counter()
+    out = {"td": p15_td(dev, noise_scale), "base": p15_base(dev, refs),
+           "anchored": p15_anchored(dev, refs), "partglot": p15_partglot(dev)}
+    out["launches"] = {k: sum(out[p]["launches"][k] for p in ("td", "base", "anchored",
+                                                                 "partglot"))
+                       for k in mg_counts()}
+    out["s"] = time.perf_counter() - t_phase
+    print("phase 15 readings: " + json.dumps({
+        "seconds": round(out["s"], 1),
+        "td_generation_s": out["td"]["gen_s"],
+        "td_train_step_ms": out["td"]["train"]["step_ms"],
+        "anchored_step_ms": out["anchored"]["step_ms"],
+        "partglot_step_ms": out["partglot"]["step_ms"],
+        "td_generation_rel_l2": [out["td"]["gen_rel_l2"], "E2E_REL_L2", E2E_REL_L2],
+        "td_train_loss_rel": [out["td"]["train"]["loss_rel"], "STEP_LOSS_RTOL", STEP_LOSS_RTOL],
+        "td_train_grad_norm_rel": [out["td"]["train"]["grad_norm_rel"], "STEP_GNORM_RTOL",
+                                   STEP_GNORM_RTOL],
+        "td_train_update_rel": [out["td"]["train"]["update_rel"], "RUNNER_UPDATE_REL",
+                                RUNNER_UPDATE_REL],
+        "base_generation_rel_l2": [out["base"]["rel_l2"], "P14_PREDICT_REL_L2",
+                                   P14_PREDICT_REL_L2],
+        **{f"{p}_{k}": [out[p][k], c, globals()[c]] for p in ("anchored", "partglot")
+           for k, c in (("loss_rel", "P14_LOSS_RTOL"), ("update_rel", "P14_UPDATE_REL"),
+                        ("grad_norm_rel", "P14_GNORM_RTOL"), ("rel_l2", "P14_PREDICT_REL_L2"))},
+        "launches": out["launches"]}))
+    print(f"phase 15: {out['s']:.1f} s")
     return out
 
 
@@ -3489,6 +3954,12 @@ def main():
     def phase14_launches(name):
         return {k: v[name] for k, v in p14.items()}
 
+    phase("15 AnchorDiffAE's other encoders and the anchored generators, full width")
+    run15 = phase15(dev, noise_scale, phase6["refs"])
+
+    def slice15(name):
+        return {"launches_slice15": run15["launches"][name]}
+
     print(card)
     trunk["launches_runner"] = on_path["fused_core"]
     trunk["launches_editing"] = editing_launches["fused_core"]
@@ -3506,7 +3977,9 @@ def main():
                  gan_val_s=run14["gan"]["val_s"], language_epoch_s=run14["language"]["epoch_s"],
                  mixing_s=run14["mixing"]["s"])
     trunk["max_abs_err"] = max(trunk["max_abs_err"], run14["gan"]["core_err"],
-                               run14["mixing"]["core_err"])
+                               run14["mixing"]["core_err"], run15["td"]["core_err"])
+    trunk.update(slice15("fused_core"), slice15_td_generation_s=run15["td"]["gen_s"],
+                 slice15_s=run15["s"])
     headless = {
         "name": "fused_core_headless", "route": "cuda",
         "source": "difffacto_torch/csrc/fused_core.cu",
@@ -3515,7 +3988,7 @@ def main():
         "plain_ms": run11["headless_plain_ms"], "bound_ms": run11["headless_bound_ms"],
         "bound_by": run11["headless_bound_by"], "library_ms": None,
         "launches_multi_gpu": mg_launches["fused_core_headless"],
-        **phase14_launches("fused_core_headless"),
+        **phase14_launches("fused_core_headless"), **slice15("fused_core_headless"),
     }
     sa = run14["pointnet2"]
     print(json.dumps({"kernels": [trunk, headless, {
@@ -3534,6 +4007,7 @@ def main():
         **{f"{k}_at_sa_{shape}": v for shape in (f"{n}_to_{m}" for n, m in SA_FPS)
            for k, v in sa[shape].items()},
         "pdm_train_step_ms": run14["pdm"]["step_ms"], "pdm_predict_s": run14["pdm"]["predict_s"],
+        **slice15("fps"),
         **{f"{cls}_{k}": v for cls in ("PointNet2SSG", "PointNet2MSG") for k, v in sa[cls].items()},
     }, {
         "name": "emd_hybrid", "route": "cuda", "source": "difffacto_torch/csrc/emd_hybrid.cu",
@@ -3550,24 +4024,26 @@ def main():
         "launches_editing": editing_launches["emd_hybrid"],
         "launches_msgpack_val_gen": run12["msgpack"]["launches"]["emd_hybrid"],
         "launches_multi_gpu": mg_launches["emd_hybrid"], **phase14_launches("emd_hybrid"),
+        **slice15("emd_hybrid"),
     }, {
         "name": "fused_trunk_train_fwd", "route": "cuda",
         "source": "difffacto_torch/csrc/fused_core_train.cu",
         "replaces": "difffacto_tpu/ops/fused_core_train.py:120",
         "launches": train_counts["fused_trunk_train_fwd"],
-        "max_abs_err": max(train_fwd_err, run9["train_fwd_err"]),
+        "max_abs_err": max(train_fwd_err, run9["train_fwd_err"], run15["td"]["train_errs"][0]),
         "ms": fwd_ms, "plain_ms": plain_fwd_ms, "bound_ms": bounds["fwd"][0],
         "bound_by": bounds["fwd"][1], "library_ms": None,
         "launches_runner": on_path["fused_trunk_train_fwd"],
         "launches_editing": editing_launches["fused_trunk_train_fwd"],
         "launches_multi_gpu": mg_launches["fused_trunk_train_fwd"],
-        **phase14_launches("fused_trunk_train_fwd"),
+        **phase14_launches("fused_trunk_train_fwd"), **slice15("fused_trunk_train_fwd"),
+        "slice15_cvae_train_step_ms": run15["td"]["train"]["step_ms"],
     }, {
         "name": "fused_trunk_train_bwd", "route": "cuda",
         "source": "difffacto_torch/csrc/fused_core_train.cu",
         "replaces": "difffacto_tpu/ops/fused_core_train.py:162",
         "launches": train_counts["fused_trunk_train_bwd"],
-        "max_abs_err": max(train_bwd_err, run9["train_bwd_err"]),
+        "max_abs_err": max(train_bwd_err, run9["train_bwd_err"], run15["td"]["train_errs"][1]),
         "ms": bwd_ms, "plain_ms": plain_bwd_ms, "bound_ms": bounds["bwd"][0],
         "bound_by": bounds["bwd"][1], "library_ms": None,
         "bound_ms_jax_inputs": bounds["bwd_jax_inputs"][0], "train_step_ms": step_ms,
@@ -3576,7 +4052,7 @@ def main():
         "launches_runner": on_path["fused_trunk_train_bwd"],
         "launches_editing": editing_launches["fused_trunk_train_bwd"],
         "launches_multi_gpu": mg_launches["fused_trunk_train_bwd"],
-        **phase14_launches("fused_trunk_train_bwd"),
+        **phase14_launches("fused_trunk_train_bwd"), **slice15("fused_trunk_train_bwd"),
         "runner_epoch_s_first": run9["epoch_s_first"],
         "runner_epoch_s_later": run9["epoch_s_later"],
         "runner_epoch_s_later_min": run9["epoch_s_later_min"],
@@ -3599,6 +4075,7 @@ def main():
         "launches_editing": editing_launches["fused_block"],
         "launches_unet_training": run12["unet"]["launches"]["fused_block"],
         "launches_multi_gpu": mg_launches["fused_block"], **phase14_launches("fused_block"),
+        **slice15("fused_block"),
         "unet_train_step_ms": run12["unet"]["step_ms"],
     }, {
         "name": "fused_ff", "route": "cuda", "source": "difffacto_torch/csrc/fused_ff.cu",
@@ -3618,6 +4095,7 @@ def main():
         "search_tokens": run10["search_ff"]["tokens"],
         "editing_path_launches_reported": run10["ff_path"],
         "launches_multi_gpu": mg_launches["fused_ff"], **phase14_launches("fused_ff"),
+        **slice15("fused_ff"),
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

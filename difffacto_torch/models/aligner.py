@@ -12,6 +12,11 @@ concatenated as in 0. The class embedding is concatenated or added after
 ``proj_in``. The blocks are built as the JAX block chooses its layout
 (``nn/attention.py:transformer_block``); two-attention blocks are for
 generation only.
+
+And of ``PartAligner`` (``aligner.py:143-186``), the MLP aligner: the
+presence-masked part codes flattened, then two branches ``m`` and ``v``,
+each 512 -> 256 -> 64 with BatchNorm and ReLU, then ``fc4`` to 3 K; the
+(B, 3, K) result is transposed to (B, K, 3).
 """
 
 from __future__ import annotations
@@ -22,7 +27,7 @@ import torch
 from torch import nn
 
 from ..nn.attention import transformer_block
-from ..nn.layers import MLP, Dense, LayerNorm, default_generator, param
+from ..nn.layers import MLP, Dense, LayerNorm, TorchBatchNorm, default_generator, param
 from ..utils.device import resolve_device
 from ..utils.registry import ENCODERS
 
@@ -133,3 +138,61 @@ class PartAlignerTransformer(nn.Module):
             h = h[:, 1:]
         h = self.proj_out(h)
         return h[..., :3], h[..., 3:6]
+
+
+
+def normal_dense(in_features: int, out_features: int, std: float, g: torch.Generator,
+                 **kw) -> Dense:
+    """A ``Dense`` whose kernel starts from N(0, std^2) (flax
+    ``initializers.normal(std)``), the bias at zero."""
+    dense = Dense(in_features, out_features, generator=g, **kw)
+    with torch.no_grad():
+        dense.kernel.copy_(std * torch.randn(in_features, out_features, generator=g))
+    return dense
+
+
+class MLPAlignerBase(nn.Module):
+    """The two MLP branches ``m`` and ``v`` of the MLP aligners
+    (``aligner.py:152-170``, ``part_encoder_variants.py:49-64``):
+    ``fc{1,2,3}_<b>`` 512 -> 256 -> 64, each with ``fc_bn{i}_<b>`` and ReLU,
+    then ``fc4_<b>`` to 3 K; kernels from N(0, 0.25^2)."""
+
+    def _build_branches(self, in_features: int, n_class: int, g: torch.Generator, **kw):
+        self.n_class = n_class
+        dims = (in_features, 512, 256, 64)
+        for b in ("m", "v"):
+            for i in range(3):
+                setattr(self, f"fc{i + 1}_{b}", normal_dense(dims[i], dims[i + 1], 0.25, g, **kw))
+                setattr(self, f"fc_bn{i + 1}_{b}", TorchBatchNorm(dims[i + 1], **kw))
+            setattr(self, f"fc4_{b}", normal_dense(64, 3 * n_class, 0.25, g, **kw))
+
+    def _branches(self, x: torch.Tensor, train: bool):
+        """(B, F) -> mean, logvar each (B, K, 3): each branch's (B, 3 K) read
+        as (B, 3, K) and transposed."""
+        out = []
+        for b in ("m", "v"):
+            h = x
+            for i in range(1, 4):
+                h = torch.relu(getattr(self, f"fc_bn{i}_{b}")(getattr(self, f"fc{i}_{b}")(h), train))
+            h = getattr(self, f"fc4_{b}")(h)
+            out.append(h.reshape(x.shape[0], 3, self.n_class).transpose(1, 2))
+        return tuple(out)
+
+
+@ENCODERS.register_module()
+class PartAligner(MLPAlignerBase):
+    """part_code (B, K, width) -> mean, logvar each (B, K, 3). It takes no
+    noise; the encoder reads ``cimle``, ``noise_dim`` and
+    ``cimle_start_epoch``, fields of the JAX module (``aligner.py:183-186``)."""
+
+    def __init__(self, n_class: int, width: int, cimle: bool = False, noise_dim: int = 32,
+                 cimle_start_epoch: int = 0, *, dtype=None, device="cuda", generator=None):
+        super().__init__()
+        self.cimle, self.noise_dim, self.cimle_start_epoch = cimle, noise_dim, cimle_start_epoch
+        self._build_branches(n_class * width, n_class, default_generator(generator),
+                             dtype=dtype, device=resolve_device(device))
+
+    def forward(self, part_code, valid_id=None, noise=None, train: bool = False, generator=None):
+        B = part_code.shape[0]
+        x = (part_code * valid_id[..., None].to(part_code.dtype)).reshape(B, -1)
+        return self._branches(x, train)

@@ -239,7 +239,7 @@ class AnchorDiffAE(nn.Module):
             seg_mask = equal_split_seg_mask(valid_id.to(part_code.dtype), self.npoints)
         lv = logvar + enc.log_scale_var if logvar is not None else logvar
         mean_pp, logvar_pp, _ = enc.gather_all(seg_mask, anchors=mean, variances=lv)
-        ctx = enc.prepare_ctx(part_code, mean, logvar)
+        ctx = enc.prepare_ctx(part_code, mean, logvar, seg_mask=seg_mask)
         return ctx, mean_pp, torch.exp(logvar_pp), seg_mask, (mean, logvar)
 
     def edit_losses(self, z, x, seg_flag, valid_id, ref_means, ref_vars, fix_ids, edit_part_id,
@@ -401,7 +401,11 @@ def decode(model: AnchorDiffAE, anchors, ctx=None, variance=None, seg_mask=None,
     each rank runs its batch slice, and under ("data", "points") its point
     slice, through the chain against the replicated context: a point token
     cross-attends only to the 4 context tokens, so a shard needs no
-    collective. Every rank passes the same inputs; the injected ``noise``
+    collective. A per-point ctx (B, N, F), the base ``PartEncoder``'s, is
+    cut on the batch axis only, as the JAX package's ``in_specs`` cut every
+    ctx (``anchor_diff.py:558-563``): under a points axis its N rows meet
+    the shard's N / points and the JAX denoiser fails to broadcast them, so
+    the port raises there. Every rank passes the same inputs; the injected ``noise``
     and ``step_noise`` are cut to the rank's shard, the drawn ones come from
     ``generator`` folded by the rank where the mesh has more than one, and
     'pred' is gathered whole on every rank. Elsewhere every rank runs the
@@ -418,6 +422,12 @@ def decode(model: AnchorDiffAE, anchors, ctx=None, variance=None, seg_mask=None,
             valid_id=valid_id, noise=noise, ret_traj=ret_traj, ret_interval=ret_interval,
             step_noise=step_noise, generator=generator,
         )
+    if npts > 1 and ctx is not None and ctx.ndim == 3 and ctx.shape[1] == N:
+        raise ValueError(
+            "a per-point ctx under a points axis: the JAX package shards ctx on the batch "
+            "axis only (difffacto_tpu/models/anchor_diff.py:558-563), so each point shard "
+            f"meets all {N} ctx rows and its denoiser cannot broadcast them; decode it "
+            "under a data-only mesh")
     d = mesh.index(mesh.axis_names[0])
     p = mesh.index("points") if npts > 1 else 0
     rows = slice(d * B // nd, (d + 1) * B // nd)

@@ -28,7 +28,8 @@ with a language code, one that attends to it.
 
 And of ``PointwiseNet`` (``denoiser.py:490-530``), the concat-squash MLP that
 per-part pretraining conditions on one part token, with its
-``ConcatSquashDense`` layers (``:436-446``).
+``ConcatSquashDense`` layers (``:436-446``), and ``PointwiseNet2``
+(``:449-487``), which conditions each point on its own part's token.
 """
 
 from __future__ import annotations
@@ -350,12 +351,61 @@ class PointwiseNet(nn.Module):
             ctx = torch.cat([c if c.ndim == 3 else c[:, None] for c in ctx], dim=-1)
         elif ctx.ndim == 2:
             ctx = ctx[:, None]
-        tf = t.float()[:, None]
-        time_emb = torch.cat([tf, torch.sin(tf), torch.cos(tf)], dim=-1)[:, None]
-        ct = torch.promote_types(ctx.dtype, time_emb.dtype)
-        cond = torch.cat([time_emb.expand(*ctx.shape[:2], 3), ctx.to(ct)], dim=-1)
+        cond = _time_cond(t, ctx)
         h = x
         for i in range(len(self.hidden)):
             h = F.leaky_relu(getattr(self, f"cs_{i}")(h, cond), 0.01)
         h = self.cs_out(h, cond)
         return x + h if self.residual and x.shape[-1] == h.shape[-1] else h
+
+
+def _time_cond(t, ctx):
+    """[t, sin t, cos t] ++ ctx on every row of ctx (B, M, F) -> (B, M, 3 + F)."""
+    tf = t.float()[:, None]
+    time_emb = torch.cat([tf, torch.sin(tf), torch.cos(tf)], dim=-1)[:, None]
+    ct = torch.promote_types(ctx.dtype, time_emb.dtype)
+    return torch.cat([time_emb.expand(*ctx.shape[:2], 3), ctx.to(ct)], dim=-1)
+
+
+@NETS.register_module()
+class PointwiseNet2(nn.Module):
+    """The concat-squash MLP with the per-part context gathered per point
+    (``difffacto_tpu/models/denoiser.py:449-487``, the reference's
+    nets/pointwisenet2.py:10-103): point n is modulated by [t, sin t, cos t]
+    ++ ctx[seg_mask[n]].
+
+    forward(x (B, N, in_channels), t (B,), ctx (B, K, context_dim) or a list
+    or tuple of them concatenated, seg_mask (B, N)). The input is added back
+    with ``res`` where the widths agree. ``num_anchors``,
+    ``include_anchors`` and ``gather_layers`` are kept and read nowhere, as
+    in the JAX module.
+    """
+
+    def __init__(self, in_channels: int = 3, out_channels: int = 3, context_dim: int = 256,
+                 num_anchors: int = 4, res: bool = True, include_anchors: bool = False,
+                 gather_layers=(1, 3), hidden=(128, 256, 512, 256, 128),
+                 *, dtype=None, device="cuda", generator=None):
+        super().__init__()
+        device = resolve_device(device)
+        g = default_generator(generator)
+        self.res, self.hidden = res, tuple(hidden)
+        self.num_anchors, self.include_anchors = num_anchors, include_anchors
+        self.gather_layers = tuple(gather_layers)
+        kw = dict(dtype=dtype, device=device, generator=g)
+        dims = (in_channels,) + self.hidden
+        for i, f in enumerate(self.hidden):
+            setattr(self, f"cs_{i}", ConcatSquashDense(dims[i], context_dim + 3, f, **kw))
+        self.cs_out = ConcatSquashDense(dims[-1], context_dim + 3, out_channels, **kw)
+
+    def forward(self, x, t, ctx, anchors=None, variances=None, seg_mask=None, valid_id=None,
+                train: bool = False, generator=None):
+        from .part_encoder import gather_per_point
+
+        if isinstance(ctx, (list, tuple)):
+            ctx = torch.cat(list(ctx), dim=-1)
+        cond = _time_cond(t, gather_per_point(ctx, seg_mask))
+        h = x
+        for i in range(len(self.hidden)):
+            h = F.leaky_relu(getattr(self, f"cs_{i}")(h, cond), 0.01)
+        h = self.cs_out(h, cond)
+        return x + h if self.res and x.shape[-1] == h.shape[-1] else h

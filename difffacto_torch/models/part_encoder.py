@@ -1,13 +1,16 @@
 """Part encoder: per-part latents, part aligner, fit and prior losses, sampling.
 
-Port of ``difffacto_tpu/models/part_encoder.py`` for
-``PartEncoderForTransformerDecoder``: the generation half (flow prior ->
-aligner -> per-point params and ctx) and the training half (PointNetV2 part
-codes, the five fit losses, the flow prior loss, the CIMLE noise candidates).
-With ``encode_ref`` the aligner reads a ``PointNet`` code of the reference
-cloud, one for every part slot, in place of the part codes
-(``part_encoder.py:84-90``, ``:120-125``). Every draw comes from an explicit
-generator or is injected.
+Port of ``difffacto_tpu/models/part_encoder.py``: the base ``PartEncoder``
+(``part_encoder.py:42-430``), whose ctx is per point (``prepare_ctx``,
+``:149-172``: the flattened codes, the part's code, its class one-hot and its
+parameters, each broadcast or gathered to every point) for the pointwise
+denoisers, and ``PartEncoderForTransformerDecoder`` (``:433-447``), whose ctx
+is the K part tokens themselves. Both have the generation half (flow prior
+-> aligner -> per-point params and ctx) and the training half (part codes,
+the five fit losses, the flow prior loss, the CIMLE noise candidates). With
+``encode_ref`` the aligner reads a ``PointNet`` code of the reference cloud,
+one for every part slot, in place of the part codes (``part_encoder.py:84-90``,
+``:120-125``). Every draw comes from an explicit generator or is injected.
 """
 
 from __future__ import annotations
@@ -44,11 +47,10 @@ def equal_split_seg_mask(valid_id: torch.Tensor, npoints: int) -> torch.Tensor:
 
 
 @ENCODERS.register_module()
-class PartEncoderForTransformerDecoder(nn.Module):
-    """Constructor arguments mirror the JAX package's ``PartEncoder``; the ctx
-    is the K part tokens themselves (``part_encoder.py:433-447``), so
-    ``include_z`` and ``include_class_label``, which shape the per-point ctx
-    of the base class, are kept and read nowhere, as in the JAX class."""
+class PartEncoder(nn.Module):
+    """Constructor arguments mirror the JAX module's fields
+    (``part_encoder.py:45-71``). ``encoder`` is built with ``num_anchors`` =
+    ``n_class``; ``part_aligner`` (optional) from ``ENCODERS``."""
 
     def __init__(self, encoder: dict, n_class: int = 4, part_aligner: Optional[dict] = None,
                  fit_loss_weight: float = 1.0, include_z: bool = True,
@@ -78,24 +80,21 @@ class PartEncoderForTransformerDecoder(nn.Module):
         self.kl_weight_annealing_end_epoch = kl_weight_annealing_end_epoch
         self.normalize_part_code = normalize_part_code
         self.detach_params_in_ctx = detach_params_in_ctx
-        self.encoder_net = build_from_cfg(dict(encoder), ENCODERS, num_anchors=n_class,
-                                          dtype=dtype, device=device, generator=g)
-        self.aligner = (
-            build_from_cfg(dict(part_aligner), ENCODERS, dtype=dtype, device=device, generator=g)
-            if part_aligner
-            else None
-        )
+        kw = dict(dtype=dtype, device=device, generator=g)
+        self.encoder_net = build_from_cfg(dict(encoder), ENCODERS, num_anchors=n_class, **kw)
+        self.aligner = build_from_cfg(dict(part_aligner), ENCODERS, **kw) if part_aligner else None
+        self._build_latent_modules(encode_ref, use_flow, latent_flow_depth, latent_flow_hidden_dim,
+                                   kw)
+
+    def _build_latent_modules(self, encode_ref, use_flow, depth, hidden, kw):
+        """The reference cloud's encoder under ``encode_ref`` and the flow
+        prior under ``gen`` and ``use_flow`` (``part_encoder.py:84-95``)."""
         if encode_ref:
             from .pointnet import PointNet
 
-            self.ref_encoder = PointNet(zdim=self.zdim, point_dim=3, num_anchors=1, dtype=dtype,
-                                        device=device, generator=g)
-        self.flow = (
-            PerPartFlow(n_class, latent_flow_depth, self.zdim, latent_flow_hidden_dim,
-                        dtype=dtype, device=device, generator=g)
-            if gen and use_flow
-            else None
-        )
+            self.ref_encoder = PointNet(zdim=self.zdim, point_dim=3, num_anchors=1, **kw)
+        self.flow = (PerPartFlow(self.n_class, depth, self.zdim, hidden, **kw)
+                     if self.gen and use_flow else None)
 
     @property
     def log_scale_var(self) -> float:
@@ -152,18 +151,34 @@ class PartEncoderForTransformerDecoder(nn.Module):
             flag_pp = torch.ones(seg_mask.shape, dtype=torch.float32, device=seg_mask.device)
         return anchor_pp, var_pp, flag_pp
 
-    def prepare_ctx(self, part_code, mean, logvar):
-        """concat(part_code, mean, exp(logvar + log_scale_var)) -> (B, K, zdim + 6)."""
+    def prepare_ctx(self, part_code, mean, logvar, seg_mask=None):
+        """The per-point context (``part_encoder.py:149-172``), (B, N, F), in
+        this order: the flattened codes on every point (``include_z``), the
+        point's part code (``include_part_code``), its class one-hot
+        (``include_class_label``), then its part's mean and
+        exp(logvar + log_scale_var) (``include_params``; detached under
+        ``detach_params_in_ctx``). ``seg_mask`` (B, N) assigns the points."""
+        if seg_mask is None:
+            raise ValueError("the per-point ctx needs the points' seg_mask")
+        B, N = part_code.shape[0], seg_mask.shape[1]
         ctx = []
+        if self.include_z:
+            flat = part_code.reshape(B, -1)
+            ctx.append(flat[:, None].expand(B, N, flat.shape[-1]))
         if self.include_part_code:
-            ctx.append(part_code)
+            ctx.append(gather_per_point(part_code, seg_mask))
+        if self.include_class_label:
+            ctx.append(torch.nn.functional.one_hot(seg_mask.long(), self.n_class)
+                       .to(part_code.dtype))
         if self.include_params:
-            params = torch.cat([mean, torch.exp(logvar + self.log_scale_var)], dim=-1)
-            ctx.append(params.detach() if self.detach_params_in_ctx else params)
-        dt = ctx[0].dtype
-        for c in ctx[1:]:
-            dt = torch.promote_types(dt, c.dtype)
-        return torch.cat([c.to(dt) for c in ctx], dim=-1)
+            if mean is not None:
+                m = gather_per_point(mean, seg_mask)
+                ctx.append(m.detach() if self.detach_params_in_ctx else m)
+            if logvar is not None:
+                lv = gather_per_point(logvar, seg_mask)
+                lv = lv.detach() if self.detach_params_in_ctx else lv
+                ctx.append(torch.exp(lv + self.log_scale_var))
+        return _cat_promoted(ctx)
 
     def sample_flow_prior(self, sample_num: int, generator=None, z=None):
         """Part codes from the flow prior (``part_encoder.py:332-339``).
@@ -219,7 +234,7 @@ class PartEncoderForTransformerDecoder(nn.Module):
         lv = logvar + self.log_scale_var if logvar is not None else logvar
         mean_pp, logvar_pp, _ = self.gather_all(seg_mask, anchors=mean, variances=lv)
         # ``prepare_ctx`` adds log_scale_var again, as the JAX package does.
-        ctx = self.prepare_ctx(part_code, mean, lv)
+        ctx = self.prepare_ctx(part_code, mean, lv, seg_mask=seg_mask)
         return ctx, mean_pp, logvar_pp, seg_mask, valid_id, [part_code, mean, logvar, noise]
 
     # ----------------------------------------------------------------- losses
@@ -365,7 +380,7 @@ class PartEncoderForTransformerDecoder(nn.Module):
             mean, logvar = gt_shift, torch.log(gt_var)
             mean_pp, logvar_pp, _ = self.gather_all(seg_mask, anchors=mean, variances=logvar)
 
-        ctx = self.prepare_ctx(part_code, mean, logvar)
+        ctx = self.prepare_ctx(part_code, mean, logvar, seg_mask=seg_mask)
         return (ctx, mean_pp, logvar_pp + self.log_scale_var, flag_pp, loss_dict,
                 [part_code, mean, logvar, noise])
 
@@ -390,3 +405,28 @@ class PartEncoderForTransformerDecoder(nn.Module):
         fit = self.get_fit_loss(ref_r, mean, logvar, valid_r, mean_pp, logvar_pp, flag_pp, gts_r,
                                 gtv_r, seg_r, generator=generator)
         return noise.reshape(B, num, -1), fit.reshape(B, num)
+
+
+def _cat_promoted(ctx):
+    """Concatenate on the last axis in the promoted dtype of the pieces."""
+    dt = ctx[0].dtype
+    for c in ctx[1:]:
+        dt = torch.promote_types(dt, c.dtype)
+    return torch.cat([c.to(dt) for c in ctx], dim=-1)
+
+
+@ENCODERS.register_module()
+class PartEncoderForTransformerDecoder(PartEncoder):
+    """The ctx is the K part tokens themselves (``part_encoder.py:433-447``),
+    so ``include_z`` and ``include_class_label``, which shape the per-point
+    ctx of the base class, are read nowhere, as in the JAX class."""
+
+    def prepare_ctx(self, part_code, mean, logvar, seg_mask=None):
+        """concat(part_code, mean, exp(logvar + log_scale_var)) -> (B, K, zdim + 6)."""
+        ctx = []
+        if self.include_part_code:
+            ctx.append(part_code)
+        if self.include_params:
+            params = torch.cat([mean, torch.exp(logvar + self.log_scale_var)], dim=-1)
+            ctx.append(params.detach() if self.detach_params_in_ctx else params)
+        return _cat_promoted(ctx)

@@ -25,7 +25,7 @@ from typing import Callable, List, Optional, Sequence
 
 import torch
 
-from ..utils.registry import SCHEDULERS
+from ..utils.registry import OPTIMS, SCHEDULERS
 
 Schedule = Callable[[torch.Tensor], torch.Tensor]
 
@@ -193,3 +193,10 @@ def build_optimizer_from_cfg(optimizer_cfg, scheduler_cfg=None, iters_per_epoch=
         betas=ocfg.pop("betas", (0.9, 0.999)), eps=ocfg.pop("eps", 1e-8),
         weight_decay=ocfg.pop("weight_decay", 0.0), lr_scale_fn=lr_scale_fn,
     )
+
+
+# The config-driven optimizers by type string, as the JAX package registers
+# them (``difffacto_tpu/parallel/optim.py:195-197``).
+for _kind in ("Adam", "AdamW", "Adamax"):
+    OPTIMS.register_module(
+        _kind, lambda _kind=_kind, **kw: build_optimizer_from_cfg(dict(type=_kind, **kw)))

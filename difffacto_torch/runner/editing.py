@@ -300,7 +300,7 @@ def interpolate_params(model: AnchorDiffAE, batch, part_id: int = 1, generator=N
         logvar[:, part_id, axis] += torch.log(dx)
     mean_pp, logvar_pp, _ = enc.gather_all(seg_mask, anchors=mean,
                                            variances=logvar + enc.log_scale_var)
-    ctx = enc.prepare_ctx(codes, mean, logvar)
+    ctx = enc.prepare_ctx(codes, mean, logvar, seg_mask=seg_mask)
     pred = _t2n(_decode(model, mean_pp, ctx, torch.exp(logvar_pp), seg_mask, valid_r, generator,
                         x_T, step_noise)).reshape(B, K, -1, 3)
     ref_seg_np = _t2n(ref_seg)
@@ -469,7 +469,7 @@ def sample_one_part(model: AnchorDiffAE, codes, valid_id, gt_mean, gt_logvar, se
     valid_e = valid_id.repeat_interleave(E * P, dim=0)
 
     mean_pp, logvar_pp, _ = enc.gather_all(seg, anchors=mean_b, variances=logvar_b)
-    ctx = enc.prepare_ctx(codes_rep, mean_b, logvar_b)
+    ctx = enc.prepare_ctx(codes_rep, mean_b, logvar_b, seg_mask=seg)
     pred = _decode(model, mean_pp, ctx, torch.exp(logvar_pp), seg, valid_e, generator, x_T,
                    step_noise)
     N, EP = seg.shape[1], E * P

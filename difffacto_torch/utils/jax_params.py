@@ -14,6 +14,9 @@ the mapping is a renaming:
   ``lang_block_{i}`` -> ``lang_blocks.{i}``;
 * the language encoder's ``OptimizedLSTMCell_0`` -> ``cell`` (its gate
   kernels ``ii`` ... ``ho`` keep flax's names);
+* the super-segment encoders' ``_TwoStage_0`` -> ``two_stage``,
+  ``PartglotSupSegsEncoderBase_0`` -> ``base``, ``ConditionalBatchNorm1d_{k}``
+  -> ``cbn{k}``;
 * the per-part flow parameters come stacked on a leading part axis
   (``flow/flows/chain_{j}/Dense_{k}/kernel`` is (4, in, out)) and split into
   ``flow.flows.{p}``; the per-part PointNetV2 heads stay stacked, as the port
@@ -55,6 +58,9 @@ _RENAMES = (
     (re.compile(r"^(emb|ln)_(\d+)$"), r"\1.\2"),
     (re.compile(r"^(prior|lang)_block_(\d+)$"), r"\1_blocks.\2"),
     (re.compile(r"^OptimizedLSTMCell_0$"), "cell"),
+    (re.compile(r"^_TwoStage_0$"), "two_stage"),
+    (re.compile(r"^PartglotSupSegsEncoderBase_0$"), "base"),
+    (re.compile(r"^ConditionalBatchNorm1d_(\d+)$"), r"cbn\1"),
 )
 
 
@@ -68,6 +74,9 @@ _INVERSE = (
     (re.compile(r"^ln(\d+)$"), lambda m: ["LayerNorm_" + m.group(1)]),
     (re.compile(r"^group_norm$"), lambda m: ["GroupNorm_0"]),
     (re.compile(r"^cell$"), lambda m: ["OptimizedLSTMCell_0"]),
+    (re.compile(r"^two_stage$"), lambda m: ["_TwoStage_0"]),
+    (re.compile(r"^base$"), lambda m: ["PartglotSupSegsEncoderBase_0"]),
+    (re.compile(r"^cbn(\d+)$"), lambda m: ["ConditionalBatchNorm1d_" + m.group(1)]),
 )
 
 

@@ -75,6 +75,7 @@ def build_from_cfg(cfg: Any, registry: Registry, **kwargs) -> Any:
 
 
 # The JAX package's 15 registries (``difffacto_tpu/utils/registry.py:102-116``).
+# LOSSES stays empty, as it does in the JAX package.
 DATASETS = Registry("DATASETS")
 MODELS = Registry("MODELS")
 ENCODERS = Registry("ENCODERS")

@@ -837,3 +837,72 @@ def test_pointnet2_forward_on_the_card_matches_the_cpu(cuda, kind):
     assert fps_mod.launches == before + 2
     assert got.shape == want.shape == (4, 1, 256)
     assert ((got - want).norm() / want.norm()).item() <= 1e-4
+
+
+@pytest.mark.gpu
+def test_td_variant_generation_on_the_card_matches_the_cpu(cuda):
+    """tests/configs/tiny_gen.py at the trunk kernel's widths (8 heads of 16,
+    4 part tokens) on ``PartEncoderForTransformerDecoderKLLoss`` with the std
+    in its tokens: every draw injected, the card's generation (one trunk
+    launch a step) against the CPU's plain trunk, both in bf16, within 5e-3
+    relative L2 (chip_smoke.py's E2E_REL_L2: bf16 steps apart in each of the
+    denoiser calls)."""
+    import os
+
+    from difffacto_torch import MODELS, Config, build_from_cfg, sample_generation
+
+    cfg = Config(os.path.join(os.path.dirname(__file__), "configs", "tiny_gen.py")).model.dump()
+    cfg.update(dtype=torch.bfloat16, num_timesteps=10)
+    cfg["encoder"].update(type="PartEncoderForTransformerDecoderKLLoss", include_std=True)
+    cfg["diffusion"]["net"].update(n_heads=8, d_head=16)
+    rng = np.random.RandomState(0)
+    draws = dict(z=rng.randn(2, 4, 16), cimle_noise=rng.randn(2, 32), noise=rng.randn(2, 64, 3),
+                 step_noise=rng.randn(10, 2, 64, 3))
+    preds = {}
+    for where in (cuda, "cpu"):
+        model = build_from_cfg(dict(cfg), MODELS, device=where, seed=0)
+        d = {k: torch.as_tensor(v, dtype=torch.float32, device=where) for k, v in draws.items()}
+        before = fc.launches
+        preds[str(where)] = sample_generation(model, 2, **d)["pred"].float().cpu()
+        if where == cuda:
+            torch.cuda.synchronize()
+            assert fc.launches == before + 10
+    card, cpu = preds["cuda"], preds["cpu"]
+    assert torch.isfinite(card).all()
+    assert ((card - cpu).norm() / cpu.norm()).item() < 5e-3
+
+
+@pytest.mark.gpu
+def test_anchored_generation_predict_on_the_card_matches_the_cpu(cuda):
+    """``AnchoredGeneration`` (PCN, MeanVarianceRegressor, ComponentMixer with
+    attention, PointwiseNet) at latent width 32: a predict with z, x_T and
+    the step draws injected on the card and on the CPU, float32 both, within
+    1e-4 relative L2 (chip_smoke.py's P14_PREDICT_REL_L2), no kernel launched."""
+    from difffacto_torch.models import AnchoredGeneration
+
+    cfg = dict(encoder=dict(type="PCN", point_dim=7, part_latent_dim=32),
+               parameter_regressor=dict(type="MeanVarianceRegressor", latent_dim=32),
+               decomposer=dict(type="ComponentMixer", part_latent_dim=32, include_attention=True,
+                               include_global_feature=True),
+               diffusion=dict(type="AnchoredDiffusion",
+                              net=dict(type="PointwiseNet", point_dim=3, residual=False),
+                              beta_1=1e-4, beta_T=0.02, mode="linear",
+                              model_mean_type="epsilon"),
+               sampler=dict(type="Uniform"), num_anchors=4, num_timesteps=10, npoints=256)
+    rng = np.random.RandomState(1)
+    pts = rng.randn(2, 256, 3).astype(np.float32)
+    seg = np.repeat(np.arange(4), 64)[None].repeat(2, 0)
+    batch = dict(input=pts, ref=pts, seg_mask=seg, attn_map=np.eye(4, dtype=np.float32)[seg])
+    draws = dict(z=rng.randn(2, 4, 32), noise=rng.randn(2, 256, 3),
+                 step_noise=rng.randn(10, 2, 256, 3))
+    preds = {}
+    for where in (cuda, "cpu"):
+        model = AnchoredGeneration(**cfg, device=where, seed=0)
+        d = {k: torch.as_tensor(v, dtype=torch.float32, device=where) for k, v in draws.items()}
+        before = (fc.launches, fps_mod.launches, eh.launches)
+        out = model.predict({k: torch.as_tensor(v, device=where) for k, v in batch.items()}, **d)
+        preds[str(where)] = out["pred"].float().cpu()
+        assert (fc.launches, fps_mod.launches, eh.launches) == before
+    card, cpu = preds["cuda"], preds["cpu"]
+    assert card.shape == (2, 256, 3) and torch.isfinite(card).all()
+    assert ((card - cpu).norm() / cpu.norm()).item() < 1e-4

@@ -476,8 +476,54 @@ def spare_suite(rank, world, workdir):
     return out
 
 
+def pointctx_suite(rank, world, workdir):
+    """The base ``PartEncoder``'s per-point ctx with ``PointwiseNet`` on 2
+    ranks: decode under a points axis raises, under a data axis it matches
+    one device; the eval-mode loss and gradients under the points axis match
+    one device."""
+    import torch
+
+    from difffacto_torch.models import decode
+    from difffacto_torch.parallel import make_mesh
+
+    model = tiny_model(
+        encoder=dict(type="PartEncoder", fit_loss_type=0, include_z=True,
+                     include_part_code=False, include_params=True,
+                     part_aligner=dict(type="PartAligner", n_class=K, width=16)),
+        net=dict(type="PointwiseNet", point_dim=3, context_dim=K * 16 + 6, hidden=(16, 32, 16)))
+    with torch.no_grad():  # the N(0, 0.25^2) heads put exp(logvar) out of range
+        for head in (model.encoder_mod.aligner.fc4_m, model.encoder_mod.aligner.fc4_v):
+            head.kernel.mul_(0.01)
+    out = {}
+    gen = torch.Generator().manual_seed(5)
+    ctx, mean_pp, var_pp, seg, vid, _ = model.prepare_generation(
+        B, torch.zeros(K), torch.ones(B, K), 0, generator=gen)
+    rng = np.random.RandomState(6)
+    x_t = torch.from_numpy(rng.randn(*mean_pp.shape).astype(np.float32))
+    steps = torch.from_numpy(rng.randn(len(model.diff.steps), *mean_pp.shape).astype(np.float32))
+    kw = dict(ctx=ctx, variance=var_pp, seg_mask=seg, valid_id=vid, noise=x_t, step_noise=steps,
+              ret_traj=False)
+    if rank == 0:
+        out["decode_ref"] = flat([decode(model, mean_pp, **kw)["pred"]])
+    points = make_mesh(axis_names=("data", "points"), mesh_shape=(1, world))
+    try:
+        decode(model, mean_pp, mesh=points, **kw)
+        out["points_raises"] = np.int64(0)
+    except ValueError:
+        out["points_raises"] = np.int64(1)
+    data = make_mesh(axis_names=("data", "points"), mesh_shape=(world, 1))
+    out["decode_dp"] = flat([decode(model, mean_pp, mesh=data, **kw)["pred"]])
+    batch = tiny_batch(model, seed=11)
+    if rank == 0:
+        total, grads = loss_and_grads(model, batch, False)
+        out["one_total"], out["one_grads"] = flat([total]), flat(grads)
+    total, grads = loss_and_grads(model, batch, False, points)
+    out["sp_total"], out["sp_grads"] = flat([total]), flat(grads)
+    return out
+
+
 SUITES = {"parallel": parallel_suite, "metrics": metrics_suite, "runner": runner_suite,
-          "spare": spare_suite,
+          "spare": spare_suite, "pointctx": pointctx_suite,
           "card": card_suite}
 
 
