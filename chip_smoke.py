@@ -8,8 +8,9 @@ reconstruction and part-level editing on weights read from a reference
 t added to x) with the checkpoint-curve scorer, the JAX package's
 ``.msgpack`` checkpoints, training through two-attention blocks and UNet,
 per-part pretraining, multi-GPU, the GAN, language and mixing runners and
-the point-diffusion model on PointNet++, and AnchorDiffAE's other encoders
-with the anchored generators.
+the point-diffusion model on PointNet++, AnchorDiffAE's other encoders
+with the anchored generators, and the latent editors, the super-segment
+generator, completion and PointFlow.
 
     python3 chip_smoke.py
 
@@ -251,6 +252,34 @@ Phases, each fatal (non-zero exit, no "ok" line):
    prints the phase's seconds, the step times and every card-against-CPU
    reading beside its constant; every kernel's entry in the kernels line
    gains ``launches_slice15``.
+16. The latent editors, the super-segment generator, completion and
+   PointFlow at bench_train_tpu's latent widths (latent 256, 4 parts, 2048
+   points, T = 100), float32 models. ``LatentDiffEdit``'s own chain and
+   ``LDMNet`` sample 256 x 4 x 256 part latents with the edit's 4-token
+   context: with two-attention blocks at inner 256 (200 fused-FF launches at
+   D = 256, T = 1280, the path's launch and the kernel at that shape held
+   against the plain version) and with flat blocks at inner 128 (no launch:
+   the one-block kernel's rule refuses a shape's 5 tokens); a 2-row chain
+   of each and a 128-row chain through the kernel against the CPU. Three
+   steps at batch 32 of ``LatentDiffEdit``, ``PartLatentEditor``,
+   ``ParameterTrainer``, ``Aligner`` and ``PartglotFinetune`` (the loss
+   falling, no launch) and one step of each at batch 8 (the Aligner 16)
+   against the CPU.
+   ``AnchorDiffGenSuperSegments`` (PCN, the latent projection with the
+   learned scale and a GroupNorm'd post-FF, ComponentMixer, PointwiseNet):
+   3 steps, a predict of 64 shapes scored by phase 6's protocol (FPS and
+   EMD launches held), ``get_params``, ``combine_latent``,
+   ``interpolate_latent`` and ``anchor_drift`` (10 magnitudes) on 4 shapes,
+   a step and a 2-shape predict against the CPU. ``PCN`` (8192 points on a
+   4 x 4 grid), ``CoarsePCN`` and ``DiffuCompletion`` (2048 points): each on
+   a ``CroppingDataLoader`` batch of 32 x 8192 (2 FPS launches, 3 with
+   DiffuCompletion's 2048-point target, each held index for index), 3 steps,
+   ``reconstruct`` at batch 32, a step at batch 4 against the CPU.
+   ``PointFlow`` at the JAX class's defaults: a sample of 32 x 2048, 2 steps
+   at batch 16 with the peak memory, a step and a sample against the CPU at
+   8 x 32 and 2 x 32 points. One line prints the phase's seconds, the step
+   times and every card-against-CPU reading; every kernel's entry gains
+   ``launches_slice16``.
 
 The last line is {"ok": true, "device": {...}}.
 """
@@ -2425,18 +2454,18 @@ def p15_protocol(dev, label, gen, refs):
     return dict(metrics=metrics, launches=counts, s=wall, emd_share=emd_share)
 
 
-def p15_steps(dev, label, model, batch_fn, expected):
-    """P15_STEPS steps of ``model`` on one batch with its draws injected:
-    the loss falls, the launches are ``expected``. Returns (losses, ms a
-    step, launches)."""
+def p15_steps(dev, label, model, batch_fn, expected, steps=P15_STEPS, batch=P15_TRAIN_BATCH):
+    """``steps`` steps of ``model`` on one batch of ``batch`` shapes with its
+    draws injected: the loss falls, the launches are ``expected``. Returns
+    (losses, ms a step, launches)."""
     from difffacto_torch.parallel import init_train_state, make_train_step
 
     tx = build_train_optimizer(P15_LR)
     step, state = make_train_step(model, tx), init_train_state(model, tx)
-    data = batch_fn(P15_TRAIN_BATCH, 150, dev)
+    data = batch_fn(batch, 150, dev)
     losses, times = [], []
     mg_counts(zero=True)
-    for i in range(P15_STEPS):
+    for i in range(steps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, met = step(state, data, i, 0)
@@ -2445,20 +2474,20 @@ def p15_steps(dev, label, model, batch_fn, expected):
         if float(met["skipped_nonfinite"]):
             fail(f"{label}: step {i} was skipped as non-finite")
     counts = mg_counts()
-    print(f"{label}, batch {P15_TRAIN_BATCH}, Adam at {P15_LR}: total_loss by step "
+    print(f"{label}, batch {batch}, Adam at {P15_LR}: total_loss by step "
           f"{[round(v, 4) for v in losses]}, the last step's "
           + json.dumps({k: round(float(v), 4) for k, v in met.items() if k.endswith("loss")})
           + f", ms a step {[round(t, 1) for t in times]}, launches {counts}")
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
-        fail(f"{label}: the loss did not fall over {P15_STEPS} steps: {losses}")
+        fail(f"{label}: the loss did not fall over {steps} steps: {losses}")
     if counts != expected:
         fail(f"{label} launched {counts}, expected {expected}")
     return losses, float(np.median(times[1:])), counts
 
 
-def p15_step_against_cpu(dev, label, build, batch_fn):
-    """One float32 step at P15_CHECK_STEP shapes of the model ``build(where)``
-    on the card and on the CPU, every draw injected (hold_updates)."""
+def p15_step_against_cpu(dev, label, build, batch_fn, batch=P15_CHECK_STEP):
+    """One float32 step at ``batch`` shapes of the model ``build(where)`` on
+    the card and on the CPU, every draw injected (hold_updates)."""
     from difffacto_torch.parallel import init_train_state, make_train_step
 
     runs, gnorms = {}, {}
@@ -2468,12 +2497,12 @@ def p15_step_against_cpu(dev, label, build, batch_fn):
         s, st = make_train_step(m, tx), init_train_state(m, tx)
 
         def one(s=s, st=st, where=where, key=key):
-            met = s(st, batch_fn(P15_CHECK_STEP, 151, where), 0, 0)[1]
+            met = s(st, batch_fn(batch, 151, where), 0, 0)[1]
             gnorms[key] = float(met["grad_norm"])
             return {"total_loss": met["total_loss"]}
         runs[key] = step_on([m], one)
         del m
-    return hold_updates(f"{label}, one step at batch {P15_CHECK_STEP}", runs["card"], runs["cpu"],
+    return hold_updates(f"{label}, one step at batch {batch}", runs["card"], runs["cpu"],
                         (gnorms["card"], gnorms["cpu"]))
 
 
@@ -2717,6 +2746,484 @@ def phase15(dev, noise_scale, refs):
                         ("grad_norm_rel", "P14_GNORM_RTOL"), ("rel_l2", "P14_PREDICT_REL_L2"))},
         "launches": out["launches"]}))
     print(f"phase 15: {out['s']:.1f} s")
+    return out
+
+
+# Phase 16: the latent editors, the super-segment generator, completion and
+# PointFlow at the flagship's latent widths: latent 256, 4 parts, 2048
+# points, T = 100, bench_train_tpu's model (no shipped config uses these
+# models). (a) LatentDiffEdit's own chain and LDMNet sample (256, 4, 256)
+# part latents with its ctx of 4 tokens (distractor latents and text):
+# two-attention blocks at inner 256 (8 x 32, one fused-FF launch a block a
+# step at T = 256 x 5) and the flat layout at inner 128 (8 x 16: the
+# one-block kernel's rule tiles a shape's 5 tokens, which pick_tile refuses,
+# as in the JAX package: no launch); LDMNet's proj_out starts at zero, so
+# the sampling paths give it seeded weights (p16_ldm_build) or the chain
+# would read none of the blocks. (b) P15_STEPS steps at P15_TRAIN_BATCH
+# of each editor model and one step at P15_CHECK_STEP against the CPU.
+# (c) AnchorDiffGenSuperSegments (PCN, the latent projection with the
+# learned scale and a GroupNorm'd post-FF, ComponentMixer, PointwiseNet):
+# steps, a predict of P15_SHAPES shapes scored by phase 6's protocol, its
+# other methods on P16_METHOD_SHAPES shapes. (d) PCN, CoarsePCN and
+# DiffuCompletion on CroppingDataLoader batches (ShapeNet-55's crop of
+# 8192-point clouds: 2 FPS launches a batch, and for DiffuCompletion's
+# 2048-point target a third). (e) PointFlow at the JAX class's defaults:
+# sample, P16_FLOW_STEPS steps at P16_FLOW_BATCH (PERF.md reckons the bytes
+# of a batch: each RK4 step is recomputed in the backward, so one step's
+# tangents and activations are live at a time). Card against CPU: the
+# fused FF's launch and a P16_CHAIN_CHECK-row chain through it within
+# E2E_REL_L2 (bf16 operands against float32); everything else float32 on
+# both sides with no inexact kernel, at phase 14's P14_* constants.
+P16_T, P16_TEXT, P16_LDM_DEPTH = 100, 64, 2
+P16_SAMPLE_BATCH, P16_CHAIN_CHECK, P16_CHECK = 256, 128, 2
+P16_METHOD_SHAPES, P16_DRIFT, P16_INTERP_STEPS = 4, 10, 10
+P16_CROP_BATCH, P16_COMPLETION_CHECK = 32, 4
+# The Aligner's step against the CPU takes 16 shapes: its encoder head's
+# BatchNorm over 8 rows leaves float32 itself (CPU against float64 on the
+# CPU) 9.1e-4 off in the gradient norm and 5.2e-3 in the update, next to
+# P14_GNORM_RTOL and P14_UPDATE_REL (an H100 read 9.09e-4 and 5.16e-3
+# against the CPU there); over 16 rows 2.2e-6 and 9.5e-5.
+P16_ALIGNER_CHECK = 16
+P16_FLOW_BATCH, P16_FLOW_STEPS, P16_FLOW_SAMPLE = 16, 2, 32
+# PointFlow's step against the CPU: 4 shapes (its heads' BatchNorm) of 128
+# points (its CPU cost grows with the points: 240 ODE evaluations a step)
+P16_FLOW_CHECK_BATCH, P16_FLOW_CHECK_POINTS = 4, 128
+P16_PLE = dict(type="PartLatentEditor", language_encoder=dict(type="LSTM", text_dim=P16_TEXT),
+               latent_language_fuser=dict(type="LatentLanguageFuser", text_dim=P16_TEXT,
+                                          part_dim=256),
+               pcd_encoder=dict(type="PointNet", zdim=256, point_dim=7), num_part_latent=4,
+               text_dim=P16_TEXT, out_dim=256)
+P16_ALIGNER = dict(type="Aligner", encoder=dict(type="PointNet", zdim=256, point_dim=7),
+                   n_class=4)
+P16_FINETUNE = dict(type="PartglotFinetune", editor=P16_PLE, num_part=4)
+P16_SUPSEG = dict(
+    type="AnchorDiffGenSuperSegments", encoder=dict(type="PCN", point_dim=7, part_latent_dim=256),
+    decomposer=dict(type="ComponentMixer", part_latent_dim=256, include_attention=True,
+                    include_global_feature=True),
+    diffusion=P15_DIFF, sampler=dict(type="Uniform"), num_anchors=4, num_timesteps=P16_T,
+    npoints=2048, part_dim=256, project_latent=True, learn_var=True, post_ff=True)
+P16_PCN = dict(type="PCN", num_pred=8192, encoder_channel=1024, grid_size=4)
+P16_COARSE = dict(type="CoarsePCN", num_anchors=448, encoder_channel=1024)
+P16_DC = dict(type="DiffuCompletion",
+              diffusion=dict(type="PointDiffusion",
+                             net=dict(type="PointwiseNet", point_dim=3, context_dim=512),
+                             beta_1=1e-4, beta_T=0.02),
+              sampler=dict(type="Uniform"), num_timesteps=P16_T, encoder_channel=512,
+              npoints=2048)
+P16_FLOW = dict(type="PointFlow", encoder=dict(type="PointNetV2", zdim=128, point_dim=3),
+                point_cnf=dict(dims=(256, 256, 256), steps=20),
+                latent_cnf=dict(dims=(256, 256), steps=10),
+                part_aligner=dict(type="PartAlignerTransformer", in_channels=128,
+                                  out_channels=6, n_class=4, n_heads=8, d_head=32, depth=2,
+                                  single_attn=True, class_cond=True, add_class_cond=True),
+                zdim=128, n_class=4)
+
+
+def p16_ldm_cfg(single_attn):
+    """LatentDiffEdit on PointNet codes with an LDMNet of P16_LDM_DEPTH
+    blocks: two-attention at inner 256 (8 x 32) or flat at 128 (8 x 16)."""
+    net = dict(type="LDMNet", in_channels=256, out_channels=256, n_heads=8,
+               d_head=16 if single_attn else 32, depth=P16_LDM_DEPTH,
+               context_dim=256 + P16_TEXT, n_class=4, single_attn=single_attn)
+    return dict(type="LatentDiffEdit", encoder=dict(type="PointNet", zdim=256, point_dim=7),
+                diffusion=dict(type="LDM", net=net, beta_1=1e-4, beta_T=0.02),
+                sampler=dict(type="Uniform"),
+                language_encoder=dict(type="LSTM", text_dim=P16_TEXT), num_anchors=4,
+                num_timesteps=P16_T)
+
+
+def p16_ldm_build(cfg, where):
+    """The editor of ``cfg`` with its LDMNet's zero-initialised proj_out
+    given N(0, 0.05^2) weights from a seeded CPU generator (the same on the
+    card and the CPU), so that a chain reads what the blocks compute."""
+    model = p15_build(cfg, where)
+    kernel = model.net.proj_out.kernel
+    with torch.no_grad():
+        kernel.copy_(0.05 * torch.randn(kernel.shape, generator=torch.Generator().manual_seed(16)))
+    return model
+
+
+def p16_pt_cfg():
+    """ParameterTrainer on bench_train_tpu's part encoder."""
+    from difffacto_torch import Config
+
+    enc = Config(os.path.join(ROOT, RUNNER_CONFIG)).model.dump()["encoder"]
+    return dict(type="ParameterTrainer", encoder=enc, num_anchors=4, npoints=2048)
+
+
+def p16_lang_batch(B, seed, where):
+    """The target and distractor clouds of SyntheticLanguagePart's triplets
+    with their part maps, the prompt and the part it names, and the editors'
+    draws injected: the LSTM's dropout keep mask, t and the chain's noise."""
+    from difffacto_torch.data import SyntheticLanguagePart
+
+    loader, _ = SyntheticLanguagePart(batch_size=B, npoints=2048, size=B, shuffle=False)
+    b = next(iter(loader))
+    rng = np.random.RandomState(seed)
+    out = dict(target=b["input"][:, 0], distractor=b["input"][:, 2],
+               target_attn_map=b["attn_map"][:, 0], distractor_attn_map=b["attn_map"][:, 2],
+               part_indicator=b["part_indicator"], text=b["text"],
+               text_keep=rng.rand(B, b["text"].shape[1], 100) >= 0.5,
+               diffusion_t=rng.randint(0, P16_T, (B,)).astype(np.int64),
+               diffusion_noise=rng.randn(B, 4, 256).astype(np.float32))
+    return {k: torch.as_tensor(np.ascontiguousarray(v), device=where) for k, v in out.items()}
+
+
+def p16_cloud_batch(B, seed, where):
+    """p15_cloud_batch with the part code's draw and the projection's
+    dropout keep mask injected too."""
+    out = p15_cloud_batch(B, seed, where)
+    rng = np.random.RandomState(seed + 1)
+    out["part_code_eps"] = torch.as_tensor(rng.randn(B, 4, 256).astype(np.float32), device=where)
+    out["projection_keep"] = torch.as_tensor(rng.rand(B, 4, 256) >= 0.2, device=where)
+    return out
+
+
+def p16_flow_batch(B, seed, where, points=2048):
+    """A SyntheticPart batch of ``points`` points with PointFlow's posterior
+    draw injected."""
+    from difffacto_torch.data import SyntheticPart
+    from difffacto_torch.runner.runner import device_batch
+
+    loader, _ = SyntheticPart(batch_size=B, npoints=points, size=B, shuffle=False)
+    out = device_batch(next(iter(loader)), where)
+    eps = np.random.RandomState(seed).randn(B, 4, 128).astype(np.float32)
+    out["latent_eps"] = torch.as_tensor(eps, device=where)
+    return out
+
+
+def p16_sum(*counts):
+    return {k: sum(c[k] for c in counts) for k in counts[0]}
+
+
+def p16_timed(dev, fn):
+    """(fn(), seconds, launches) with the counts set to 0 just before."""
+    mg_counts(zero=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, mg_counts()
+
+
+def p16_ctx(model, b):
+    """The edit's context: the distractor's part latents and the text
+    feature on each of the 4 part tokens, (B, 4, 256 + P16_TEXT)."""
+    codes = model.encode_pair(b["target"], b["distractor"], b["target_attn_map"],
+                              b["distractor_attn_map"])
+    tfeat = model.language_enc(b["text"])[0]
+    B = codes.shape[0]
+    return torch.cat([codes[:, 1], tfeat[:, None].expand(B, 4, tfeat.shape[-1])], dim=-1)
+
+
+def p16_sample(model, ctx, **kw):
+    """LatentDiffEdit's chain and net over part latents from zero anchors."""
+    anchors = torch.zeros(ctx.shape[0], 4, 256, device=ctx.device)
+    return model.diff.p_sample_loop(lambda i, ts, c, *a: model.net(i, ts, c, *a), anchors,
+                                    ctx=ctx, **kw)["pred"]
+
+
+def hold_ff_path(rec, label):
+    """Fail unless each fused-FF launch the path made agrees with its plain
+    version: the kernel at the launch's (T, D) on |4|-scale operands by
+    hold_bf16, and the launch itself by hold_bf16's tolerances scaled with
+    its largest output over 4 (bf16's rounding grows with the magnitude).
+    Returns the largest difference."""
+    from difffacto_torch.ops import fused_ff as ff
+
+    err = 0.0
+    for (T, D), (args, _, out) in rec.launches("fused_ln_geglu_ff", label):
+        with torch.inference_mode():
+            ops = ff_operands(D, T, out.device, seed=T)
+            err = max(err, hold_bf16(f"fused_ff at {label}'s T={T} D={D} on |4|-scale operands",
+                                     ff.fused_ln_geglu_ff(*ops),
+                                     ff.fused_ln_geglu_ff_reference(*ops)))
+            want = ff.fused_ln_geglu_ff_reference(*args).float()
+        diff = (out.float() - want).abs()
+        scale = max(1.0, want.abs().max().item() / 4.0)
+        print(f"fused_ff as {label} launched it, T={T} D={D}: max abs err "
+              f"{diff.max().item():.4e} (tol {KERNEL_MAX_ABS * scale:.4g}), mean "
+              f"{diff.mean().item():.4e} (tol {KERNEL_MEAN_ABS * scale:.4g}), largest |output| "
+              f"{want.abs().max().item():.4g}")
+        if (not torch.isfinite(out.float()).all() or diff.max().item() > KERNEL_MAX_ABS * scale
+                or diff.mean().item() > KERNEL_MEAN_ABS * scale):
+            fail(f"fused_ff as {label} launched it disagrees with its plain version")
+        err = max(err, diff.max().item())
+    return err
+
+
+def p16_ldm(dev):
+    """(a): LDMNet sampling in both block layouts; the fused FF's launches
+    held; a P16_CHECK-row chain (no kernel on either side) and, through the
+    kernel, a P16_CHAIN_CHECK-row chain against the CPU."""
+    from difffacto_torch.nn import layers
+
+    out, launches = {}, []
+    lang = p16_lang_batch(P16_SAMPLE_BATCH, 160, dev)
+    for single in (False, True):
+        label = "LDMNet, flat blocks (inner 128)" if single else \
+            "LDMNet, two-attention blocks (inner 256)"
+        cfg = p16_ldm_cfg(single)
+        model = p16_ldm_build(cfg, dev)
+        with torch.inference_mode():
+            ctx = p16_ctx(model, lang)
+        rec = KernelRecorder((layers, "fused_ln_geglu_ff"))
+        gen = torch.Generator(device=dev).manual_seed(16)
+
+        def run():
+            with rec, torch.inference_mode():
+                return p16_sample(model, ctx, generator=gen)
+        pred, secs, counts = p16_timed(dev, run)
+        expected = only() if single else only(fused_ff=P16_T * P16_LDM_DEPTH)
+        print(f"{label}: {P16_SAMPLE_BATCH} x 4 x 256 latents, T = {P16_T}: {secs:.2f} s, "
+              f"launches {counts}")
+        if counts != expected or tuple(pred.shape) != (P16_SAMPLE_BATCH, 4, 256) or \
+                not torch.isfinite(pred).all():
+            fail(f"{label} launched {counts} (expected {expected}) or gave non-finite latents")
+        launches.append(counts)
+        res = dict(s=secs, launches=counts)
+        if not single:
+            res["ff_err"] = hold_ff_path(rec, label)
+        checks = [(P16_CHECK, P14_PREDICT_REL_L2)] + ([] if single else
+                                                    [(P16_CHAIN_CHECK, E2E_REL_L2)])
+        for rows, tol in checks:
+            rng = np.random.RandomState(161 + rows)
+            draws = dict(noise=rng.randn(rows, 4, 256), step_noise=rng.randn(P16_T, rows, 4, 256))
+            runs = {}
+            for key, where in (("card", dev), ("cpu", "cpu")):
+                m = model if key == "card" else p16_ldm_build(cfg, "cpu")
+                d = {k: torch.as_tensor(v, dtype=torch.float32, device=where)
+                     for k, v in draws.items()}
+                with torch.inference_mode():
+                    runs[key] = p16_sample(m, ctx[:rows].to(where), **d)
+            res[f"rel_l2_{rows}_rows"] = p15_rel(f"{label}, a {rows}-row chain", runs["card"],
+                                                 runs["cpu"], tol)
+        out["flat" if single else "two_attn"] = res
+        del model, rec
+        torch.cuda.empty_cache()
+    out["launches"] = p16_sum(*launches)
+    return out
+
+
+def p16_editors(dev):
+    """(b): each editor model's steps and its step against the CPU."""
+    out, launches = {}, []
+    runs = (("LatentDiffEdit", p16_ldm_cfg(False), p16_lang_batch, P15_CHECK_STEP),
+            ("PartLatentEditor", P16_PLE, p16_lang_batch, P15_CHECK_STEP),
+            ("ParameterTrainer", p16_pt_cfg(), p16_cloud_batch, P15_CHECK_STEP),
+            ("Aligner", P16_ALIGNER, p16_cloud_batch, P16_ALIGNER_CHECK),
+            ("PartglotFinetune", P16_FINETUNE, p16_lang_batch, P15_CHECK_STEP))
+    for name, cfg, batch_fn, check in runs:
+        model = p15_build(cfg, dev)
+        losses, step_ms, counts = p15_steps(dev, name, model, batch_fn, only())
+        del model
+        torch.cuda.empty_cache()
+        held = p15_step_against_cpu(dev, name, lambda w, cfg=cfg: p15_build(cfg, w), batch_fn,
+                                    batch=check)
+        out[name] = dict(losses=losses, step_ms=step_ms, **held)
+        launches.append(counts)
+    out["launches"] = p16_sum(*launches)
+    return out
+
+
+def p16_supseg(dev, refs):
+    """(c): AnchorDiffGenSuperSegments' steps, predict scored by the
+    protocol, get_params, combine_latent, interpolate_latent and
+    anchor_drift; a step and a predict of P16_CHECK shapes against the CPU."""
+    label = "AnchorDiffGenSuperSegments"
+    model = p15_build(P16_SUPSEG, dev)
+    losses, step_ms, train_counts = p15_steps(dev, label, model, p16_cloud_batch, only())
+    batch = p16_cloud_batch(P15_SHAPES, 162, dev)
+    gen = torch.Generator(device=dev).manual_seed(16)
+    pred, predict_s, counts = p16_timed(dev, lambda: model.predict(batch, gen)["pred"])
+    print(f"{label}.predict, {P15_SHAPES} shapes: {predict_s:.2f} s, launches {counts}")
+    if counts != only() or tuple(pred.shape) != (P15_SHAPES, 2048, 3) or \
+            not torch.isfinite(pred).all():
+        fail(f"{label}.predict launched {counts} or gave non-finite samples")
+    scored = p15_protocol(dev, f"{label}'s samples", pred.float().cpu().numpy(), refs)
+    M = P16_METHOD_SHAPES
+    few = {k: v[:M] for k, v in batch.items()
+           if torch.is_tensor(v) and v.ndim and v.shape[0] == P15_SHAPES}
+    methods = (("get_params", lambda: model.get_params(few)[0], (M, 4, 3)),
+               ("combine_latent", lambda: model.combine_latent(few, [3, 0, 2, 1], gen)["pred"],
+                (1, 2048, 3)),
+               ("interpolate_latent", lambda: model.interpolate_latent(
+                   few, 0, 1, 2, P16_INTERP_STEPS, gen)["pred"], (P16_INTERP_STEPS, 2048, 3)),
+               ("anchor_drift", lambda: model.anchor_drift(few, P16_DRIFT, generator=gen)["pred"],
+                (M, P16_DRIFT, 2048, 3)))
+    times = {}
+    for name, fn, shape in methods:
+        with torch.inference_mode():
+            got, times[name], c = p16_timed(dev, fn)
+        print(f"{label}.{name} on {M} shapes: {times[name]:.2f} s, launches {c}, "
+              f"{tuple(got.shape)}")
+        if c != only() or tuple(got.shape) != shape or not torch.isfinite(got).all():
+            fail(f"{label}.{name} launched {c} or gave {tuple(got.shape)} non-finite values")
+    del model
+    torch.cuda.empty_cache()
+    held = p15_step_against_cpu(dev, label, lambda w: p15_build(P16_SUPSEG, w), p16_cloud_batch)
+    rng = np.random.RandomState(163)
+    draws = dict(noise=rng.randn(P16_CHECK, 2048, 3),
+                 step_noise=rng.randn(P16_T, P16_CHECK, 2048, 3))
+    preds = {}
+    for key, where in (("card", dev), ("cpu", "cpu")):
+        m = p15_build(P16_SUPSEG, where)
+        d = {k: torch.as_tensor(v, dtype=torch.float32, device=where) for k, v in draws.items()}
+        preds[key] = m.predict({k: v[:P16_CHECK].to(where) for k, v in few.items()}, **d)["pred"]
+        del m
+    rel = p15_rel(f"{label}.predict, {P16_CHECK} shapes", preds["card"], preds["cpu"],
+                  P14_PREDICT_REL_L2)
+    return dict(launches=p16_sum(train_counts, counts, scored["launches"]), losses=losses,
+                step_ms=step_ms, predict_s=predict_s, rel_l2=rel, scored=scored,
+                **{f"{k}_s": v for k, v in times.items()}, **held)
+
+
+def p16_crop_batch(dev, seed, gt_points=None):
+    """One CroppingDataLoader batch of P16_CROP_BATCH SyntheticPart clouds
+    of CROP_POINTS points at CROP_RANGE: (whole clouds, partial clouds of
+    2048 points, and with ``gt_points`` the whole clouds' FPS to that many),
+    each FPS launch held index for index against the plain version;
+    returns the launches and seconds too."""
+    from difffacto_torch.data import CroppingDataLoader, SyntheticPart
+    from difffacto_torch.ops import fps as fpsm
+    from difffacto_torch.ops import points
+
+    loader, _ = SyntheticPart(batch_size=P16_CROP_BATCH, npoints=CROP_POINTS,
+                              size=P16_CROP_BATCH, shuffle=False)
+    crop = CroppingDataLoader(loader, crop=CROP_RANGE, seed=seed, device=dev)
+    rec = KernelRecorder((points, "furthest_point_sample"))
+
+    def run():
+        with rec:
+            b = next(iter(crop))
+            full = torch.as_tensor(b["input"], device=dev)
+            gt = points.fps(full, gt_points) if gt_points else full
+        return full, b["partial"], gt
+    (full, partial, gt), secs, counts = p16_timed(dev, run)
+    want = only(fps=3 if gt_points else 2)
+    if counts != want or tuple(partial.shape) != (P16_CROP_BATCH, 2048, 3):
+        fail(f"a cropping batch launched {counts} (expected {want}) or gave a partial cloud of "
+             f"{tuple(partial.shape)}")
+    for (B, N), (args, _, got) in rec.launches("furthest_point_sample", "the cropping batch"):
+        if not torch.equal(got, fpsm.furthest_point_sample_reference(*args)):
+            fail(f"FPS as the cropping batch launched it, {B} x {N}, chose other points than its "
+                 "plain version")
+    return full, partial, gt, counts, secs
+
+
+def p16_completion(dev):
+    """(d): PCN, CoarsePCN and DiffuCompletion: steps on a cropping batch
+    each, DiffuCompletion's reconstruct, a step of each against the CPU."""
+    out, launches = {}, []
+    for name, cfg in (("PCN", P16_PCN), ("CoarsePCN", P16_COARSE), ("DiffuCompletion", P16_DC)):
+        dc = name == "DiffuCompletion"
+        full, partial, gt, counts, crop_s = p16_crop_batch(dev, 16, 2048 if dc else None)
+        launches.append(counts)
+
+        def batch_fn(B, seed, where, gt=gt, partial=partial, dc=dc):
+            b = {"ref": gt[:B].to(where), "input": partial[:B].to(where)}
+            if dc:
+                rng = np.random.RandomState(seed)
+                b["diffusion_t"] = torch.as_tensor(rng.randint(0, P16_T, (B,)), device=where)
+                b["diffusion_noise"] = torch.as_tensor(rng.randn(B, 2048, 3).astype(np.float32),
+                                                       device=where)
+            return b
+        model = p15_build(cfg, dev)
+        losses, step_ms, c = p15_steps(dev, name, model, batch_fn, only(), batch=P16_CROP_BATCH)
+        launches.append(c)
+        res = dict(losses=losses, step_ms=step_ms, crop_s=crop_s)
+        if dc:
+            gen = torch.Generator(device=dev).manual_seed(16)
+            pred, res["reconstruct_s"], c = p16_timed(
+                dev, lambda: model.reconstruct({"ref": gt, "input": partial}, gen)["pred"])
+            print(f"DiffuCompletion.reconstruct, {P16_CROP_BATCH} partial clouds: "
+                  f"{res['reconstruct_s']:.2f} s, launches {c}")
+            if c != only() or tuple(pred.shape) != (P16_CROP_BATCH, 2048, 3) or \
+                    not torch.isfinite(pred).all():
+                fail(f"DiffuCompletion.reconstruct launched {c} or gave non-finite clouds")
+        del model
+        torch.cuda.empty_cache()
+        res.update(p15_step_against_cpu(dev, name, lambda w, cfg=cfg: p15_build(cfg, w), batch_fn,
+                                        batch=P16_COMPLETION_CHECK))
+        out[name] = res
+    out["launches"] = p16_sum(*launches)
+    return out
+
+
+def p16_pointflow(dev):
+    """(e): PointFlow's sample and steps at the JAX class's defaults, peak
+    memory; a step and a sample against the CPU at a small size."""
+    model = p15_build(P16_FLOW, dev)
+    gen = torch.Generator(device=dev).manual_seed(16)
+    (z, pts), sample_s, counts = p16_timed(dev, lambda: model.sample(P16_FLOW_SAMPLE, 2048,
+                                                                      generator=gen))
+    print(f"PointFlow.sample, {P16_FLOW_SAMPLE} x 2048: {sample_s:.2f} s, launches {counts}")
+    if counts != only() or tuple(pts.shape) != (P16_FLOW_SAMPLE, 2048, 3) or \
+            not torch.isfinite(pts).all():
+        fail(f"PointFlow.sample launched {counts} or gave non-finite points")
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms, train_counts = p15_steps(dev, "PointFlow", model, p16_flow_batch, only(),
+                                              steps=P16_FLOW_STEPS, batch=P16_FLOW_BATCH)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"PointFlow training at batch {P16_FLOW_BATCH} x 2048: peak {peak:.2f} GiB")
+    del model
+    torch.cuda.empty_cache()
+    small = lambda B, seed, where: p16_flow_batch(B, seed, where, P16_FLOW_CHECK_POINTS)  # noqa: E731
+    held = p15_step_against_cpu(dev, "PointFlow", lambda w: p15_build(P16_FLOW, w), small,
+                                batch=P16_FLOW_CHECK_BATCH)
+    rng = np.random.RandomState(164)
+    draws = dict(w=rng.randn(P16_CHECK, 4, 128), y=rng.randn(P16_CHECK, P16_FLOW_CHECK_POINTS, 3))
+    runs = {}
+    for key, where in (("card", dev), ("cpu", "cpu")):
+        m = p15_build(P16_FLOW, where)
+        d = {k: torch.as_tensor(v, dtype=torch.float32, device=where) for k, v in draws.items()}
+        runs[key] = m.sample(P16_CHECK, P16_FLOW_CHECK_POINTS, **d)[1]
+        del m
+    rel = p15_rel(f"PointFlow.sample, {P16_CHECK} x {P16_FLOW_CHECK_POINTS}", runs["card"],
+                  runs["cpu"], P14_PREDICT_REL_L2)
+    return dict(launches=p16_sum(counts, train_counts), sample_s=sample_s, losses=losses,
+                step_ms=step_ms, peak_gib=peak, rel_l2=rel, **held)
+
+
+def phase16(dev, refs):
+    """Phase 16: the latent editors, the super-segment generator, completion
+    and PointFlow; returns each path's numbers and the launches of the whole
+    phase."""
+    t_phase = time.perf_counter()
+    out = {"ldm": p16_ldm(dev), "editors": p16_editors(dev), "supseg": p16_supseg(dev, refs),
+           "completion": p16_completion(dev), "pointflow": p16_pointflow(dev)}
+    paths = list(out)
+    out["launches"] = p16_sum(*(out[p]["launches"] for p in paths))
+    out["s"] = time.perf_counter() - t_phase
+    held = {f"{p}.{m}_{k}": out[p][m][k] for p, names in (
+        ("editors", ("LatentDiffEdit", "PartLatentEditor", "ParameterTrainer", "Aligner",
+                     "PartglotFinetune")),
+        ("completion", ("PCN", "CoarsePCN", "DiffuCompletion")))
+        for m in names for k in ("loss_rel", "update_rel", "grad_norm_rel")}
+    held.update({f"{p}_{k}": out[p][k] for p in ("supseg", "pointflow")
+                 for k in ("loss_rel", "update_rel", "grad_norm_rel", "rel_l2")})
+    print("phase 16 readings: " + json.dumps({
+        "seconds": round(out["s"], 1),
+        "ldm_two_attn_s": out["ldm"]["two_attn"]["s"], "ldm_flat_s": out["ldm"]["flat"]["s"],
+        "ldm_rel_l2": {k: v for layout in ("two_attn", "flat")
+                       for k, v in out["ldm"][layout].items() if k.startswith("rel_l2")},
+        "ldm_ff_err": out["ldm"]["two_attn"]["ff_err"],
+        "editor_step_ms": {m: out["editors"][m]["step_ms"] for m in out["editors"]
+                           if m != "launches"},
+        "supseg_step_ms": out["supseg"]["step_ms"], "supseg_predict_s": out["supseg"]["predict_s"],
+        "supseg_metrics": out["supseg"]["scored"]["metrics"],
+        "completion_step_ms": {m: out["completion"][m]["step_ms"] for m in out["completion"]
+                               if m != "launches"},
+        "diffu_completion_reconstruct_s": out["completion"]["DiffuCompletion"]["reconstruct_s"],
+        "pointflow_sample_s": out["pointflow"]["sample_s"],
+        "pointflow_step_ms": out["pointflow"]["step_ms"],
+        "pointflow_peak_gib": out["pointflow"]["peak_gib"],
+        "held_against_cpu": held, "tolerances": dict(
+            P14_LOSS_RTOL=P14_LOSS_RTOL, P14_UPDATE_REL=P14_UPDATE_REL,
+            P14_GNORM_RTOL=P14_GNORM_RTOL, P14_PREDICT_REL_L2=P14_PREDICT_REL_L2,
+            E2E_REL_L2=E2E_REL_L2),
+        "launches": {p: out[p]["launches"] for p in paths}}))
+    print(f"phase 16: {out['s']:.1f} s")
     return out
 
 
@@ -3960,6 +4467,13 @@ def main():
     def slice15(name):
         return {"launches_slice15": run15["launches"][name]}
 
+    phase("16 the latent editors, the super-segment generator, completion and PointFlow, "
+          "full width")
+    run16 = phase16(dev, phase6["refs"])
+
+    def slice16(name):
+        return {"launches_slice16": run16["launches"][name]}
+
     print(card)
     trunk["launches_runner"] = on_path["fused_core"]
     trunk["launches_editing"] = editing_launches["fused_core"]
@@ -3979,7 +4493,7 @@ def main():
     trunk["max_abs_err"] = max(trunk["max_abs_err"], run14["gan"]["core_err"],
                                run14["mixing"]["core_err"], run15["td"]["core_err"])
     trunk.update(slice15("fused_core"), slice15_td_generation_s=run15["td"]["gen_s"],
-                 slice15_s=run15["s"])
+                 slice15_s=run15["s"], **slice16("fused_core"), slice16_s=run16["s"])
     headless = {
         "name": "fused_core_headless", "route": "cuda",
         "source": "difffacto_torch/csrc/fused_core.cu",
@@ -3989,6 +4503,7 @@ def main():
         "bound_by": run11["headless_bound_by"], "library_ms": None,
         "launches_multi_gpu": mg_launches["fused_core_headless"],
         **phase14_launches("fused_core_headless"), **slice15("fused_core_headless"),
+        **slice16("fused_core_headless"),
     }
     sa = run14["pointnet2"]
     print(json.dumps({"kernels": [trunk, headless, {
@@ -4007,7 +4522,7 @@ def main():
         **{f"{k}_at_sa_{shape}": v for shape in (f"{n}_to_{m}" for n, m in SA_FPS)
            for k, v in sa[shape].items()},
         "pdm_train_step_ms": run14["pdm"]["step_ms"], "pdm_predict_s": run14["pdm"]["predict_s"],
-        **slice15("fps"),
+        **slice15("fps"), **slice16("fps"),
         **{f"{cls}_{k}": v for cls in ("PointNet2SSG", "PointNet2MSG") for k, v in sa[cls].items()},
     }, {
         "name": "emd_hybrid", "route": "cuda", "source": "difffacto_torch/csrc/emd_hybrid.cu",
@@ -4024,7 +4539,7 @@ def main():
         "launches_editing": editing_launches["emd_hybrid"],
         "launches_msgpack_val_gen": run12["msgpack"]["launches"]["emd_hybrid"],
         "launches_multi_gpu": mg_launches["emd_hybrid"], **phase14_launches("emd_hybrid"),
-        **slice15("emd_hybrid"),
+        **slice15("emd_hybrid"), **slice16("emd_hybrid"),
     }, {
         "name": "fused_trunk_train_fwd", "route": "cuda",
         "source": "difffacto_torch/csrc/fused_core_train.cu",
@@ -4037,6 +4552,7 @@ def main():
         "launches_editing": editing_launches["fused_trunk_train_fwd"],
         "launches_multi_gpu": mg_launches["fused_trunk_train_fwd"],
         **phase14_launches("fused_trunk_train_fwd"), **slice15("fused_trunk_train_fwd"),
+        **slice16("fused_trunk_train_fwd"),
         "slice15_cvae_train_step_ms": run15["td"]["train"]["step_ms"],
     }, {
         "name": "fused_trunk_train_bwd", "route": "cuda",
@@ -4053,6 +4569,7 @@ def main():
         "launches_editing": editing_launches["fused_trunk_train_bwd"],
         "launches_multi_gpu": mg_launches["fused_trunk_train_bwd"],
         **phase14_launches("fused_trunk_train_bwd"), **slice15("fused_trunk_train_bwd"),
+        **slice16("fused_trunk_train_bwd"),
         "runner_epoch_s_first": run9["epoch_s_first"],
         "runner_epoch_s_later": run9["epoch_s_later"],
         "runner_epoch_s_later_min": run9["epoch_s_later_min"],
@@ -4075,12 +4592,13 @@ def main():
         "launches_editing": editing_launches["fused_block"],
         "launches_unet_training": run12["unet"]["launches"]["fused_block"],
         "launches_multi_gpu": mg_launches["fused_block"], **phase14_launches("fused_block"),
-        **slice15("fused_block"),
+        **slice15("fused_block"), **slice16("fused_block"),
         "unet_train_step_ms": run12["unet"]["step_ms"],
     }, {
         "name": "fused_ff", "route": "cuda", "source": "difffacto_torch/csrc/fused_ff.cu",
         "replaces": "difffacto_tpu/ops/fused_ff.py:26", "launches": two_counts["fused_ff"],
-        "max_abs_err": max(ff_err, run10["errs"]["fused_ff"]), "ms": ff_ms,
+        "max_abs_err": max(ff_err, run10["errs"]["fused_ff"], run16["ldm"]["two_attn"]["ff_err"]),
+        "ms": ff_ms,
         "plain_ms": ff_plain_ms, "bound_ms": ff_bound,
         "bound_by": ff_by, "library_ms": None, "ms_at_t1024_d256": ff_ms_256,
         "graph_ms_at_t1024_d256": ff_graph_ms_256,
@@ -4095,7 +4613,7 @@ def main():
         "search_tokens": run10["search_ff"]["tokens"],
         "editing_path_launches_reported": run10["ff_path"],
         "launches_multi_gpu": mg_launches["fused_ff"], **phase14_launches("fused_ff"),
-        **slice15("fused_ff"),
+        **slice15("fused_ff"), **slice16("fused_ff"),
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -30,6 +30,10 @@ And of ``PointwiseNet`` (``denoiser.py:490-530``), the concat-squash MLP that
 per-part pretraining conditions on one part token, with its
 ``ConcatSquashDense`` layers (``:436-446``), and ``PointwiseNet2``
 (``:449-487``), which conditions each point on its own part's token.
+
+And of the latent denoisers over the K part tokens: ``LDMNet``
+(``denoiser.py:312-379``), whose blocks are ``transformer_block``'s, and
+``PointwiseNetLatent`` (``:535-574``), concat-squash with a condition a token.
 """
 
 from __future__ import annotations
@@ -313,6 +317,24 @@ class ConcatSquashDense(nn.Module):
         return self.layer(x) * torch.sigmoid(self.hyper_gate(ctx)) + self.hyper_bias(ctx)
 
 
+def _concat_squash_stack(mod, in_dim, cond_dim, hidden, out_dim, kw):
+    """``mod.cs_0`` .. ``cs_{n-1}`` over ``hidden`` and ``mod.cs_out``, each
+    modulated by a condition ``cond_dim`` wide (the JAX modules' names)."""
+    mod.hidden = tuple(hidden)
+    dims = (in_dim,) + mod.hidden
+    for i, f in enumerate(mod.hidden):
+        setattr(mod, f"cs_{i}", ConcatSquashDense(dims[i], cond_dim, f, **kw))
+    mod.cs_out = ConcatSquashDense(dims[-1], cond_dim, out_dim, **kw)
+
+
+def _concat_squash_run(mod, x, cond):
+    """The stack of ``_concat_squash_stack`` on x, leaky ReLU between layers."""
+    h = x
+    for i in range(len(mod.hidden)):
+        h = F.leaky_relu(getattr(mod, f"cs_{i}")(h, cond), 0.01)
+    return mod.cs_out(h, cond)
+
+
 @NETS.register_module()
 class PointwiseNet(nn.Module):
     """The concat-squash MLP denoiser (``difffacto_tpu/models/denoiser.py:490-530``,
@@ -338,12 +360,8 @@ class PointwiseNet(nn.Module):
         in_dim = in_channels if in_channels is not None else point_dim
         out_dim = out_channels if out_channels is not None else point_dim
         self.residual = res if res is not None else residual
-        self.hidden = tuple(hidden)
-        kw = dict(dtype=dtype, device=device, generator=g)
-        dims = (in_dim,) + self.hidden
-        for i, f in enumerate(self.hidden):
-            setattr(self, f"cs_{i}", ConcatSquashDense(dims[i], context_dim + 3, f, **kw))
-        self.cs_out = ConcatSquashDense(dims[-1], context_dim + 3, out_dim, **kw)
+        _concat_squash_stack(self, in_dim, context_dim + 3, hidden, out_dim,
+                             dict(dtype=dtype, device=device, generator=g))
 
     def forward(self, x, t, ctx, anchors=None, variances=None, seg_mask=None, valid_id=None,
                 train: bool = False, generator=None):
@@ -351,11 +369,7 @@ class PointwiseNet(nn.Module):
             ctx = torch.cat([c if c.ndim == 3 else c[:, None] for c in ctx], dim=-1)
         elif ctx.ndim == 2:
             ctx = ctx[:, None]
-        cond = _time_cond(t, ctx)
-        h = x
-        for i in range(len(self.hidden)):
-            h = F.leaky_relu(getattr(self, f"cs_{i}")(h, cond), 0.01)
-        h = self.cs_out(h, cond)
+        h = _concat_squash_run(self, x, _time_cond(t, ctx))
         return x + h if self.residual and x.shape[-1] == h.shape[-1] else h
 
 
@@ -388,14 +402,11 @@ class PointwiseNet2(nn.Module):
         super().__init__()
         device = resolve_device(device)
         g = default_generator(generator)
-        self.res, self.hidden = res, tuple(hidden)
+        self.res = res
         self.num_anchors, self.include_anchors = num_anchors, include_anchors
         self.gather_layers = tuple(gather_layers)
-        kw = dict(dtype=dtype, device=device, generator=g)
-        dims = (in_channels,) + self.hidden
-        for i, f in enumerate(self.hidden):
-            setattr(self, f"cs_{i}", ConcatSquashDense(dims[i], context_dim + 3, f, **kw))
-        self.cs_out = ConcatSquashDense(dims[-1], context_dim + 3, out_channels, **kw)
+        _concat_squash_stack(self, in_channels, context_dim + 3, hidden, out_channels,
+                             dict(dtype=dtype, device=device, generator=g))
 
     def forward(self, x, t, ctx, anchors=None, variances=None, seg_mask=None, valid_id=None,
                 train: bool = False, generator=None):
@@ -403,9 +414,127 @@ class PointwiseNet2(nn.Module):
 
         if isinstance(ctx, (list, tuple)):
             ctx = torch.cat(list(ctx), dim=-1)
-        cond = _time_cond(t, gather_per_point(ctx, seg_mask))
-        h = x
-        for i in range(len(self.hidden)):
-            h = F.leaky_relu(getattr(self, f"cs_{i}")(h, cond), 0.01)
-        h = self.cs_out(h, cond)
+        h = _concat_squash_run(self, x, _time_cond(t, gather_per_point(ctx, seg_mask)))
         return x + h if self.res and x.shape[-1] == h.shape[-1] else h
+
+
+@NETS.register_module()
+class LDMNet(nn.Module):
+    """The latent denoiser over the K part tokens (``difffacto_tpu/models/denoiser.py:312-379``,
+    the reference's attention.py:443-546).
+
+    forward(x (B, K, in_channels), t (B,), ctx (B, M, context_dim), a list
+    or tuple of them concatenated, or None (the blocks then self-attend),
+    anchors, variances, seg_mask (read nowhere), valid_id (B, K) or None,
+    train, generator). proj_in; the GEGLU ``time_embed`` of the first
+    ``inner`` sinusoid channels of 256 (of ``inner`` where wider) joins as a
+    token in front, its mask entry 1, with ``cond_time_as_token``, else
+    biases every token; ``class_emb`` (n_class, inner) is added to the part
+    tokens with ``class_cond``; pre-LN, ``depth`` blocks, post-LN, the time
+    token dropped, a zero-initialised proj_out. The mask reaches the blocks
+    as the JAX module passes it: a context's attention reads it as a mask
+    over the context's tokens. The blocks are ``transformer_block``'s, so
+    two-attention blocks end in ``FusedLNFF`` (the fused FF kernel where it
+    takes the shape) and the flat layout takes the one-block kernel where
+    ``block_kernel_takes`` the per-shape token count, as the JAX blocks
+    dispatch. ``use_checkpoint`` raises, as in ``TransformerNet``.
+    """
+
+    def __init__(self, in_channels: int, out_channels: int, n_heads: int, d_head: int,
+                 depth: int = 1, dropout: float = 0.0, context_dim=None, n_class: int = 4,
+                 class_cond: bool = False, single_attn: bool = False,
+                 mask_out_unreferenced_code: bool = True, cond_time_as_token: bool = True,
+                 use_checkpoint: bool = False, *, dtype=None, device="cuda", generator=None):
+        super().__init__()
+        device = resolve_device(device)
+        if use_checkpoint:
+            raise NotImplementedError("use_checkpoint=True is not ported (see TransformerNet)")
+        g = default_generator(generator)
+        inner = n_heads * d_head
+        self.inner, self.context_dim, self.class_cond = inner, context_dim, class_cond
+        self.mask_out_unreferenced_code = mask_out_unreferenced_code
+        self.cond_time_as_token = cond_time_as_token
+        kw = dict(dtype=dtype, device=device)
+        self.proj_in = Dense(in_channels, inner, generator=g, **kw)
+        self.time_embed = FeedForward(inner, dropout=dropout, generator=g, **kw)
+        if class_cond:
+            self.class_emb = nn.Parameter(torch.randn(n_class, inner, generator=g).to(device))
+        self.pre_norm = LayerNorm(inner, **kw)
+        self.blocks = nn.ModuleList(
+            transformer_block(inner, n_heads, d_head, context_dim=context_dim, dropout=dropout,
+                              single_attn=single_attn, generator=g, **kw)
+            for _ in range(depth))
+        self.post_norm = LayerNorm(inner, **kw)
+        self.proj_out = Dense(inner, out_channels, zero_kernel=True, generator=g, **kw)
+
+    def forward(self, x, t, ctx=None, anchors=None, variances=None, seg_mask=None,
+                valid_id=None, train: bool = False, generator=None):
+        B = x.shape[0]
+        if isinstance(ctx, (list, tuple)):
+            ctx = torch.cat(list(ctx), dim=-1) if ctx else None
+        if ctx is not None and self.context_dim is None:
+            raise ValueError("LDMNet was built without context_dim; its blocks take no context")
+        h = self.proj_in(x)
+        emb = timestep_embedding(t, 256)[:, : self.inner] if self.inner <= 256 else (
+            timestep_embedding(t, self.inner))
+        t_embed = self.time_embed(emb, train, generator)
+        mask = valid_id if self.mask_out_unreferenced_code else None
+        extra = 0
+        if self.cond_time_as_token:
+            h = torch.cat([t_embed[:, None].to(h.dtype), h], dim=1)
+            extra = 1
+            if mask is not None:
+                mask = torch.cat([torch.ones(B, 1, dtype=mask.dtype, device=mask.device), mask],
+                                 dim=1)
+        else:
+            h = h + t_embed[:, None].to(h.dtype)
+        if self.class_cond:
+            pad = torch.zeros(extra, self.inner, dtype=h.dtype, device=h.device)
+            h = h + torch.cat([pad, self.class_emb.to(h.dtype)], dim=0)[None]
+        h = self.pre_norm(h)
+        for blk in self.blocks:
+            h = blk(h, ctx, mask, train, generator)
+        h = self.post_norm(h)
+        return self.proj_out(h[:, extra:])
+
+
+@NETS.register_module()
+class PointwiseNetLatent(nn.Module):
+    """The concat-squash latent denoiser with a condition a token
+    (``difffacto_tpu/models/denoiser.py:535-574``, the reference's
+    nets/pointwisenet.py:9-59): part token k is modulated by [t, sin t, cos t]
+    ++ prior[k] ++ the code (broadcast over the K tokens, zeroed where
+    ``part_indicator`` is 0 with ``use_part_ind``); leaky ReLU between the
+    ``hidden`` layers, the input added back with ``res``.
+
+    forward(x (B, K, in_channels), t (B,), prior (B, K, P), code (B, F),
+    (B, 1, F), (B, K, F) or None, part_indicator (B, K) or None).
+    ``context_dim`` is the condition's width past the 3 time channels, P
+    (+ F), which flax infers from the call.
+    """
+
+    def __init__(self, in_channels: int = 256, out_channels: int = 256, context_dim: int = 256,
+                 res: bool = True, use_part_ind: bool = False,
+                 hidden=(128, 256, 512, 256, 128), *, dtype=None, device="cuda",
+                 generator=None):
+        super().__init__()
+        device = resolve_device(device)
+        g = default_generator(generator)
+        self.res, self.use_part_ind = res, use_part_ind
+        _concat_squash_stack(self, in_channels, context_dim + 3, hidden, out_channels,
+                             dict(dtype=dtype, device=device, generator=g))
+
+    def forward(self, x, t, prior, code=None, part_indicator=None, train: bool = False,
+                generator=None):
+        B, K = x.shape[:2]
+        ctx = [prior]
+        if code is not None:
+            if code.ndim == 2:
+                code = code[:, None]
+            code = code.expand(B, K, code.shape[-1])
+            if self.use_part_ind and part_indicator is not None:
+                code = code * part_indicator[..., None].to(code.dtype)
+            ctx.append(code)
+        ct = torch.promote_types(prior.dtype, torch.float32)
+        h = _concat_squash_run(self, x, _time_cond(t, torch.cat([c.to(ct) for c in ctx], dim=-1)))
+        return h + x if self.res else h

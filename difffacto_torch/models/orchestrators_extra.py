@@ -38,8 +38,7 @@ from torch import nn
 
 from ..utils.device import randn, resolve_device
 from ..utils.gaussian import gaussian_entropy, reparameterize_gaussian, standard_normal_logprob
-from ..utils.registry import (DECOMPOSERS, ENCODERS, METRICS, MODELS, NETS, SAMPLERS,
-                              build_from_cfg)
+from ..utils.registry import DECOMPOSERS, ENCODERS, MODELS, NETS, SAMPLERS, build_from_cfg
 from . import decomposers, diffusion_extra, pointnet2, supseg_encoders  # noqa: F401  (registers)
 from .anchor_diff import build_diffusion, ensure_attn_maps
 from .part_encoder import gather_per_point
@@ -148,14 +147,16 @@ class _AnchoredBase(nn.Module):
     one context token."""
 
     def _build_chain(self, encoder, decomposer, diffusion, sampler, num_anchors, num_timesteps,
-                     npoints, ret_traj, ret_interval, forward_sample, save_pred_xstart, kw):
+                     npoints, ret_traj, ret_interval, forward_sample, save_pred_xstart, kw,
+                     fixed_variance: bool = True):
         self.encoder, self.num_anchors, self.num_timesteps = dict(encoder), num_anchors, num_timesteps
         self.npoints, self.ret_traj, self.ret_interval = npoints, ret_traj, ret_interval
         self.forward_sample, self.save_pred_xstart = forward_sample, save_pred_xstart
         self.decomposer_mod = build_from_cfg(dict(decomposer), DECOMPOSERS,
                                              num_anchors=num_anchors, point_dim=3, **kw)
         dcfg = dict(diffusion)
-        dcfg["learn_variance"] = False  # forced in the reference constructor
+        if fixed_variance:
+            dcfg["learn_variance"] = False  # forced in the reference constructor
         net = dict(dcfg.pop("net"))
         self.diff = build_diffusion(dcfg, num_timesteps)
         # the chain's model input (x_t, its anchors, its variance) and the latent
@@ -205,9 +206,12 @@ class AnchoredGeneration(_AnchoredBase):
     anchors, part latents), guidance drops latents, and the chain trains on
     the cloud around the per-point anchors. The prior loss's entropy is over
     the latent axis, the evident intent the JAX module keeps of a reference
-    defect (``:137-142``). ``loss`` (the constructor argument) names a
-    ``METRICS`` anchor loss, else the squared error; it is kept as
-    ``anchor_loss_cfg``. ``seed`` fixes the initial weights."""
+    defect (``:137-142``). ``loss`` (the constructor argument) is kept as
+    ``anchor_loss_cfg`` and read nowhere: the anchor loss is the squared
+    error, as in the JAX module, where flax freezes the dict into a
+    ``FrozenDict`` that its ``isinstance(self.loss, dict)`` test
+    (``orchestrators_extra.py``'s setup) never passes, so no ``METRICS``
+    loss is built. ``seed`` fixes the initial weights."""
 
     def __init__(self, encoder: dict, decomposer: dict, parameter_regressor: dict,
                  diffusion: dict, sampler: dict, num_anchors: int, num_timesteps: int,
@@ -231,11 +235,6 @@ class AnchoredGeneration(_AnchoredBase):
         self._build_chain(encoder, decomposer, diffusion, sampler, num_anchors, num_timesteps,
                           npoints, ret_traj, ret_interval, forward_sample, save_pred_xstart, kw)
         self.anchor_loss_cfg = dict(loss) if isinstance(loss, dict) else None
-        self.anchor_loss_func = None
-        if self.anchor_loss_cfg:
-            from ..metrics import common  # noqa: F401  (fills METRICS)
-
-            self.anchor_loss_func = build_from_cfg(dict(self.anchor_loss_cfg), METRICS)
 
     def encode_posterior(self, batch, train: bool = False):
         """The encoder and the regressor: per-part (means, logvars) (B, K, C)."""
@@ -282,8 +281,7 @@ class AnchoredGeneration(_AnchoredBase):
             t, _ = self.t_sampler.sample(sample, B, device=dev)
         latent_pp = gather_per_point(part_latent, seg_mask)
         anchor_pp = gather_per_point(anchors, seg_mask)
-        base_anchor = (self.anchor_loss_func(anchor_pp, ref) if self.anchor_loss_func is not None
-                       else ((anchor_pp - ref) ** 2).sum(-1).mean())
+        base_anchor = ((anchor_pp - ref) ** 2).sum(-1).mean()
         out = dict(self.diff.training_losses(
             self._model_fn(latent_pp, global_feature, train, rngs.get("dropout")), ref, t.long(),
             anchors=anchor_pp, noise=batch.get("diffusion_noise"), generator=sample))

@@ -45,7 +45,11 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                    choices=["train", "val", "val_gen", "interpolation", "mixing"])
     p.add_argument("--runner", default="auto", choices=RUNNERS,
                    help="runner family; 'auto' reads cfg.runner")
-    p.add_argument("--save_dir", default=".", help="accepted as tools/run_net.py accepts it")
+    # accepted and read nowhere, as tools/run_net.py accepts them
+    p.add_argument("--save_dir", default=".")
+    p.add_argument("--sync_bn", action="store_true")
+    p.add_argument("--deterministic", action="store_true")
+    p.add_argument("--param_sample_num", type=int, default=10)
     p.add_argument("--prefix", default="")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--no_eval", action="store_true")

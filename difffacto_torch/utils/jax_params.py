@@ -16,7 +16,7 @@ the mapping is a renaming:
   kernels ``ii`` ... ``ho`` keep flax's names);
 * the super-segment encoders' ``_TwoStage_0`` -> ``two_stage``,
   ``PartglotSupSegsEncoderBase_0`` -> ``base``, ``ConditionalBatchNorm1d_{k}``
-  -> ``cbn{k}``;
+  -> ``cbn{k}``, the completion models' ``PCNEncoder_0`` -> ``pcn_encoder``;
 * the per-part flow parameters come stacked on a leading part axis
   (``flow/flows/chain_{j}/Dense_{k}/kernel`` is (4, in, out)) and split into
   ``flow.flows.{p}``; the per-part PointNetV2 heads stay stacked, as the port
@@ -61,6 +61,7 @@ _RENAMES = (
     (re.compile(r"^_TwoStage_0$"), "two_stage"),
     (re.compile(r"^PartglotSupSegsEncoderBase_0$"), "base"),
     (re.compile(r"^ConditionalBatchNorm1d_(\d+)$"), r"cbn\1"),
+    (re.compile(r"^PCNEncoder_0$"), "pcn_encoder"),
 )
 
 
@@ -77,6 +78,7 @@ _INVERSE = (
     (re.compile(r"^two_stage$"), lambda m: ["_TwoStage_0"]),
     (re.compile(r"^base$"), lambda m: ["PartglotSupSegsEncoderBase_0"]),
     (re.compile(r"^cbn(\d+)$"), lambda m: ["ConditionalBatchNorm1d_" + m.group(1)]),
+    (re.compile(r"^pcn_encoder$"), lambda m: ["PCNEncoder_0"]),
 )
 
 

@@ -906,3 +906,79 @@ def test_anchored_generation_predict_on_the_card_matches_the_cpu(cuda):
     card, cpu = preds["cuda"], preds["cpu"]
     assert card.shape == (2, 256, 3) and torch.isfinite(card).all()
     assert ((card - cpu).norm() / cpu.norm()).item() < 1e-4
+
+
+@pytest.mark.gpu
+def test_ldmnet_chain_with_the_fused_ff_on_the_card_matches_the_cpu(cuda):
+    """``LDMNet`` with two-attention blocks at inner width 256 (8 heads of
+    32) in the ``LDM`` chain over (256, 4, 256) part latents with a 4-token
+    context, as ``LatentDiffEdit`` samples: each block's FF is one fused-FF
+    launch at D = 256 over 256 x 5 tokens on the card, its plain version
+    on the CPU (float32 models, the kernel's operands bf16). x_T and the
+    step draws injected; within 5e-3 relative L2 (chip_smoke.py's
+    E2E_REL_L2)."""
+    from difffacto_torch.models import build_diffusion
+    from difffacto_torch.models.denoiser import LDMNet
+
+    B, K, C, T, depth = 256, 4, 256, 10, 2
+    diffusion = dict(type="LDM", beta_1=1e-4, beta_T=0.02)
+    rng = np.random.RandomState(2)
+    ctx = rng.randn(B, K, C + 64).astype(np.float32)
+    x_T, steps = rng.randn(B, K, C), rng.randn(T, B, K, C)
+    preds = {}
+    for where in (cuda, "cpu"):
+        net = LDMNet(C, C, n_heads=8, d_head=32, depth=depth, context_dim=C + 64, n_class=K,
+                     device=where, generator=torch.Generator().manual_seed(3))
+        with torch.no_grad():  # proj_out starts at zero
+            net.proj_out.kernel.copy_(0.05 * torch.randn(
+                C, C, generator=torch.Generator().manual_seed(4)))
+        chain = build_diffusion(diffusion, T)
+        put = lambda a: torch.as_tensor(a, dtype=torch.float32, device=where)  # noqa: E731
+        before = ff.launches
+        with torch.inference_mode():
+            out = chain.p_sample_loop(lambda i, ts, c, *a: net(i, ts, c, *a),
+                                      torch.zeros(B, K, C, device=where), ctx=put(ctx),
+                                      noise=put(x_T), step_noise=put(steps))["pred"]
+        preds[str(where)] = out.float().cpu()
+        if where == cuda:
+            torch.cuda.synchronize()
+            assert ff.launches == before + T * depth
+    card, cpu = preds["cuda"], preds["cpu"]
+    assert torch.isfinite(card).all()
+    assert ((card - cpu).norm() / cpu.norm()).item() < 5e-3
+
+
+@pytest.mark.gpu
+def test_supseg_predict_on_the_card_matches_the_cpu(cuda):
+    """``AnchorDiffGenSuperSegments`` (PCN, the latent projection with the
+    learned scale and a GroupNorm'd post-FF, ComponentMixer, PointwiseNet)
+    at latent width 32: a predict with x_T and the step draws injected on
+    the card and on the CPU, float32 both, within 1e-4 relative L2
+    (chip_smoke.py's P14_PREDICT_REL_L2), no kernel launched."""
+    from difffacto_torch.models import AnchorDiffGenSuperSegments
+
+    cfg = dict(encoder=dict(type="PCN", point_dim=7, part_latent_dim=32),
+               decomposer=dict(type="ComponentMixer", part_latent_dim=32, include_attention=True,
+                               include_global_feature=True),
+               diffusion=dict(type="AnchoredDiffusion",
+                              net=dict(type="PointwiseNet", point_dim=3, residual=False),
+                              beta_1=1e-4, beta_T=0.02, mode="linear",
+                              model_mean_type="epsilon", include_anchors=False, res=False),
+               sampler=dict(type="Uniform"), num_anchors=4, num_timesteps=10, npoints=256,
+               part_dim=32, project_latent=True, learn_var=True, post_ff=True)
+    rng = np.random.RandomState(5)
+    pts = (0.3 * rng.randn(2, 256, 3)).astype(np.float32)
+    seg = np.repeat(np.arange(4), 64)[None].repeat(2, 0)
+    batch = dict(input=pts, ref=pts, seg_mask=seg, attn_map=np.eye(4, dtype=np.float32)[seg])
+    draws = dict(noise=rng.randn(2, 256, 3), step_noise=rng.randn(10, 2, 256, 3))
+    preds = {}
+    for where in (cuda, "cpu"):
+        model = AnchorDiffGenSuperSegments(**cfg, device=where, seed=0)
+        d = {k: torch.as_tensor(v, dtype=torch.float32, device=where) for k, v in draws.items()}
+        before = (fc.launches, fps_mod.launches, eh.launches, ff.launches)
+        out = model.predict({k: torch.as_tensor(v, device=where) for k, v in batch.items()}, **d)
+        preds[str(where)] = out["pred"].float().cpu()
+        assert (fc.launches, fps_mod.launches, eh.launches, ff.launches) == before
+    card, cpu = preds["cuda"], preds["cpu"]
+    assert card.shape == (2, 256, 3) and torch.isfinite(card).all()
+    assert ((card - cpu).norm() / cpu.norm()).item() < 1e-4

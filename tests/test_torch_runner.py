@@ -508,3 +508,27 @@ def test_cli_without_a_card_raises():
         pytest.skip("this machine has a card")
     with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
         main(["--config-file", TINY, "--task", "val_gen"])
+
+
+@pytest.mark.parametrize("flag,value", [(["--sync_bn"], ("sync_bn", True)),
+                                        (["--deterministic"], ("deterministic", True)),
+                                        (["--param_sample_num", "5"], ("param_sample_num", 5))])
+def test_cli_accepts_the_jax_flags_it_ignores(flag, value, monkeypatch):
+    """``--sync_bn``, ``--deterministic`` and ``--param_sample_num`` parse as
+    the JAX CLI parses them (``tools/run_net.py``) and change no other
+    option: neither command line reads them."""
+    import importlib.util
+
+    from difffacto_torch.runner.cli import parse_args
+
+    base = ["--config-file", TINY]
+    got, plain = vars(parse_args(base + flag)), vars(parse_args(base))
+    assert got.pop(value[0]) == value[1]
+    plain.pop(value[0])
+    assert got == plain
+    spec = importlib.util.spec_from_file_location(
+        "jax_run_net", os.path.join(ROOT, "tools", "run_net.py"))
+    jax_cli = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(jax_cli)
+    monkeypatch.setattr(sys, "argv", ["run_net.py"] + base + flag)
+    assert getattr(jax_cli.parse_args(), value[0]) == value[1]
