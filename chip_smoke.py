@@ -9,8 +9,10 @@ t added to x) with the checkpoint-curve scorer, the JAX package's
 ``.msgpack`` checkpoints, training through two-attention blocks and UNet,
 per-part pretraining, multi-GPU, the GAN, language and mixing runners and
 the point-diffusion model on PointNet++, AnchorDiffAE's other encoders
-with the anchored generators, and the latent editors, the super-segment
-generator, completion and PointFlow.
+with the anchored generators, the latent editors, the super-segment
+generator, completion and PointFlow, and the trunk with proj_out fused (the
+denoiser's two switches), the datasets of ``data/custom.py`` and the data
+tools.
 
     python3 chip_smoke.py
 
@@ -280,6 +282,28 @@ Phases, each fatal (non-zero exit, no "ok" line):
    8 x 32 and 2 x 32 points. One line prints the phase's seconds, the step
    times and every card-against-CPU reading; every kernel's entry gains
    ``launches_slice16``.
+17. B1's fused tail, its switches, ``data/custom.py`` and the data tools,
+   full width: both tail entries (``fused_core_tail``,
+   ``fused_core_headless_tail``: proj_out 128 x 3 inside the trunk) against
+   their plain versions at B = 256, N = 2048 with parts absent and at a
+   ragged N, timed beside the same entry without the tail and beside that
+   entry followed by proj_out, with the bound; gen_chair at batch 256 under
+   ``DIFFFACTO_FUSE_TAIL=1`` (100 tail launches, the first held, a batch-1
+   run against the CPU) and its shapes/s beside the default's, in turns;
+   ``DIFFFACTO_FUSE_HEAD=0`` with and without the tail (100 launches of
+   each head-less entry, the first held). ``tools/process_data_torch.py``
+   and ``tools/fps_shape_torch.py`` on 32 dense clouds of 10,000 points and
+   ``tools/extract_parts_torch.py`` on a dump of 32 of phase 5's shapes,
+   each on the card (launch counts read) and with ``--cpu``, the outputs
+   equal. All ten DATASETS keys of ``data/custom.py`` built from files the
+   phase writes, one batch each; ``ShapeNet`` (32 ShapeNet-55 clouds of
+   8192 points) through its cropping loader on the card into 3
+   ``DiffuCompletion`` steps (3 FPS launches held index for index); the dump
+   through ``CustomDataset`` into ``MixingRunner.mixing`` (100 trunk
+   launches, the first held); ``process_data_torch.py``'s npz through
+   ``Partnet`` into 2 steps of the gen_chair ``Runner`` at batch 32 (one B2
+   and one B3 a step, the first held). The kernels line lists the two tail
+   entries, and every entry gains ``launches_slice17``.
 
 The last line is {"ok": true, "device": {...}}.
 """
@@ -453,13 +477,14 @@ def graph_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def trunk_bound_ms(args, out_bytes, in_ch, depth):
+def trunk_bound_ms(args, out_bytes, in_ch, depth, out_ch=0):
     """The least time for one trunk launch: its operations over the bf16 peak
-    against its bytes (inputs read once, output written once) over HBM."""
+    against its bytes (inputs read once, output written once) over HBM;
+    ``out_ch`` counts a fused proj_out's."""
     from difffacto_torch.ops import fused_core as fc
 
     B, N = args[0].shape[:2]
-    macs = in_ch * fc.D + depth * (
+    macs = (in_ch + out_ch) * fc.D + depth * (
         2 * fc.D * fc.D + 2 * fc.HEADS * fc.CTX * (fc.D // fc.HEADS) + 3 * fc.D * fc.FF
     )
     t_ops = 2.0 * B * N * macs / PEAK_BF16_FLOPS * 1e3
@@ -3227,6 +3252,455 @@ def phase16(dev, refs):
     return out
 
 
+# Phase 17: B1's fused tail and the two switches, data/custom.py's ten
+# DATASETS and the data tools. (a) Both tail entries (proj_out 128 x 3 fused)
+# against their plain versions at B = 256, N = 2048 with parts absent and at
+# a ragged N, timed beside the entry without the tail and beside that entry
+# followed by proj_out as the denoiser applies it. (b) gen_chair generation
+# under DIFFFACTO_FUSE_TAIL=1 (100 tail launches, the first held), a batch-1
+# run against the CPU, and shapes/s with and without the switch in turns
+# (default, tail, tail, default, P17_TIMED runs a slot); under
+# DIFFFACTO_FUSE_HEAD=0, with and without the tail, 100 launches of the
+# head-less entries, the first held. (c) The data tools on files the phase
+# writes: process_data_torch.py and fps_shape_torch.py on P17_TOOL_CLOUDS
+# dense clouds of P17_TOOL_POINTS points, extract_parts_torch.py on a dump of
+# P17_DUMP_SHAPES of phase 5's generated shapes; each on the card and with
+# --cpu, the outputs equal. (d) Every DATASETS key of data/custom.py built
+# from such files with one batch read; ShapeNet-55 (P17_SN55 clouds of 8192
+# points) through its cropping loader into P15_STEPS DiffuCompletion steps
+# (its FPS launches held index for index), the gen_chair dump through
+# CustomDataset into MixingRunner.mixing (100 trunk launches, the first
+# held), process_data_torch.py's npz through Partnet into 2 training steps
+# of the gen_chair Runner at batch P17_BATCH (one B2 and one B3 each, the
+# first held).
+P17_TIMED, P17_TOOL_CLOUDS, P17_TOOL_POINTS, P17_DUMP_SHAPES = 2, 32, 10000, 32
+P17_SN55, P17_SN55_POINTS, P17_BATCH, P17_OUT = 32, 8192, 32, 3
+P17_READ_BATCH = 8  # the batch of the DATASETS read once and fed to nothing
+DATASET_KEYS = ("CustomDataset", "PartglotTriplet", "Partnet", "ShapeNet", "ShapeNetPart",
+                "ShapeNetParts", "ShapeNetSegSuperSegment", "ShapeNetSegSuperSegmentParglot",
+                "ShapeNetSupSeg", "ShapeNetSupSegPartglot")
+TAIL_ENTRIES = ("fused_core_tail", "fused_core_headless_tail")
+
+
+def switches(head="1", tail=""):
+    """Set DIFFFACTO_FUSE_HEAD and DIFFFACTO_FUSE_TAIL (the defaults unset them)."""
+    for name, value, default in (("DIFFFACTO_FUSE_HEAD", head, "1"),
+                                 ("DIFFFACTO_FUSE_TAIL", tail, "")):
+        if value == default:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = value
+
+
+def entry_reference(name, args):
+    """The plain version of a recorded launch of ``name`` (the denoiser
+    passes every operand, then the scale, by position)."""
+    from difffacto_torch.ops import fused_core as fc
+
+    if name == "fused_core_tail":
+        return fc.fused_core_reference(*args[:21], args[23], pout_w=args[21], pout_b=args[22])
+    if name == "fused_core_headless_tail":
+        return fc.fused_core_reference(args[0], None, None, *args[1:19], args[21],
+                                       pout_w=args[19], pout_b=args[20])
+    if name == "fused_core_headless":
+        return fc.fused_core_reference(args[0], None, None, *args[1:])
+    return fc.fused_core_reference(*args)
+
+
+def p17_kernels(dev):
+    """(a): each tail entry held and timed; returns their numbers."""
+    from difffacto_torch.ops import fused_core as fc
+
+    rng = np.random.RandomState(17)
+    pw = torch.as_tensor(rng.randn(fc.D, P17_OUT) * fc.D**-0.5, dtype=torch.bfloat16, device=dev)
+    pb = torch.as_tensor(0.1 * rng.randn(P17_OUT), dtype=torch.float32, device=dev)
+    mask = np.ones((BATCH_TIMED, 4), np.float32)
+    mask[1::3, 1] = mask[BATCH_TIMED - 1, 2] = 0.0
+    saved = {c: getattr(fc, c) for c in ("launches", "launches_headless", "launches_tail",
+                                         "launches_headless_tail")}
+    out = {}
+    for name, head in (("fused_core_tail", True), ("fused_core_headless_tail", False)):
+        err = 0.0
+        for B, N, m in ((2, 1000, [[1, 1, 0, 1], [1, 1, 1, 1]]), (BATCH_TIMED, 2048, mask)):
+            ops = fc.operands(fc.example_inputs(B, N, depth=5, in_ch=13 if head else fc.D,
+                                                seed=N + head, mask=m), dev, torch.bfloat16)
+            if not head:
+                ops = [ops[0]] + ops[3:]
+            entry = getattr(fc, name)
+            got = entry(*ops, pw, pb, 0.25)
+            torch.cuda.synchronize()
+            want = entry_reference(name, ops + [pw, pb, 0.25])
+            if tuple(got.shape) != (B, N, P17_OUT):
+                fail(f"{name} gave {tuple(got.shape)}")
+            err = max(err, hold_bf16(f"{name} B={B} N={N} OUT={P17_OUT}", got, want))
+        bare = fc.fused_core if head else fc.fused_core_headless
+        pb16 = pb.to(torch.bfloat16)
+        runs = {"tail": lambda: entry(*ops, pw, pb, 0.25), "trunk": lambda: bare(*ops, 0.25),
+                "trunk_and_proj_out": lambda: bare(*ops, 0.25) @ pw + pb16}
+        times = {k: [] for k in runs}
+        for k in ("trunk", "trunk_and_proj_out", "tail", "tail", "trunk_and_proj_out", "trunk"):
+            times[k].append(cuda_ms(runs[k], 20))
+        ms = {k: float(np.mean(v)) for k, v in times.items()}
+        plain_ms = cuda_ms(lambda: entry_reference(name, ops + [pw, pb, 0.25]), 3)
+        bound, by = trunk_bound_ms(ops + [pw, pb], BATCH_TIMED * 2048 * P17_OUT * 2,
+                                   in_ch=13 if head else 0, depth=5, out_ch=P17_OUT)
+        out[name] = dict(max_abs_err=err, ms=ms["tail"], plain_ms=plain_ms, bound_ms=bound,
+                         bound_by=by, trunk_ms=ms["trunk"],
+                         trunk_and_proj_out_ms=ms["trunk_and_proj_out"])
+        print(f"{name} B={BATCH_TIMED} N=2048 OUT={P17_OUT}: {ms['tail']:.3f} ms, bound "
+              f"{bound:.3f} ms ({by}), {100 * bound / ms['tail']:.1f}% of roofline; without the "
+              f"tail {ms['trunk']:.3f} ms, and with proj_out after it {ms['trunk_and_proj_out']:.3f}"
+              f" ms (in turns, 20 launches each); plain version {plain_ms:.3f} ms")
+        del ops
+    for c, v in saved.items():
+        setattr(fc, c, v)
+    torch.cuda.empty_cache()
+    return out
+
+
+def p17_generation(dev, noise_scale):
+    """(b): the switches on gen_chair's generation; returns their numbers."""
+    from difffacto_torch import sample_generation
+    from difffacto_torch.models import denoiser
+
+    model = build_model(noise_scale, dev)
+    T = model.num_timesteps
+    res = {}
+
+    def generate(B, seed):
+        return sample_generation(model, B, valid_id=torch.ones(B, 4, device=dev),
+                                 generator=torch.Generator(device=dev).manual_seed(seed))["pred"]
+
+    try:
+        for label, head, tail, name in (("DIFFFACTO_FUSE_TAIL=1", "1", "1", "fused_core_tail"),
+                                        ("DIFFFACTO_FUSE_HEAD=0", "0", "", "fused_core_headless"),
+                                        ("DIFFFACTO_FUSE_HEAD=0 DIFFFACTO_FUSE_TAIL=1", "0", "1",
+                                         "fused_core_headless_tail")):
+            switches(head, tail)
+            rec = KernelRecorder((denoiser, name))
+            with rec:
+                pred, secs, counts = p16_timed(dev, lambda: generate(BATCH_TIMED, 17))
+            print(f"gen_chair under {label}, batch {BATCH_TIMED}: {secs:.3f} s, launches {counts}")
+            if counts != only(**{name: T}) or tuple(pred.shape) != (BATCH_TIMED, 2048, 3) \
+                    or not torch.isfinite(pred).all():
+                fail(f"generation under {label} launched {counts} (expected {T} of {name}) or "
+                     "gave non-finite shapes")
+            (B, N), (args, _, got) = rec.launches(name, label)[0]
+            with torch.inference_mode():
+                want = entry_reference(name, args)
+            res[f"{name}_err"] = hold_bf16(f"{name} as generation under {label} launched it, "
+                                           f"B={B} N={N}", got, want)
+            res[f"{name}_launches"] = counts[name]
+            del rec, args, got, want, pred
+
+        # Batch 1 under the tail switch, every draw injected, against the CPU.
+        switches("1", "1")
+        rng = np.random.RandomState(170)
+        draws = dict(z=rng.randn(1, 4, 256), cimle_noise=rng.randn(1, 32),
+                     noise=rng.randn(1, 2048, 3), step_noise=rng.randn(T, 1, 2048, 3))
+        runs = {}
+        for key, where, m in (("card", dev, model), ("cpu", "cpu", build_model(noise_scale, "cpu"))):
+            d = {k: torch.as_tensor(v, dtype=torch.float32, device=where) for k, v in draws.items()}
+            runs[key] = sample_generation(
+                m, 1, valid_id=torch.as_tensor([[1, 0, 1, 1]], dtype=torch.float32, device=where),
+                **d)["pred"].float().cpu()
+        rel = ((runs["card"] - runs["cpu"]).norm() / runs["cpu"].norm()).item()
+        print(f"batch-1 generation under DIFFFACTO_FUSE_TAIL=1, card vs CPU plain trunk with the "
+              f"tail: relative L2 {rel:.4e} (tol {E2E_REL_L2})")
+        if not torch.isfinite(runs["card"]).all() or not rel <= E2E_REL_L2:
+            fail("generation under DIFFFACTO_FUSE_TAIL=1 on the card disagrees with the CPU")
+        res["tail_card_vs_cpu_rel_l2"] = rel
+
+        # shapes/s with and without the tail, in turns, after a warm-up of each
+        secs = {"default": [], "tail": []}
+        for mode in ("default", "tail"):
+            switches(tail="1" if mode == "tail" else "")
+            generate(BATCH_TIMED, 18)
+        for i, mode in enumerate(("default", "tail", "tail", "default")):
+            switches(tail="1" if mode == "tail" else "")
+            for j in range(P17_TIMED):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                generate(BATCH_TIMED, 19 + i * P17_TIMED + j)
+                torch.cuda.synchronize()
+                secs[mode].append(time.perf_counter() - t0)
+        for mode, s in secs.items():
+            res[f"{mode}_shapes_per_s"] = BATCH_TIMED / float(np.mean(s))
+            res[f"{mode}_s_each"] = s
+        print(f"gen_chair batch {BATCH_TIMED}, in turns (default, tail, tail, default; "
+              f"{P17_TIMED} runs a turn): default {res['default_shapes_per_s']:.2f} shapes/s, "
+              f"DIFFFACTO_FUSE_TAIL=1 {res['tail_shapes_per_s']:.2f} shapes/s; seconds "
+              + json.dumps(secs))
+    finally:
+        switches()
+    del model
+    torch.cuda.empty_cache()
+    return res
+
+
+def p17_tools(dev, work, dump):
+    """(c): each tool on the card and with --cpu; the outputs equal."""
+    import runpy
+
+    rng = np.random.RandomState(171)
+    pts = (rng.randn(P17_TOOL_CLOUDS, P17_TOOL_POINTS, 3)
+           * rng.uniform(0.3, 1.0, (P17_TOOL_CLOUDS, 1, 3))).astype(np.float32)
+    labels = np.argmax(pts @ rng.randn(3, 4).astype(np.float32), -1)  # 4 regions a cloud
+    dense = os.path.join(work, "dense.npz")
+    np.savez(dense, points=pts, labels=labels)
+    parts = np.load(dump)
+    lengths = [int((parts["pred_seg_mask"][b] == k).sum()) for k in range(4)
+               for b in range(len(parts["pred"]))]
+    extract_launches = len({n for n in lengths if n >= 512})
+    res = {}
+    for tool, args, launches in (
+            ("process_data_torch.py", ["--input", dense], 1),
+            ("fps_shape_torch.py", ["--input", dense], 1),
+            ("extract_parts_torch.py", ["--dump", dump, "--canonical"], extract_launches)):
+        main = runpy.run_path(os.path.join(ROOT, "tools", tool), run_name="imported")["main"]
+        outs = {}
+        for where in ("card", "cpu"):
+            path = os.path.join(work, f"{tool}.{where}.npz")
+            _, secs, counts = p16_timed(dev, lambda: main(
+                args + ["--output", path] + (["--cpu"] if where == "cpu" else [])))
+            outs[where] = (dict(np.load(path)), secs, counts)
+        (card, card_s, counts), (cpu, cpu_s, cpu_counts) = outs["card"], outs["cpu"]
+        same = sorted(card) == sorted(cpu) and all(
+            card[k].dtype == cpu[k].dtype and np.array_equal(card[k], cpu[k]) for k in cpu)
+        print(f"{tool}: card {card_s:.2f} s (launches {counts}), --cpu {cpu_s:.2f} s, outputs "
+              f"{ {k: v.shape for k, v in card.items()} } equal: {same}")
+        if not same or counts != only(fps=launches) or cpu_counts != only():
+            fail(f"{tool} on the card launched {counts} (expected {launches} FPS) or its output "
+                 "differs from --cpu's")
+        res[tool] = dict(card_s=card_s, cpu_s=cpu_s, launches=counts)
+    res["launches"] = p16_sum(*(r["launches"] for r in res.values()))
+    return res, dense
+
+
+def p17_files(work, dump, packed):
+    """The DATASETS' files: ShapeNet-55's list and clouds, the super-segment
+    pickles, PartGlot's raw games and its packed triplets (the peer of
+    tools/pack_partglot.py as a function of arrays: no h5py here), and
+    Partnet's root holding process_data_torch.py's card output."""
+    import pickle
+    import runpy
+    import shutil
+
+    rng = np.random.RandomState(172)
+    root = os.path.join(work, "ShapeNet55")
+    os.makedirs(root)
+    os.makedirs(os.path.join(work, "shapenet_pc"))
+    names = [f"03001627-model{i}.npy" for i in range(P17_SN55)]
+    for name in names:
+        np.save(os.path.join(work, "shapenet_pc", name),
+                (rng.randn(P17_SN55_POINTS, 3) * rng.uniform(0.3, 1.0, (1, 3))).astype(np.float32))
+    for split in ("train", "test"):
+        with open(os.path.join(root, f"{split}.txt"), "w") as f:
+            f.write("\n".join(names))
+    z = np.load(packed)
+    supseg = os.path.join(work, "supseg")
+    os.makedirs(supseg)
+    attn = np.eye(4, dtype=np.float32)[z["labels"]] + 0.1 * rng.rand(*z["labels"].shape, 4)
+    for stem, arr in (("pointcloud", z["points"]), ("label", attn.astype(np.float32))):
+        with open(os.path.join(supseg, f"shapenet_{stem}_pn_aware.pkl"), "wb") as f:
+            pickle.dump(arr, f)
+    S, n_seg, npt = 32, 50, 512
+    geos = rng.randn(S, n_seg, npt, 3).astype(np.float32)
+    masks = (rng.rand(S, n_seg) > 0.2).astype(np.float32)
+    with open(os.path.join(supseg, "partglot_shapenet_seg_out_pn_aware_raw.pkl"), "wb") as f:
+        pickle.dump(dict(geos=geos, geos_masks=masks,
+                         attn_maps=rng.rand(S, 4, n_seg).astype(np.float32)), f)
+    pack = runpy.run_path(os.path.join(ROOT, "tools", "pack_partglot_torch.py"),
+                          run_name="imported")["pack"]
+    game = dict(text=["a chair with thick legs", "tall back", "wide seat and arms", "nice one"] * 4,
+                target_chair=rng.randint(0, 3, 16), chair_a=rng.randint(0, S, 16),
+                chair_b=rng.randint(0, S, 16), chair_c=rng.randint(0, S, 16))
+    triplets, _ = pack(game, None, geos, masks, part_only=True)
+    triplet = os.path.join(work, "triplets.npz")
+    np.savez_compressed(triplet, **triplets)
+    partnet = os.path.join(work, "partnet")
+    os.makedirs(partnet)
+    shutil.copyfile(packed, os.path.join(partnet, "partnet_train.npz"))
+    return dict(sn55=root, supseg=supseg, triplet=triplet, partnet=partnet, packed=packed,
+                dump=dump)
+
+
+def p17_dataset_cfgs(files):
+    B, R = P17_BATCH, P17_READ_BATCH
+    return {
+        "CustomDataset": dict(batch_size=B, path=files["dump"], npoints=2048),
+        "ShapeNetParts": dict(batch_size=R, path=files["packed"], npoints=2048),
+        "ShapeNetPart": dict(batch_size=R, root=files["packed"], npoints=2048),
+        "Partnet": dict(batch_size=B, root=files["partnet"], npoints=2048),
+        "PartglotTriplet": dict(batch_size=R, path=files["triplet"]),
+        "ShapeNetSupSeg": dict(batch_size=R, data_root=files["supseg"], split="train",
+                               augment=True),
+        "ShapeNetSegSuperSegment": dict(batch_size=R, data_root=files["supseg"], split="train",
+                                        contrastive_learning=True),
+        "ShapeNetSupSegPartglot": dict(batch_size=R, data_root=files["supseg"], split="train"),
+        "ShapeNetSegSuperSegmentParglot": dict(batch_size=R, path=files["packed"],
+                                               npoints=2048),
+        "ShapeNet": dict(batch_size=B, root=files["sn55"], npoints=P17_SN55_POINTS,
+                         split="train", crop=(0.25, 0.75)),
+    }
+
+
+def p17_datasets(dev, files):
+    """(d), first part: every key built through DATASETS, one batch each."""
+    from difffacto_torch.utils.registry import DATASETS, build_from_cfg
+
+    if set(DATASETS._modules) < set(DATASET_KEYS):
+        fail(f"DATASETS lacks {sorted(set(DATASET_KEYS) - set(DATASETS._modules))}")
+    shapes, loaders = {}, {}
+    for key, cfg in p17_dataset_cfgs(files).items():
+        t0 = time.perf_counter()
+        loader, sampler = build_from_cfg(dict(cfg, type=key), DATASETS, device=dev)
+        batch = next(iter(loader.loader if key == "ShapeNet" else loader))
+        arrays = {k: np.asarray(v) for k, v in batch.items()
+                  if isinstance(v, np.ndarray) and v.dtype != object}
+        if sampler is not None or not arrays or not all(
+                np.isfinite(a).all() for a in arrays.values() if a.dtype.kind == "f"):
+            fail(f"DATASETS {key}: sampler {sampler}, or a batch without finite arrays")
+        shapes[key] = {k: list(a.shape) for k, a in sorted(arrays.items())[:4]}
+        shapes[key]["s"] = time.perf_counter() - t0
+        loaders[key] = loader
+    print("DATASETS, one batch each (the first keys' shapes, seconds): " + json.dumps(shapes))
+    return loaders
+
+
+def p17_completion(dev, loader):
+    """ShapeNet-55's cropping loader on the card into DiffuCompletion steps."""
+    from difffacto_torch.ops import fps as fpsm
+    from difffacto_torch.ops import points
+
+    rec = KernelRecorder((points, "furthest_point_sample"))
+
+    def crop():
+        with rec:
+            b = next(iter(loader))
+            full = torch.as_tensor(b["input"], device=dev)
+            return b["partial"], points.fps(full, 2048)
+    (partial, gt), crop_s, counts = p16_timed(dev, crop)
+    if counts != only(fps=3) or tuple(partial.shape) != (P17_BATCH, 2048, 3) \
+            or partial.device.type != dev.type:
+        fail(f"ShapeNet's cropping batch launched {counts} (expected 3 FPS) or gave "
+             f"{tuple(partial.shape)} on {partial.device}")
+    for (B, N), (args, _, got) in rec.launches("furthest_point_sample", "ShapeNet's crop"):
+        if not torch.equal(got, fpsm.furthest_point_sample_reference(*args)):
+            fail(f"FPS as ShapeNet's cropping launched it, {B} x {N}, chose other points")
+
+    def batch_fn(B, seed, where):
+        rng = np.random.RandomState(seed)
+        return {"ref": gt[:B].to(where), "input": partial[:B].to(where),
+                "diffusion_t": torch.as_tensor(rng.randint(0, P16_T, (B,)), device=where),
+                "diffusion_noise": torch.as_tensor(rng.randn(B, 2048, 3).astype(np.float32),
+                                                   device=where)}
+    model = p15_build(P16_DC, dev)
+    losses, step_ms, c = p15_steps(dev, "DiffuCompletion on ShapeNet-55's crops", model,
+                                   batch_fn, only(), batch=P17_BATCH)
+    del model
+    torch.cuda.empty_cache()
+    return dict(crop_s=crop_s, step_ms=step_ms, losses=losses, launches=p16_sum(counts, c))
+
+
+def p17_mixing(dev, work, dump):
+    """CustomDataset on the gen_chair dump into MixingRunner.mixing."""
+    from difffacto_torch.config import Config
+    from difffacto_torch.models import denoiser
+    from difffacto_torch.runner import MixingRunner
+
+    data = dict(_cover_=True, type="CustomDataset", batch_size=P17_BATCH, path=dump,
+                npoints=2048, shuffle=False)
+    cfg = write_config(work, "mixing17", work_dir=os.path.join(work, "mixing17"),
+                       model=P14_MODEL, dataset=dict(train=data, val=data))
+    runner = MixingRunner(cfg=Config(cfg), device=dev)
+    rec = KernelRecorder((denoiser, "fused_core"))
+    with rec:
+        merged, secs, counts = p16_timed(dev, lambda: runner.mixing(seed=17))
+    T = runner.model.num_timesteps
+    print(f"MixingRunner.mixing on CustomDataset (the gen_chair dump, batch {P17_BATCH}): "
+          f"{secs:.2f} s, launches {counts}")
+    if counts != only(fused_core=T * len(runner.val_loader)) or \
+            merged["pred"].shape != (P17_DUMP_SHAPES, 2048, 3) or \
+            not np.isfinite(merged["pred"]).all():
+        fail(f"MixingRunner.mixing on CustomDataset launched {counts} or gave "
+             f"{merged['pred'].shape}")
+    err = rec.hold_core("MixingRunner.mixing on CustomDataset")
+    del runner
+    torch.cuda.empty_cache()
+    return dict(s=secs, core_err=err, launches=counts)
+
+
+def p17_partnet(dev, work, root):
+    """Partnet on process_data_torch.py's npz into 2 steps of the gen_chair Runner."""
+    from difffacto_torch.config import Config
+    from difffacto_torch.models import denoiser
+    from difffacto_torch.runner import Runner
+
+    data = dict(_cover_=True, type="Partnet", batch_size=P17_BATCH, root=root, npoints=2048,
+                split="train")
+    cfg = write_config(work, "partnet17", work_dir=os.path.join(work, "partnet17"),
+                       max_epoch=2, cimle_cache_interval=None, eval_interval=None,
+                       checkpoint_interval=None, log_interval=1,
+                       dataset=dict(train=data, val=data))
+    runner = Runner(cfg=Config(cfg), device=dev)
+    rec = KernelRecorder((denoiser, "fused_trunk_train"))
+
+    def two_epochs():
+        with rec:
+            for _ in range(2):
+                runner.train_loader.set_epoch(runner.epoch)
+                runner.train()
+    _, secs, counts = p16_timed(dev, two_epochs)
+    steps = 2 * len(runner.train_loader)
+    recs = [json.loads(line) for line in open(os.path.join(runner.work_dir, "scalars.jsonl"))]
+    losses = [r["total_loss"] for r in recs if "total_loss" in r]
+    print(f"gen_chair Runner on Partnet (process_data_torch.py's npz), {steps} steps at batch "
+          f"{P17_BATCH}: {secs:.2f} s, losses {losses}, launches {counts}")
+    if counts != only(fused_trunk_train_fwd=steps, fused_trunk_train_bwd=steps) or \
+            len(losses) != steps or not np.isfinite(losses).all():
+        fail(f"the Runner on Partnet launched {counts} or logged {losses}")
+    fwd, bwd = rec.hold_train("the Runner on Partnet")
+    del runner
+    torch.cuda.empty_cache()
+    return dict(s=secs, losses=losses, train_errs=(fwd, bwd), launches=counts)
+
+
+def phase17(dev, noise_scale, shapes):
+    """Phase 17; ``shapes`` holds phase 5's generated shapes (pred,
+    pred_seg_mask), of which P17_DUMP_SHAPES are dumped."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    out = {"kernels": p17_kernels(dev), "generation": p17_generation(dev, noise_scale)}
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as work:
+        dump = os.path.join(work, "gen_chair_dump.npz")
+        np.savez(dump, **{k: v[:P17_DUMP_SHAPES] for k, v in shapes.items()})
+        out["tools"], dense = p17_tools(dev, work, dump)
+        files = p17_files(work, dump, os.path.join(work, "process_data_torch.py.card.npz"))
+        loaders = p17_datasets(dev, files)
+        out["completion"] = p17_completion(dev, loaders["ShapeNet"])
+        out["mixing"] = p17_mixing(dev, work, dump)
+        out["partnet"] = p17_partnet(dev, work, files["partnet"])
+    gen = out["generation"]
+    launches = [out[p]["launches"] for p in ("tools", "completion", "mixing", "partnet")]
+    launches.append(dict({k: 0 for k in mg_counts()}, **{
+        name: gen[f"{name}_launches"] for name in
+        ("fused_core_tail", "fused_core_headless", "fused_core_headless_tail")}))
+    out["launches"] = p16_sum(*launches)
+    out["s"] = time.perf_counter() - t_phase
+    print("phase 17 readings: " + json.dumps({
+        "seconds": round(out["s"], 1), "kernels": out["kernels"], "generation": gen,
+        "tools": {k: v for k, v in out["tools"].items() if k != "launches"},
+        "completion_step_ms": out["completion"]["step_ms"],
+        "completion_crop_s": out["completion"]["crop_s"], "mixing_s": out["mixing"]["s"],
+        "partnet_s": out["partnet"]["s"], "partnet_losses": out["partnet"]["losses"],
+        "launches": out["launches"]}, default=float))
+    print(f"phase 17: {out['s']:.1f} s")
+    return out
+
+
 # Phase 13. The global batches of the multi-GPU runs; the 3 training steps
 # are held at phase 9's tolerances (loss, grad_norm, the mean update) against
 # the same arithmetic on one rank, generation within E2E_REL_L2.
@@ -3270,8 +3744,10 @@ def mg_counts(zero=False):
 
     if zero:
         fc.launches = fc.launches_headless = fct.launches_fwd = fct.launches_bwd = 0
+        fc.launches_tail = fc.launches_headless_tail = 0
         fpsm.launches = eh.launches = ff.launches = fb.launches = 0
     return dict(fused_core=fc.launches, fused_core_headless=fc.launches_headless,
+                fused_core_tail=fc.launches_tail, fused_core_headless_tail=fc.launches_headless_tail,
                 fused_trunk_train_fwd=fct.launches_fwd, fused_trunk_train_bwd=fct.launches_bwd,
                 emd_hybrid=eh.launches, fps=fpsm.launches, fused_ff=ff.launches,
                 fused_block=fb.launches)
@@ -3619,7 +4095,8 @@ def main():
                 print(f"  {name}: {line.split('entry function')[1].split(' for ')[0].strip()}")
             if "Used" in line or "spill" in line or "smem" in line:
                 print(f"  {name}: {line.strip()}")
-    print(f"  fused_core: {fc.smem_bytes()} bytes of dynamic shared memory per block")
+    print(f"  fused_core: {fc.smem_bytes()} bytes of dynamic shared memory per block, "
+          f"{fc.smem_bytes(True)} with the tail")
     print(f"  fused_core_train: {fct.smem_bytes()} bytes (forward, backward)")
     # Every trunk kernel (B1, B6, B2, B3, and B7: at D = 128 the template's
     # Mode::FF entry in fused_ff, at D = 256 its cluster kernel) is wgmma fed
@@ -3638,7 +4115,7 @@ def main():
             ops["REDG x4"] = sum(1 for line in body.splitlines() if "REDG" in line and "x4" in line)
             funcs[fname.strip()] = ops
             print(f"  {lib} SASS {fname.strip()}: {ops}")
-        want = {"fused_core": {"fused_core_kernel": 3},
+        want = {"fused_core": {"fused_core_kernel": 5},
                 "fused_core_train": {"fused_core_kernel": 1, "trunk_train_bwd_kernel": 1},
                 "fused_ff": {"fused_core_kernel": 1, "ff_wide_kernel": 1}}[lib]
         for kernel, n in want.items():
@@ -3884,10 +4361,13 @@ def main():
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     for _ in range(ITERS):
-        sample_generation(model, BATCH_TIMED, valid_id=valid, generator=gen)
+        last = sample_generation(model, BATCH_TIMED, valid_id=valid, generator=gen)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     shapes_per_s = BATCH_TIMED * ITERS / dt
+    gen5 = dict(pred=last["pred"].float().cpu().numpy(),
+                pred_seg_mask=last["seg_mask"].cpu().numpy().astype(np.int64))
+    del last
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     print(f"gen_chair batch {BATCH_TIMED}: {shapes_per_s:.2f} shapes/s "
           f"({dt / ITERS:.3f} s per batch), peak memory {peak_gib:.2f} GiB")
@@ -4474,6 +4954,14 @@ def main():
     def slice16(name):
         return {"launches_slice16": run16["launches"][name]}
 
+    phase("17 B1's fused tail and its switches, data/custom.py's DATASETS and the data tools, "
+          "full width")
+    run17 = phase17(dev, noise_scale, gen5)
+    del gen5
+
+    def slice17(name):
+        return {"launches_slice17": run17["launches"][name]}
+
     print(card)
     trunk["launches_runner"] = on_path["fused_core"]
     trunk["launches_editing"] = editing_launches["fused_core"]
@@ -4493,7 +4981,9 @@ def main():
     trunk["max_abs_err"] = max(trunk["max_abs_err"], run14["gan"]["core_err"],
                                run14["mixing"]["core_err"], run15["td"]["core_err"])
     trunk.update(slice15("fused_core"), slice15_td_generation_s=run15["td"]["gen_s"],
-                 slice15_s=run15["s"], **slice16("fused_core"), slice16_s=run16["s"])
+                 slice15_s=run15["s"], **slice16("fused_core"), slice16_s=run16["s"],
+                 **slice17("fused_core"), slice17_s=run17["s"])
+    trunk["max_abs_err"] = max(trunk["max_abs_err"], run17["mixing"]["core_err"])
     headless = {
         "name": "fused_core_headless", "route": "cuda",
         "source": "difffacto_torch/csrc/fused_core.cu",
@@ -4503,10 +4993,28 @@ def main():
         "bound_by": run11["headless_bound_by"], "library_ms": None,
         "launches_multi_gpu": mg_launches["fused_core_headless"],
         **phase14_launches("fused_core_headless"), **slice15("fused_core_headless"),
-        **slice16("fused_core_headless"),
+        **slice16("fused_core_headless"), **slice17("fused_core_headless"),
+        "slice17_max_abs_err": run17["generation"]["fused_core_headless_err"],
     }
+    p17k, p17g = run17["kernels"], run17["generation"]
+    tails = [{
+        "name": name, "route": "cuda", "source": "difffacto_torch/csrc/fused_core.cu",
+        "replaces": "difffacto_tpu/ops/fused_core.py:33",
+        "launches": p17g[f"{name}_launches"],
+        "max_abs_err": max(p17k[name]["max_abs_err"], p17g[f"{name}_err"]),
+        "ms": p17k[name]["ms"], "plain_ms": p17k[name]["plain_ms"],
+        "bound_ms": p17k[name]["bound_ms"], "bound_by": p17k[name]["bound_by"],
+        "library_ms": None, "out_channels": P17_OUT,
+        "ms_without_tail": p17k[name]["trunk_ms"],
+        "ms_without_tail_then_proj_out": p17k[name]["trunk_and_proj_out_ms"],
+        "launches_multi_gpu": mg_launches[name], **phase14_launches(name), **slice15(name),
+        **slice16(name), **slice17(name),
+    } for name in TAIL_ENTRIES]
+    tails[0].update(gen_shapes_per_s_default=p17g["default_shapes_per_s"],
+                    gen_shapes_per_s_fuse_tail=p17g["tail_shapes_per_s"],
+                    gen_card_vs_cpu_rel_l2=p17g["tail_card_vs_cpu_rel_l2"])
     sa = run14["pointnet2"]
-    print(json.dumps({"kernels": [trunk, headless, {
+    print(json.dumps({"kernels": [trunk, headless, *tails, {
         "name": "fps", "route": "cuda", "source": "difffacto_torch/csrc/fps.cu",
         "replaces": "difffacto_tpu/ops/fps_pallas.py:27", "launches": counts["fps"],
         "max_abs_err": fps_diff, "ms": fps_ms, "plain_ms": fps_plain_ms, "bound_ms": fps_bound,
@@ -4522,7 +5030,7 @@ def main():
         **{f"{k}_at_sa_{shape}": v for shape in (f"{n}_to_{m}" for n, m in SA_FPS)
            for k, v in sa[shape].items()},
         "pdm_train_step_ms": run14["pdm"]["step_ms"], "pdm_predict_s": run14["pdm"]["predict_s"],
-        **slice15("fps"), **slice16("fps"),
+        **slice15("fps"), **slice16("fps"), **slice17("fps"),
         **{f"{cls}_{k}": v for cls in ("PointNet2SSG", "PointNet2MSG") for k, v in sa[cls].items()},
     }, {
         "name": "emd_hybrid", "route": "cuda", "source": "difffacto_torch/csrc/emd_hybrid.cu",
@@ -4539,27 +5047,29 @@ def main():
         "launches_editing": editing_launches["emd_hybrid"],
         "launches_msgpack_val_gen": run12["msgpack"]["launches"]["emd_hybrid"],
         "launches_multi_gpu": mg_launches["emd_hybrid"], **phase14_launches("emd_hybrid"),
-        **slice15("emd_hybrid"), **slice16("emd_hybrid"),
+        **slice15("emd_hybrid"), **slice16("emd_hybrid"), **slice17("emd_hybrid"),
     }, {
         "name": "fused_trunk_train_fwd", "route": "cuda",
         "source": "difffacto_torch/csrc/fused_core_train.cu",
         "replaces": "difffacto_tpu/ops/fused_core_train.py:120",
         "launches": train_counts["fused_trunk_train_fwd"],
-        "max_abs_err": max(train_fwd_err, run9["train_fwd_err"], run15["td"]["train_errs"][0]),
+        "max_abs_err": max(train_fwd_err, run9["train_fwd_err"], run15["td"]["train_errs"][0],
+                           run17["partnet"]["train_errs"][0]),
         "ms": fwd_ms, "plain_ms": plain_fwd_ms, "bound_ms": bounds["fwd"][0],
         "bound_by": bounds["fwd"][1], "library_ms": None,
         "launches_runner": on_path["fused_trunk_train_fwd"],
         "launches_editing": editing_launches["fused_trunk_train_fwd"],
         "launches_multi_gpu": mg_launches["fused_trunk_train_fwd"],
         **phase14_launches("fused_trunk_train_fwd"), **slice15("fused_trunk_train_fwd"),
-        **slice16("fused_trunk_train_fwd"),
+        **slice16("fused_trunk_train_fwd"), **slice17("fused_trunk_train_fwd"),
         "slice15_cvae_train_step_ms": run15["td"]["train"]["step_ms"],
     }, {
         "name": "fused_trunk_train_bwd", "route": "cuda",
         "source": "difffacto_torch/csrc/fused_core_train.cu",
         "replaces": "difffacto_tpu/ops/fused_core_train.py:162",
         "launches": train_counts["fused_trunk_train_bwd"],
-        "max_abs_err": max(train_bwd_err, run9["train_bwd_err"], run15["td"]["train_errs"][1]),
+        "max_abs_err": max(train_bwd_err, run9["train_bwd_err"], run15["td"]["train_errs"][1],
+                           run17["partnet"]["train_errs"][1]),
         "ms": bwd_ms, "plain_ms": plain_bwd_ms, "bound_ms": bounds["bwd"][0],
         "bound_by": bounds["bwd"][1], "library_ms": None,
         "bound_ms_jax_inputs": bounds["bwd_jax_inputs"][0], "train_step_ms": step_ms,
@@ -4569,7 +5079,7 @@ def main():
         "launches_editing": editing_launches["fused_trunk_train_bwd"],
         "launches_multi_gpu": mg_launches["fused_trunk_train_bwd"],
         **phase14_launches("fused_trunk_train_bwd"), **slice15("fused_trunk_train_bwd"),
-        **slice16("fused_trunk_train_bwd"),
+        **slice16("fused_trunk_train_bwd"), **slice17("fused_trunk_train_bwd"),
         "runner_epoch_s_first": run9["epoch_s_first"],
         "runner_epoch_s_later": run9["epoch_s_later"],
         "runner_epoch_s_later_min": run9["epoch_s_later_min"],
@@ -4592,7 +5102,7 @@ def main():
         "launches_editing": editing_launches["fused_block"],
         "launches_unet_training": run12["unet"]["launches"]["fused_block"],
         "launches_multi_gpu": mg_launches["fused_block"], **phase14_launches("fused_block"),
-        **slice15("fused_block"), **slice16("fused_block"),
+        **slice15("fused_block"), **slice16("fused_block"), **slice17("fused_block"),
         "unet_train_step_ms": run12["unet"]["step_ms"],
     }, {
         "name": "fused_ff", "route": "cuda", "source": "difffacto_torch/csrc/fused_ff.cu",
@@ -4613,7 +5123,7 @@ def main():
         "search_tokens": run10["search_ff"]["tokens"],
         "editing_path_launches_reported": run10["ff_path"],
         "launches_multi_gpu": mg_launches["fused_ff"], **phase14_launches("fused_ff"),
-        **slice15("fused_ff"), **slice16("fused_ff"),
+        **slice15("fused_ff"), **slice16("fused_ff"), **slice17("fused_ff"),
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

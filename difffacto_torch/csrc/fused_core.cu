@@ -1,8 +1,10 @@
 // The whole denoiser trunk of one diffusion step, as one kernel for sm_90a.
 //
 // Replaces the TPU kernel difffacto_tpu/ops/fused_core.py:_core_kernel (the
-// Pallas program launched at difffacto_tpu/models/denoiser.py:270) with the
-// head fused and the tail not, as the JAX default runs it. For every token:
+// Pallas program launched at difffacto_tpu/models/denoiser.py:270) in all
+// four of its forms: the head fused and the tail not, as the JAX default runs
+// it (difffacto_fused_core), the head-less trunk, and each of those with
+// proj_out fused (the *_tail entries below). For every token:
 //
 //   h = proj_in(x)                      13 -> 128, f32 accumulate, round bf16
 //   h = LN(h)                           pre-LN
@@ -71,6 +73,24 @@
 
 #include "trunk.cuh"
 
+// The operands every trunk entry shares (all but x, proj_in and proj_out).
+static Params trunk_params(const void* k, const void* v, const void* mask, const void* pre_scale,
+                           const void* pre_bias, const void* post_scale, const void* post_bias,
+                           const void* n2_scale, const void* n2_bias, const void* bout,
+                           const void* ff_scale, const void* ff_bias, const void* b1,
+                           const void* b2, void* out, int B, int N, int depth, float scale) {
+  Params p = {};
+  p.k = (const bf16*)k; p.v = (const bf16*)v; p.mask = (const float*)mask;
+  p.pre_scale = (const bf16*)pre_scale; p.pre_bias = (const bf16*)pre_bias;
+  p.post_scale = (const bf16*)post_scale; p.post_bias = (const bf16*)post_bias;
+  p.n2_scale = (const bf16*)n2_scale; p.n2_bias = (const bf16*)n2_bias;
+  p.bout = (const float*)bout; p.ff_scale = (const bf16*)ff_scale;
+  p.ff_bias = (const bf16*)ff_bias; p.b1 = (const float*)b1; p.b2 = (const float*)b2;
+  p.out = (bf16*)out;
+  p.B = B; p.N = N; p.depth = depth; p.scale = scale;
+  return p;
+}
+
 extern "C" int difffacto_fused_core(
     const void* x, const void* pin_w, const void* pin_b, const void* k, const void* v,
     const void* mask, const void* pre_scale, const void* pre_bias, const void* post_scale,
@@ -80,17 +100,39 @@ extern "C" int difffacto_fused_core(
     int in_ch, int depth, float scale, int grid, int tiles_per_row, void* stream) {
   if (B < 1 || B > 65535 || N < 1 || in_ch < 1 || in_ch > MAX_IN || depth < 1)
     return (int)cudaErrorInvalidValue;
-  Params p = {};
+  Params p = trunk_params(k, v, mask, pre_scale, pre_bias, post_scale, post_bias, n2_scale,
+                          n2_bias, bout, ff_scale, ff_bias, b1, b2, out, B, N, depth, scale);
   p.x = (const bf16*)x; p.pin_w = (const bf16*)pin_w; p.pin_b = (const float*)pin_b;
-  p.k = (const bf16*)k; p.v = (const bf16*)v; p.mask = (const float*)mask;
-  p.pre_scale = (const bf16*)pre_scale; p.pre_bias = (const bf16*)pre_bias;
-  p.post_scale = (const bf16*)post_scale; p.post_bias = (const bf16*)post_bias;
-  p.n2_scale = (const bf16*)n2_scale; p.n2_bias = (const bf16*)n2_bias;
-  p.bout = (const float*)bout; p.ff_scale = (const bf16*)ff_scale;
-  p.ff_bias = (const bf16*)ff_bias; p.b1 = (const float*)b1; p.b2 = (const float*)b2;
-  p.out = (bf16*)out;
-  p.B = B; p.N = N; p.in_ch = in_ch; p.depth = depth; p.scale = scale;
+  p.in_ch = in_ch;
   return (int)launch<Mode::TRUNK>(p, grid, tiles_per_row, wq, wout, w1, w2, (cudaStream_t)stream);
+}
+
+// The trunk with proj_out fused (the TPU kernel's has_tail=True form, which
+// the JAX denoiser takes under DIFFFACTO_FUSE_TAIL=1, difffacto_tpu/models/
+// denoiser.py:244-281): the operands of difffacto_fused_core, then pout_w
+// (128, out_ch) bf16 and pout_b (out_ch,) f32; out (B, N, out_ch) bf16,
+// out_ch 1 .. 8. After the post-LN each token's row goes through
+// bf16(LN(h) W_out + b_out) with f32 sums; the tile's rows are gathered in
+// shared memory and stored as one contiguous run. Its bound is the trunk's
+// plus 128 out_ch MACs a token, with out_ch * 2 bytes a token out.
+extern "C" int difffacto_fused_core_tail(
+    const void* x, const void* pin_w, const void* pin_b, const void* k, const void* v,
+    const void* mask, const void* pre_scale, const void* pre_bias, const void* post_scale,
+    const void* post_bias, const void* n2_scale, const void* n2_bias, const void* wq,
+    const void* wout, const void* bout, const void* ff_scale, const void* ff_bias,
+    const void* w1, const void* b1, const void* w2, const void* b2, const void* pout_w,
+    const void* pout_b, void* out, int B, int N, int in_ch, int depth, int out_ch,
+    float scale, int grid, int tiles_per_row, void* stream) {
+  if (B < 1 || B > 65535 || N < 1 || in_ch < 1 || in_ch > MAX_IN || depth < 1 || out_ch < 1 ||
+      out_ch > MAX_OUT)
+    return (int)cudaErrorInvalidValue;
+  Params p = trunk_params(k, v, mask, pre_scale, pre_bias, post_scale, post_bias, n2_scale,
+                          n2_bias, bout, ff_scale, ff_bias, b1, b2, out, B, N, depth, scale);
+  p.x = (const bf16*)x; p.pin_w = (const bf16*)pin_w; p.pin_b = (const float*)pin_b;
+  p.in_ch = in_ch;
+  p.pout_w = (const bf16*)pout_w; p.pout_b = (const float*)pout_b; p.out_ch = out_ch;
+  return (int)launch<Mode::TRUNK, true>(p, grid, tiles_per_row, wq, wout, w1, w2,
+                                        (cudaStream_t)stream);
 }
 
 // The trunk without proj_in (Mode::HEADLESS): x, out (B, N, 128) bf16, x
@@ -108,18 +150,33 @@ extern "C" int difffacto_fused_core_headless(
     const void* b2, void* out, int B, int N, int depth, float scale, int grid,
     int tiles_per_row, void* stream) {
   if (B < 1 || B > 65535 || N < 1 || depth < 1) return (int)cudaErrorInvalidValue;
-  Params p = {};
-  p.x = (const bf16*)x; p.k = (const bf16*)k; p.v = (const bf16*)v;
-  p.mask = (const float*)mask;
-  p.pre_scale = (const bf16*)pre_scale; p.pre_bias = (const bf16*)pre_bias;
-  p.post_scale = (const bf16*)post_scale; p.post_bias = (const bf16*)post_bias;
-  p.n2_scale = (const bf16*)n2_scale; p.n2_bias = (const bf16*)n2_bias;
-  p.bout = (const float*)bout; p.ff_scale = (const bf16*)ff_scale;
-  p.ff_bias = (const bf16*)ff_bias; p.b1 = (const float*)b1; p.b2 = (const float*)b2;
-  p.out = (bf16*)out;
-  p.B = B; p.N = N; p.in_ch = 0; p.depth = depth; p.scale = scale;
+  Params p = trunk_params(k, v, mask, pre_scale, pre_bias, post_scale, post_bias, n2_scale,
+                          n2_bias, bout, ff_scale, ff_bias, b1, b2, out, B, N, depth, scale);
+  p.x = (const bf16*)x;
   return (int)launch<Mode::HEADLESS>(p, grid, tiles_per_row, wq, wout, w1, w2,
                                      (cudaStream_t)stream);
+}
+
+// The head-less trunk with proj_out fused (has_head=False, has_tail=True):
+// the operands of difffacto_fused_core_headless, then pout_w and pout_b as
+// difffacto_fused_core_tail takes them; out (B, N, out_ch) bf16. The JAX
+// denoiser takes it under DIFFFACTO_FUSE_TAIL=1 with add_t_to_x or with
+// DIFFFACTO_FUSE_HEAD=0.
+extern "C" int difffacto_fused_core_headless_tail(
+    const void* x, const void* k, const void* v, const void* mask, const void* pre_scale,
+    const void* pre_bias, const void* post_scale, const void* post_bias, const void* n2_scale,
+    const void* n2_bias, const void* wq, const void* wout, const void* bout,
+    const void* ff_scale, const void* ff_bias, const void* w1, const void* b1, const void* w2,
+    const void* b2, const void* pout_w, const void* pout_b, void* out, int B, int N, int depth,
+    int out_ch, float scale, int grid, int tiles_per_row, void* stream) {
+  if (B < 1 || B > 65535 || N < 1 || depth < 1 || out_ch < 1 || out_ch > MAX_OUT)
+    return (int)cudaErrorInvalidValue;
+  Params p = trunk_params(k, v, mask, pre_scale, pre_bias, post_scale, post_bias, n2_scale,
+                          n2_bias, bout, ff_scale, ff_bias, b1, b2, out, B, N, depth, scale);
+  p.x = (const bf16*)x;
+  p.pout_w = (const bf16*)pout_w; p.pout_b = (const float*)pout_b; p.out_ch = out_ch;
+  return (int)launch<Mode::HEADLESS, true>(p, grid, tiles_per_row, wq, wout, w1, w2,
+                                           (cudaStream_t)stream);
 }
 
 // One block: x, out (B, N, 128) bf16; k, v (B, 4, 128) bf16; mask (B, 4) f32.
@@ -145,5 +202,7 @@ extern "C" const char* difffacto_cuda_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// Dynamic shared memory of one thread block, for reports.
-extern "C" int difffacto_fused_core_smem_bytes() { return SMEM_BYTES; }
+// Dynamic shared memory of one thread block (of a tail entry with tail != 0), for reports.
+extern "C" int difffacto_fused_core_smem_bytes(int tail) {
+  return tail ? SMEM_BYTES_TAIL : SMEM_BYTES;
+}

@@ -8,6 +8,11 @@
 // Mode::HEADLESS: the trunk without proj_in: x (B, N, 128) is the hidden
 //   state h0 (the denoiser's add_t_to_x biases it with the time embedding
 //   first), then pre-LN, depth blocks, post-LN.
+// TAIL (a template flag of TRUNK and HEADLESS): proj_out after the post-LN,
+//   bf16(LN(h) W_out + b_out) with f32 sums, out (B, N, OUT) for OUT <= 8.
+//   Each tile's rows are gathered in shared memory and stored as one
+//   contiguous run of tile x OUT values. Without the flag none of it is
+//   compiled in.
 // Mode::BLOCK: one block on x (B, N, 128) as it is, its residual stream out.
 // Mode::TRAIN: pre-LN, depth blocks with dropout after the out-projection
 //   (site 0) and on the GEGLU activations (site 1), post-LN; with p.acts set
@@ -60,6 +65,7 @@ constexpr int BOX_K128 = 128 * 128;       // bytes of a 128-row x 64-column box
 constexpr int BOX_K64 = 64 * 128;         // bytes of a 64-row x 64-column box
 constexpr int STAGE_BYTES = 2 * BOX_K128;
 constexpr int CONSUMER_REGS = 232, PRODUCER_REGS = 40;
+constexpr int MAX_OUT = 8;      // widest fused proj_out
 
 constexpr int OFF_RING = 0;
 constexpr int OFF_STASH = OFF_RING + STAGES * STAGE_BYTES;         // residual, 32 words a thread
@@ -69,7 +75,11 @@ constexpr int OFF_MASK = OFF_PIN + MAX_IN * D * 4;
 constexpr int OFF_BAR = OFF_MASK + 64;
 constexpr int SMEM_USED = OFF_BAR + 2 * STAGES * 8;
 constexpr int SMEM_BYTES = SMEM_USED + 1024;                       // room to align to 1024
-static_assert(SMEM_BYTES <= 232448, "over the 227 KB a block may use");
+// The tail's regions lie past the others, which keep their offsets.
+constexpr int OFF_POUT = SMEM_USED;                                // proj_out kernel, f32, padded
+constexpr int OFF_TAIL_OUT = OFF_POUT + D * MAX_OUT * 4;           // the tile's outputs, bf16
+constexpr int SMEM_BYTES_TAIL = OFF_TAIL_OUT + TILE * MAX_OUT * 2 + 1024;
+static_assert(SMEM_BYTES_TAIL <= 232448, "over the 227 KB a block may use");
 static_assert(CONSUMER_REGS * 128 * CONSUMERS + PRODUCER_REGS * 128 <= 65536, "register file");
 
 struct Params {
@@ -86,6 +96,9 @@ struct Params {
   float scale, keep_scale;  // TRAIN: keep_scale = 1 / (1 - p)
   unsigned int thresh;      // TRAIN: kept where the hash is below this
   int drop;                 // TRAIN: dropout on (p > 0)
+  const bf16* pout_w;       // TAIL: proj_out kernel (128, out_ch) bf16
+  const float* pout_b;      // TAIL: its bias (out_ch,) f32
+  int out_ch;               // TAIL: 1 .. MAX_OUT
 };
 
 __device__ __forceinline__ float round_bf16(float v) {
@@ -358,8 +371,41 @@ __device__ __forceinline__ void stage_kv(const Params& p, bf16* kv, float* mask,
   named_sync(1, CT);
 }
 
-// One of the four modes (see the note at the top).
-template <Mode MODE>
+// The tail: proj_out of the thread's two post-LN rows y into the tile's
+// staging rows (row0, row0 + 8) of out_ch values, f32 sums over the quad's
+// columns, rounded to bf16 once. pout is W_out as f32 (128, MAX_OUT), zero
+// past out_ch.
+__device__ __forceinline__ void tail_rows(const uint32_t (&y)[32], const float* pout,
+                                          const float* bias, int out_ch, int row0, int t,
+                                          bf16* stage) {
+  float acc[2][MAX_OUT];
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int o = 0; o < MAX_OUT; ++o) acc[r][o] = 0.0f;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const float* w = pout + (8 * j + 2 * t) * MAX_OUT;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float2 v = unpack_bf16(y[2 * j + r]);
+#pragma unroll
+      for (int o = 0; o < MAX_OUT; ++o) acc[r][o] += v.x * w[o] + v.y * w[MAX_OUT + o];
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int o = 0; o < MAX_OUT; ++o) {
+      const float sum = quad_sum(acc[r][o]);
+      if ((o & 3) == t && o < out_ch)
+        stage[(row0 + 8 * r) * out_ch + o] = __float2bfloat16(sum + __ldg(bias + o));
+    }
+}
+
+// One of the four modes (see the note at the top); TAIL fuses proj_out into
+// TRUNK or HEADLESS.
+template <Mode MODE, bool TAIL = false>
 __device__ __forceinline__ void consume(const Params& p, unsigned char* smem, Ring ring) {
   const int tid = threadIdx.x, lane = tid & 31, g = lane >> 2, t = lane & 3;
   const int row0 = (tid >> 7) * 64 + ((tid >> 5) & 3) * 16 + g;  // rows row0, row0 + 8
@@ -370,11 +416,20 @@ __device__ __forceinline__ void consume(const Params& p, unsigned char* smem, Ri
 
   constexpr bool TRUNK = MODE == Mode::TRUNK, TRAIN = MODE == Mode::TRAIN, FFONLY = MODE == Mode::FF;
   constexpr bool PRE_LN = TRAIN || MODE == Mode::HEADLESS;  // x is h0: pre-LN it here
+  static_assert(!TAIL || TRUNK || MODE == Mode::HEADLESS, "the tail follows the trunk only");
   const size_t slot = (size_t)p.B * p.N * D;  // elements of one saved-activation slot
   if constexpr (TRUNK) {
     for (int i = tid; i < MAX_IN * D; i += CT) {
       const int c = i / D;
       pin[i] = c < p.in_ch ? __bfloat162float(p.pin_w[i]) : 0.0f;
+    }
+  }
+  [[maybe_unused]] float* pout = reinterpret_cast<float*>(smem + OFF_POUT);
+  [[maybe_unused]] bf16* stage = reinterpret_cast<bf16*>(smem + OFF_TAIL_OUT);
+  if constexpr (TAIL) {  // published by the first barrier of stage_kv
+    for (int i = tid; i < D * MAX_OUT; i += CT) {
+      const int o = i % MAX_OUT;
+      pout[i] = o < p.out_ch ? __bfloat162float(p.pout_w[(i / MAX_OUT) * p.out_ch + o]) : 0.0f;
     }
   }
 
@@ -488,11 +543,22 @@ __device__ __forceinline__ void consume(const Params& p, unsigned char* smem, Ri
       }
       layer_norm(h, y, p.post_scale, p.post_bias, t);
     }
-    store_rows(p.out, y, p, b, n0, row0, t);
+    if constexpr (TAIL) {
+      // The tile's rows in shared memory, then one contiguous run of
+      // rows x out_ch values. The next write to stage comes after the next
+      // tile's stage_kv barrier, which every consumer passes after its store.
+      tail_rows(y, pout, p.pout_b, p.out_ch, row0, t, stage);
+      named_sync(2, CT);
+      const int count = min(TILE, p.N - n0) * p.out_ch;
+      bf16* dst = p.out + ((size_t)b * p.N + n0) * p.out_ch;
+      for (int i = tid; i < count; i += CT) dst[i] = stage[i];
+    } else {
+      store_rows(p.out, y, p, b, n0, row0, t);
+    }
   }
 }
 
-template <Mode MODE>
+template <Mode MODE, bool TAIL = false>
 __global__ void __launch_bounds__(THREADS, 1) fused_core_kernel(const __grid_constant__ Params p) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
@@ -524,7 +590,7 @@ __global__ void __launch_bounds__(THREADS, 1) fused_core_kernel(const __grid_con
     }
   } else {
     setmaxnreg_inc<CONSUMER_REGS>();
-    consume<MODE>(p, smem, Ring{smem + OFF_RING, full, empty, 0});
+    consume<MODE, TAIL>(p, smem, Ring{smem + OFF_RING, full, empty, 0});
   }
 }
 
@@ -566,13 +632,15 @@ cudaError_t weight_map(CUtensorMap* map, const void* w, int depth, int rows, int
 
 // The wrapper's schedule: `grid` blocks walk B x tiles_per_row tiles. Refused
 // unless the tiles cover every token and every block has one. Mode::FF takes
-// no Wq or Wout (null).
-template <Mode MODE>
+// no Wq or Wout (null). TAIL also needs p.pout_w, p.pout_b and p.out_ch.
+template <Mode MODE, bool TAIL = false>
 cudaError_t launch(Params& p, int grid, int tiles_per_row, const void* wq, const void* wout,
                    const void* w1, const void* w2, cudaStream_t stream) {
   const long long total = (long long)p.B * tiles_per_row;
   if (tiles_per_row < 1 || (long long)tiles_per_row * TILE < p.N || total > 0x7fffffff ||
       grid < 1 || grid > total)
+    return cudaErrorInvalidValue;
+  if (TAIL && (p.out_ch < 1 || p.out_ch > MAX_OUT || !p.pout_w || !p.pout_b))
     return cudaErrorInvalidValue;
   p.tiles_per_row = tiles_per_row;
   p.total_tiles = (int)total;
@@ -583,11 +651,12 @@ cudaError_t launch(Params& p, int grid, int tiles_per_row, const void* wq, const
   }
   if (err == cudaSuccess) err = weight_map(&p.w1, w1, p.depth, D, 2 * FF, D);
   if (err == cudaSuccess) err = weight_map(&p.w2, w2, p.depth, FF, D, FC);
+  const int smem = TAIL ? SMEM_BYTES_TAIL : SMEM_BYTES;
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(fused_core_kernel<MODE>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+    err = cudaFuncSetAttribute(fused_core_kernel<MODE, TAIL>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  fused_core_kernel<MODE><<<grid, THREADS, SMEM_BYTES, stream>>>(p);
+  fused_core_kernel<MODE, TAIL><<<grid, THREADS, smem, stream>>>(p);
   return cudaGetLastError();
 }
 

@@ -38,6 +38,39 @@ shapenet_part_normal_cat_to_id = {
     "Table": "04379243",
 }
 
+# ShapeNet-55 taxonomy id -> category name: the completion loader's category
+# filter (data/custom.py:_ShapeNet55).
+shapenet55_id_to_cat = {
+    "02691156": "airplane", "02747177": "trash bin",
+    "02773838": "bag", "02801938": "basket",
+    "02808440": "bathtub", "02818832": "bed",
+    "02828884": "bench", "02843684": "birdhouse",
+    "02871439": "bookshelf", "02876657": "bottle",
+    "02880940": "bowl", "02924116": "bus",
+    "02933112": "cabinet", "02942699": "camera",
+    "02946921": "can", "02954340": "cap",
+    "02958343": "car", "02992529": "cellphone",
+    "03001627": "chair", "03046257": "clock",
+    "03085013": "keyboard", "03207941": "dishwasher",
+    "03211117": "display", "03261776": "earphone",
+    "03325088": "faucet", "03337140": "file cabinet",
+    "03467517": "guitar", "03513137": "helmet",
+    "03593526": "jar", "03624134": "knife",
+    "03636649": "lamp", "03642806": "laptop",
+    "03691459": "loudspeaker", "03710193": "mailbox",
+    "03759954": "microphone", "03761084": "microwaves",
+    "03790512": "motorbike", "03797390": "mug",
+    "03928116": "piano", "03938244": "pillow",
+    "03948459": "pistol", "03991062": "flowerpot",
+    "04004475": "printer", "04074963": "remote",
+    "04090263": "rifle", "04099429": "rocket",
+    "04225987": "skateboard", "04256520": "sofa",
+    "04330267": "stove", "04379243": "table",
+    "04401088": "telephone", "04460130": "tower",
+    "04468005": "train", "04530566": "watercraft",
+    "04554684": "washer",
+}
+
 # ShapeNet-Part per-category segmentation label ranges.
 seg_classes = {
     "Earphone": [16, 17, 18],

@@ -15,6 +15,12 @@ joining the context, and generation runs the kernel's head-less entry
 out of its kernel then (``denoiser.py:244-258``). At any other shape the
 blocks run one by one, as with two-attention blocks. proj_out is applied
 after the trunk with a matrix product, as in the JAX default (tail not fused).
+Generation reads the JAX denoiser's two switches at every call
+(``denoiser.py:244-252``): ``DIFFFACTO_FUSE_TAIL=1`` fuses proj_out into the
+trunk kernel (``fused_core_tail``, or ``fused_core_headless_tail`` without
+the head), and ``DIFFFACTO_FUSE_HEAD=0`` applies proj_in outside the kernel
+and runs the head-less entry. Their defaults are the JAX package's: head
+fused, tail not. Training reads neither.
 With two-attention blocks (``single_attn=False``) the blocks run one by one,
 each ending in ``FusedLNFF``, as the JAX package runs them
 (``denoiser.py:301-309``); in training with the unfused math and dropout, as
@@ -38,6 +44,8 @@ And of the latent denoisers over the K part tokens: ``LDMNet``
 
 from __future__ import annotations
 
+import os
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -47,7 +55,8 @@ from ..nn.functional import ln_affine
 from ..nn.layers import (Dense, FeedForward, GroupNorm, LayerNorm, default_generator,
                          timestep_embedding)
 from ..ops.fused_block import takes as trunk_kernel_takes
-from ..ops.fused_core import fused_core, fused_core_headless
+from ..ops.fused_core import (fused_core, fused_core_headless, fused_core_headless_tail,
+                              fused_core_tail)
 from ..ops.fused_core_train import fused_trunk_train
 from ..utils.device import kernel_dtype, resolve_device
 from ..utils.registry import NETS
@@ -184,25 +193,29 @@ class TransformerNet(nn.Module):
             x = torch.cat([x, F.one_hot(seg_mask.long(), self.n_class).to(x.dtype)], dim=-1)
         x_in = x
 
-        if not self.single_attn:
-            h = self._block_trunk(x, ctx, valid_id, cdt, train, generator, t_x)
-        elif not trunk_kernel_takes(self.n_heads * self.d_head, self.n_heads, ctx.shape[1]):
-            # the JAX package's per-block composition (denoiser.py:301-309)
-            h = self._block_trunk(x, ctx, valid_id, cdt, train, generator, t_x)
+        if self.single_attn and trunk_kernel_takes(self.n_heads * self.d_head, self.n_heads,
+                                                   ctx.shape[1]):
+            out = self._single_attention_trunk(x, ctx, valid_id, cdt, train, generator, t_x)
         else:
-            h = self._single_attention_trunk(x, ctx, valid_id, cdt, train, generator, t_x)
-        out = (h.to(cdt) @ self.proj_out.kernel.to(cdt) + self.proj_out.bias.to(cdt)).to(x.dtype)
+            # the two-attention trunk, or the JAX package's per-block
+            # composition at other shapes (denoiser.py:301-309)
+            out = self._proj_out(self._block_trunk(x, ctx, valid_id, cdt, train, generator, t_x),
+                                 cdt, x.dtype)
         if x_in.shape[-1] == out.shape[-1]:
             return out + x_in
         if self.res:
             return out + x_in[..., : out.shape[-1]]
         return out
 
+    def _proj_out(self, h, cdt, dtype):
+        return (h.to(cdt) @ self.proj_out.kernel.to(cdt) + self.proj_out.bias.to(cdt)).to(dtype)
+
     def _single_attention_trunk(self, x, ctx, valid_id, cdt, train, generator, t_embed=None):
         """The whole trunk as one kernel call, at the shapes
-        ``trunk_kernel_takes`` accepts: ``fused_core`` deterministically (its
-        head-less entry, on h0, with ``add_t_to_x``), ``fused_trunk_train`` in
-        training."""
+        ``trunk_kernel_takes`` accepts, and proj_out: ``fused_trunk_train``
+        in training; deterministically ``fused_core``, its head-less entry on
+        h0 with ``add_t_to_x`` or ``DIFFFACTO_FUSE_HEAD=0``, and either with
+        proj_out inside under ``DIFFFACTO_FUSE_TAIL=1`` (``denoiser.py:244-281``)."""
         B = x.shape[0]
         M = ctx.shape[1]
         kdt = kernel_dtype(x.device, cdt)  # bf16 on the card, whatever the module's dtype
@@ -215,14 +228,20 @@ class TransformerNet(nn.Module):
             mask = torch.ones(B, M, device=x.device)
         f32 = torch.float32
         if train:
-            return self._train_trunk(x, k, v, mask, cdt, generator, t_embed)
-        if t_embed is not None:
-            trunk, head = fused_core_headless, (
-                self._proj_in(x, cdt, t_embed).to(kdt).contiguous(),)
+            return self._proj_out(self._train_trunk(x, k, v, mask, cdt, generator, t_embed), cdt,
+                                  x.dtype)
+        fuse_head = t_embed is None and os.environ.get("DIFFFACTO_FUSE_HEAD", "1") == "1"
+        fuse_tail = os.environ.get("DIFFFACTO_FUSE_TAIL", "") == "1"
+        if fuse_head:
+            trunk = fused_core_tail if fuse_tail else fused_core
+            head = (x.to(kdt).contiguous(), self.proj_in.kernel.to(kdt), self.proj_in.bias.to(f32))
         else:
-            trunk, head = fused_core, (x.to(kdt).contiguous(), self.proj_in.kernel.to(kdt),
-                                       self.proj_in.bias.to(f32))
-        return trunk(
+            trunk = fused_core_headless_tail if fuse_tail else fused_core_headless
+            head = (self._proj_in(x, cdt, t_embed).to(kdt).contiguous(),)
+        tail = ()
+        if fuse_tail:
+            tail = (self.proj_out.kernel.to(kdt).contiguous(), self.proj_out.bias.to(f32))
+        h = trunk(
             *head, k, v, mask.contiguous(),
             self.pre_norm.scale.to(kdt), self.pre_norm.bias.to(kdt),
             self.post_norm.scale.to(kdt), self.post_norm.bias.to(kdt),
@@ -230,9 +249,10 @@ class TransformerNet(nn.Module):
             self._stacked("wq", kdt), self._stacked("wout", kdt), self._stacked("bout", f32),
             self._stacked("ffn_ln_scale", kdt), self._stacked("ffn_ln_bias", kdt),
             self._stacked("ffn_w1", kdt), self._stacked("ffn_b1", f32),
-            self._stacked("ffn_w2", kdt), self._stacked("ffn_b2", f32),
+            self._stacked("ffn_w2", kdt), self._stacked("ffn_b2", f32), *tail,
             self.d_head**-0.5,
         )
+        return h.to(x.dtype) if fuse_tail else self._proj_out(h, cdt, x.dtype)
 
 
 @NETS.register_module()

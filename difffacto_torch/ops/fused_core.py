@@ -18,6 +18,14 @@ entry point of the same kernel (``Mode::HEADLESS`` of ``csrc/trunk.cuh``) and
 counts its launches in ``launches_headless``; its plain version is
 ``fused_core_reference`` with ``pin_w=None``.
 
+``fused_core_tail`` and ``fused_core_headless_tail`` are those two with
+proj_out fused (the TPU kernel's ``has_tail=True`` forms, which the JAX
+denoiser takes under ``DIFFFACTO_FUSE_TAIL=1``): after the post-LN each
+token's row goes through bf16(LN(h) W_out + b_out) with f32 sums, and the
+kernel writes (B, N, OUT) for OUT <= 8. They count their launches in
+``launches_tail`` and ``launches_headless_tail``; their plain version is
+``fused_core_reference`` with ``pout_w`` and ``pout_b``.
+
 The kernel is persistent: ``schedule`` computes its walk over (batch row,
 128-token tile) work items, and the kernel walks the grid and the tiles per
 row it is given.
@@ -36,24 +44,28 @@ from . import _build
 from .fused_block import fused_block_reference, takes
 
 # The kernel's fixed shapes (csrc/fused_core.cu).
-D, HEADS, CTX, FF, MAX_IN = 128, 8, 4, 512, 16
+D, HEADS, CTX, FF, MAX_IN, MAX_OUT = 128, 8, 4, 512, 16, 8
 TILE = 128  # tokens per work item
 
 launches = 0  # kernel launches since the caller last set it to 0
 launches_headless = 0  # the same for the head-less entry
+launches_tail = 0  # the same for the entry with proj_out fused
+launches_headless_tail = 0  # and for the head-less one with proj_out fused
 
 
 def fused_core_reference(x, pin_w, pin_b, k, v, mask, pre_scale, pre_bias, post_scale,
                          post_bias, n2_scale, n2_bias, wq, wout, bout, ff_scale, ff_bias,
-                         w1, b1, w2, b2, scale: float, heads: int = HEADS) -> torch.Tensor:
+                         w1, b1, w2, b2, scale: float, heads: int = HEADS, pout_w=None,
+                         pout_b=None) -> torch.Tensor:
     """Plain PyTorch trunk with the kernel's arithmetic.
 
     x (B, N, IN) in the compute dtype; pin_w (IN, D), or None for the
     head-less trunk, whose x is h0 (B, N, D); k, v (depth, B, M, D)
     with D split into ``heads`` heads; mask (B, M); per-block parameters
-    stacked on a leading depth axis. Every
-    product accumulates in f32 and LayerNorm statistics are f32; results
-    round to x's dtype where the Pallas kernel rounds. Returns (B, N, D).
+    stacked on a leading depth axis; pout_w (D, OUT) and pout_b (OUT,) fuse
+    proj_out (the tail). Every product accumulates in f32 and LayerNorm
+    statistics are f32; results round to x's dtype where the Pallas kernel
+    rounds. Returns (B, N, D), or (B, N, OUT) with the tail.
     """
     h = x if pin_w is None else (x.float() @ pin_w.float() + pin_b.float()).to(x.dtype)
     h = ln_affine(h, pre_scale, pre_bias)
@@ -61,7 +73,10 @@ def fused_core_reference(x, pin_w, pin_b, k, v, mask, pre_scale, pre_bias, post_
         h = fused_block_reference(h, k[i], v[i], mask, n2_scale[i], n2_bias[i], wq[i], wout[i],
                                   bout[i], ff_scale[i], ff_bias[i], w1[i], b1[i], w2[i], b2[i],
                                   scale, heads)
-    return ln_affine(h, post_scale, post_bias)
+    h = ln_affine(h, post_scale, post_bias)
+    if pout_w is None:
+        return h
+    return (h.float() @ pout_w.float() + pout_b.float()).to(x.dtype)
 
 
 F32_OPERANDS = ("pin_b", "mask", "bout", "b1", "b2")
@@ -126,38 +141,7 @@ def fused_core(x, pin_w, pin_b, k, v, mask, pre_scale, pre_bias, post_scale, pos
     for tensors on the CPU. On the card every operand is bf16 except the
     biases pin_b, bout, b1, b2 and the mask, which are f32, and the shapes
     are those ``takes`` accepts (others raise ``NotImplementedError``)."""
-    global launches
-    args = (x, pin_w, pin_b, k, v, mask, pre_scale, pre_bias, post_scale, post_bias,
-            n2_scale, n2_bias, wq, wout, bout, ff_scale, ff_bias, w1, b1, w2, b2)
-    if x.device.type == "cpu":
-        return fused_core_reference(*args, scale, heads)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_core: no kernel for device {x.device}")
-    B, N, in_ch = x.shape
-    depth = wq.shape[0]
-    if not takes(k.shape[-1], heads, k.shape[2]):
-        raise NotImplementedError(
-            f"fused_core: the kernel takes D={D}, {HEADS} heads and M={CTX} context tokens; "
-            f"got D={k.shape[-1]}, {heads} heads, M={k.shape[2]}")
-    if not 1 <= in_ch <= MAX_IN:
-        raise ValueError(f"fused_core: input width {in_ch} is outside 1..{MAX_IN}")
-    if depth < 1:
-        raise ValueError(f"fused_core: depth {depth} is below 1")
-    bf, f32 = torch.bfloat16, torch.float32
-    shapes = (("x", (B, N, in_ch), bf), ("pin_w", (in_ch, D), bf),
-              ("pin_b", (D,), f32)) + _trunk_shapes(B, depth)
-    _build.check_operands("fused_core", shapes, args)
-    lib = _library()
-    out = torch.empty((B, N, D), dtype=bf, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.difffacto_fused_core(
-            *(t.data_ptr() for t in args), out.data_ptr(), B, N, in_ch, depth, float(scale),
-            *launch_schedule(B, N, x.device), stream
-        )
-    _build.check_launch(lib, "fused_core", rc)
-    launches += 1
-    return out
+    return _trunk("fused_core", x, (pin_w, pin_b), _rest(locals()), None, scale, heads)
 
 
 def fused_core_headless(x, k, v, mask, pre_scale, pre_bias, post_scale, post_bias, n2_scale,
@@ -166,32 +150,91 @@ def fused_core_headless(x, k, v, mask, pre_scale, pre_bias, post_scale, post_bia
     """The trunk without proj_in: x is h0 (B, N, 128). The CUDA kernel's
     head-less entry for tensors on the card, ``fused_core_reference`` with
     ``pin_w=None`` for tensors on the CPU; operands as ``fused_core``'s."""
-    global launches_headless
-    rest = (k, v, mask, pre_scale, pre_bias, post_scale, post_bias, n2_scale, n2_bias, wq, wout,
-            bout, ff_scale, ff_bias, w1, b1, w2, b2)
+    return _trunk("fused_core_headless", x, None, _rest(locals()), None, scale, heads)
+
+
+def fused_core_tail(x, pin_w, pin_b, k, v, mask, pre_scale, pre_bias, post_scale, post_bias,
+                    n2_scale, n2_bias, wq, wout, bout, ff_scale, ff_bias, w1, b1, w2, b2,
+                    pout_w, pout_b, scale: float, heads: int = HEADS) -> torch.Tensor:
+    """``fused_core`` with proj_out fused: pout_w (128, OUT) bf16 and pout_b
+    (OUT,) f32 on the card, OUT <= 8; returns (B, N, OUT)."""
+    return _trunk("fused_core_tail", x, (pin_w, pin_b), _rest(locals()), (pout_w, pout_b),
+                  scale, heads)
+
+
+def fused_core_headless_tail(x, k, v, mask, pre_scale, pre_bias, post_scale, post_bias,
+                             n2_scale, n2_bias, wq, wout, bout, ff_scale, ff_bias, w1, b1, w2,
+                             b2, pout_w, pout_b, scale: float, heads: int = HEADS) -> torch.Tensor:
+    """``fused_core_headless`` with proj_out fused, as ``fused_core_tail``."""
+    return _trunk("fused_core_headless_tail", x, None, _rest(locals()), (pout_w, pout_b),
+                  scale, heads)
+
+
+_REST = ("k", "v", "mask", "pre_scale", "pre_bias", "post_scale", "post_bias", "n2_scale",
+         "n2_bias", "wq", "wout", "bout", "ff_scale", "ff_bias", "w1", "b1", "w2", "b2")
+
+
+def _rest(args: dict) -> tuple:
+    """The operands every entry shares, in the kernel's order, from an
+    entry's arguments."""
+    return tuple(args[n] for n in _REST)
+
+
+# Each entry's launch counter.
+_COUNTERS = {"fused_core": "launches", "fused_core_headless": "launches_headless",
+             "fused_core_tail": "launches_tail",
+             "fused_core_headless_tail": "launches_headless_tail"}
+
+
+def _trunk(name, x, head, rest, tail, scale, heads):
+    """One of the four entries: head (pin_w, pin_b) or None for the head-less
+    trunk, tail (pout_w, pout_b) or None. The plain version on the CPU, the
+    kernel's ``difffacto_<name>`` on the card, counted in its counter."""
+    pin_w, pin_b = head or (None, None)
+    pout_w, pout_b = tail or (None, None)
     if x.device.type == "cpu":
-        return fused_core_reference(x, None, None, *rest, scale, heads)
+        return fused_core_reference(x, pin_w, pin_b, *rest, scale, heads, pout_w=pout_w,
+                                    pout_b=pout_b)
     if x.device.type != "cuda":
-        raise ValueError(f"fused_core_headless: no kernel for device {x.device}")
-    B, N, width = x.shape
+        raise ValueError(f"{name}: no kernel for device {x.device}")
+    k, wq = rest[0], rest[9]
+    B, N, in_ch = x.shape
     depth = wq.shape[0]
-    if not takes(k.shape[-1], heads, k.shape[2]) or width != D:
+    if not takes(k.shape[-1], heads, k.shape[2]) or (head is None and in_ch != D):
         raise NotImplementedError(
-            f"fused_core_headless: the kernel takes D={D}, {HEADS} heads and M={CTX} context "
-            f"tokens; got x {width} wide, D={k.shape[-1]}, {heads} heads, M={k.shape[2]}")
+            f"{name}: the kernel takes D={D}, {HEADS} heads and M={CTX} context tokens; got "
+            f"x {in_ch} wide, D={k.shape[-1]}, {heads} heads, M={k.shape[2]}")
+    if head is not None and not 1 <= in_ch <= MAX_IN:
+        raise ValueError(f"{name}: input width {in_ch} is outside 1..{MAX_IN}")
     if depth < 1:
-        raise ValueError(f"fused_core_headless: depth {depth} is below 1")
-    shapes = (("x", (B, N, D), torch.bfloat16),) + _trunk_shapes(B, depth)
-    _build.check_operands("fused_core_headless", shapes, (x,) + rest)
+        raise ValueError(f"{name}: depth {depth} is below 1")
+    bf, f32 = torch.bfloat16, torch.float32
+    out_ch = D
+    shapes = (("x", (B, N, in_ch), bf),)
+    operands = (x,)
+    if head is not None:
+        shapes += (("pin_w", (in_ch, D), bf), ("pin_b", (D,), f32))
+        operands += head
+    shapes += _trunk_shapes(B, depth)
+    operands += tuple(rest)
+    if tail is not None:
+        out_ch = pout_w.shape[-1]
+        if pout_w.dim() != 2 or not 1 <= out_ch <= MAX_OUT:
+            raise ValueError(f"{name}: proj_out {tuple(pout_w.shape)} is not (128, 1..{MAX_OUT})")
+        shapes += (("pout_w", (D, out_ch), bf), ("pout_b", (out_ch,), f32))
+        operands += tail
+    _build.check_operands(name, shapes, operands)
     lib = _library()
-    out = torch.empty((B, N, D), dtype=torch.bfloat16, device=x.device)
+    out = torch.empty((B, N, out_ch), dtype=bf, device=x.device)
+    sizes = (B, N) + ((in_ch,) if head is not None else ()) + (depth,) + (
+        (out_ch,) if tail is not None else ())
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.difffacto_fused_core_headless(
-            x.data_ptr(), *(t.data_ptr() for t in rest), out.data_ptr(), B, N, depth,
-            float(scale), *launch_schedule(B, N, x.device), stream)
-    _build.check_launch(lib, "fused_core_headless", rc)
-    launches_headless += 1
+        rc = getattr(lib, f"difffacto_{name}")(
+            *(t.data_ptr() for t in operands), out.data_ptr(), *sizes, float(scale),
+            *launch_schedule(B, N, x.device), stream)
+    _build.check_launch(lib, name, rc)
+    globals()[_COUNTERS[name]] += 1
     return out
 
 
@@ -210,24 +253,26 @@ def _trunk_shapes(B: int, depth: int):
     )
 
 
+# Each entry's (pointer operands, int sizes) before (scale, grid, tiles_per_row, stream).
+_ENTRIES = {"difffacto_fused_core": (22, 4), "difffacto_fused_core_headless": (20, 3),
+            "difffacto_fused_core_tail": (24, 5), "difffacto_fused_core_headless_tail": (22, 4)}
+
+
 def _library() -> ctypes.CDLL:
     lib = _build.load("fused_core")
-    fn = lib.difffacto_fused_core
-    if not fn.argtypes:
-        fn.argtypes = ([ctypes.c_void_p] * 22 + [ctypes.c_int] * 4 + [ctypes.c_float]
-                       + [ctypes.c_int] * 2 + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
+    if not lib.difffacto_fused_core.argtypes:
+        for name, (pointers, ints) in _ENTRIES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = ([ctypes.c_void_p] * pointers + [ctypes.c_int] * ints
+                           + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+            fn.restype = ctypes.c_int
         lib.difffacto_cuda_error_string.argtypes = [ctypes.c_int]
         lib.difffacto_cuda_error_string.restype = ctypes.c_char_p
-        lib.difffacto_fused_core_headless.argtypes = (
-            [ctypes.c_void_p] * 20 + [ctypes.c_int] * 3 + [ctypes.c_float]
-            + [ctypes.c_int] * 2 + [ctypes.c_void_p])
-        lib.difffacto_fused_core_headless.restype = ctypes.c_int
-        lib.difffacto_fused_core_smem_bytes.argtypes = []
+        lib.difffacto_fused_core_smem_bytes.argtypes = [ctypes.c_int]
         lib.difffacto_fused_core_smem_bytes.restype = ctypes.c_int
     return lib
 
 
-def smem_bytes() -> int:
-    """Dynamic shared memory of one thread block of the kernel."""
-    return _library().difffacto_fused_core_smem_bytes()
+def smem_bytes(tail: bool = False) -> int:
+    """Dynamic shared memory of one thread block of the kernel (of a tail entry)."""
+    return _library().difffacto_fused_core_smem_bytes(int(tail))

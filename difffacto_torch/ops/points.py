@@ -2,7 +2,8 @@
 
 The counterpart of ``difffacto_tpu/ops/points.py``: ``gather_points``,
 ``gather_points_nd``, ``square_distance``, ``furthest_point_sample``,
-``fps`` and ``assign_anchor`` for the eval protocol; ``ball_query``,
+``fps`` and ``assign_anchor`` for the eval protocol;
+``furthest_point_sample_each`` for the data tools' clouds of many lengths; ``ball_query``,
 ``group_points``, ``three_nn`` and ``three_interpolate`` for PointNet++.
 The JAX package computes the last four in XLA, with no Pallas kernel, and
 here they are plain PyTorch, keeping the semantics of the original CUDA
@@ -13,6 +14,7 @@ All ops take batch-first tensors and run on the device their inputs lie on.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .fps import furthest_point_sample
@@ -57,6 +59,24 @@ def fps(data: torch.Tensor, number: int, ret_id: bool = False):
     out = gather_points_nd(data, idx)
     if ret_id:
         return out, idx
+    return out
+
+
+def furthest_point_sample_each(clouds, npoint: int, device) -> list:
+    """FPS indices of each of ``clouds`` (numpy (n_i, 3) arrays, n_i varying)
+    on ``device``: one launch for each group of clouds of equal length, as
+    FPS works cloud by cloud. Returns a list of (npoint,) int64 numpy
+    arrays, in the order of ``clouds``."""
+    groups = {}
+    for i, c in enumerate(clouds):
+        groups.setdefault(len(c), []).append(i)
+    out = [None] * len(clouds)
+    for members in groups.values():
+        xyz = torch.as_tensor(np.stack([np.asarray(clouds[i], np.float32) for i in members]),
+                              device=device)
+        idx = furthest_point_sample(xyz, npoint).cpu().numpy().astype(np.int64)
+        for row, i in enumerate(members):
+            out[i] = idx[row]
     return out
 
 

@@ -159,8 +159,11 @@ class Runner:
         # float32 on every device; the kernels cast their own operands to bf16
         self.model = build_from_cfg(cfgdict(cfg.model), MODELS, device=self.device,
                                     seed=self.seed)
-        self.train_loader, _ = build_from_cfg(cfgdict(cfg.dataset.train), DATASETS)
-        self.val_loader, _ = build_from_cfg(cfgdict(cfg.dataset.val), DATASETS)
+        # A loader that works on the device (ShapeNet's cropping) takes the runner's.
+        self.train_loader, _ = build_from_cfg(cfgdict(cfg.dataset.train), DATASETS,
+                                              device=self.device)
+        self.val_loader, _ = build_from_cfg(cfgdict(cfg.dataset.val), DATASETS,
+                                            device=self.device)
         self.iters_per_epoch = max(len(self.train_loader), 1)
         self._slim_train = bool(getattr(self.train_loader.dataset, "attn_from_seg", False))
         self._slim_val = bool(getattr(self.val_loader.dataset, "attn_from_seg", False))

@@ -478,20 +478,16 @@ def test_partglot_decoding_matches_jax(partglot_pair, method, monkeypatch):
 
 
 # --------------------------------------------------------------- registries
-# What is still to port: the DATASETS of the JAX package's data/custom.py.
-STILL_TO_PORT = {"DATASETS": {"CustomDataset", "PartglotTriplet", "Partnet", "ShapeNet",
-                              "ShapeNetPart", "ShapeNetParts", "ShapeNetSegSuperSegment",
-                              "ShapeNetSegSuperSegmentParglot", "ShapeNetSupSeg",
-                              "ShapeNetSupSegPartglot"}}
+# What is still to port: nothing.
+STILL_TO_PORT = {}
 
 
 @pytest.mark.parametrize("name", ["ENCODERS", "DECOMPOSERS", "SEGMENTORS", "OPTIMS", "MODELS",
                                   "NETS", "LOSSES", "DATASETS"])
 def test_registries_hold_the_jax_keys(name):
-    """Every key the JAX package registers is the port's, but the datasets
-    of ``data/custom.py``, still to port; the port registers nothing the JAX
-    package does not. ``MODELS`` and ``NETS`` are equal; ``LOSSES`` is empty
-    in both."""
+    """Every key the JAX package registers is the port's, and the port
+    registers nothing the JAX package does not: each registry is equal.
+    ``LOSSES`` is empty in both."""
     import difffacto_torch.data  # noqa: F401
     import difffacto_torch.metrics.common  # noqa: F401
     import difffacto_torch.models  # noqa: F401

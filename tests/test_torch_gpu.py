@@ -89,6 +89,72 @@ def test_fused_core_headless_matches_plain_version(cuda, B, N, depth):
     assert err.max().item() <= BF16_MAX_ABS and err.mean().item() <= BF16_MEAN_ABS
 
 
+def _tail(out_ch, seed, device):
+    rng = np.random.RandomState(seed)
+    w = torch.as_tensor(rng.randn(fc.D, out_ch) * fc.D**-0.5, dtype=torch.bfloat16, device=device)
+    b = torch.as_tensor(0.1 * rng.randn(out_ch), dtype=torch.float32, device=device)
+    return w, b
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("head", [True, False])
+@pytest.mark.parametrize("B, N, depth, out_ch", [(2, 2048, 5, 3), (2, 1000, 5, 6),
+                                                 (32, 2048, 5, 3), (1, 300, 10, 8),
+                                                 (3, 100, 2, 1)])
+def test_fused_core_tail_matches_plain_version(cuda, head, B, N, depth, out_ch):
+    """proj_out fused (B, N, OUT) with and without the head: a part absent,
+    a ragged N (the last tile's run shorter), many tiles a block, depth 10,
+    OUT = 1, 3, 6 and 8; each entry counted in its own counter alone.
+
+    The epilogue is held to one bf16 step against the plain proj_out of the
+    same entry's trunk without the tail (the same kernel code before the
+    epilogue, so the same rows; the 128-term f32 sums differ only in order).
+    End to end the output carries the trunk's own difference from its plain
+    version through one more product, and is held to the trunk's band up to
+    depth 5; at depth 10 the trunk alone reads a mean of 8.4e-4 against the
+    band's 1e-3 on an H100, and its tail 1.03e-3 at OUT = 8."""
+    mask = np.ones((B, fc.CTX), np.float32)
+    mask[B - 1, 2] = 0.0
+    args = fc.operands(fc.example_inputs(B, N, depth=depth, in_ch=13 if head else fc.D,
+                                         seed=N + out_ch, mask=mask), cuda, torch.bfloat16)
+    if not head:
+        args = [args[0]] + args[3:]
+    pw, pb = _tail(out_ch, out_ch, cuda)
+    entry = fc.fused_core_tail if head else fc.fused_core_headless_tail
+    bare = fc.fused_core if head else fc.fused_core_headless
+    counters = ("launches", "launches_headless", "launches_tail", "launches_headless_tail")
+    before = {c: getattr(fc, c) for c in counters}
+    got = entry(*args, pw, pb, DH**-0.5)
+    torch.cuda.synchronize()
+    moved = {c: getattr(fc, c) - before[c] for c in counters}
+    assert moved == {c: int(c == ("launches_tail" if head else "launches_headless_tail"))
+                     for c in counters}
+    assert got.shape == (B, N, out_ch) and got.dtype == torch.bfloat16
+    assert torch.isfinite(got.float()).all()
+    epilogue = (bare(*args, DH**-0.5).float() @ pw.float() + pb).to(torch.bfloat16)
+    torch.testing.assert_close(got.float(), epilogue.float(), rtol=2**-7, atol=2**-7)
+    if head:
+        want = fc.fused_core_reference(*args, DH**-0.5, pout_w=pw, pout_b=pb)
+    else:
+        want = fc.fused_core_reference(args[0], None, None, *args[1:], DH**-0.5, pout_w=pw,
+                                       pout_b=pb)
+    err = (got.float() - want.float()).abs()
+    steps = (got.float() - epilogue.float()).abs().max().item()
+    print(f"fused_core{'' if head else '_headless'}_tail B={B} N={N} depth={depth} OUT={out_ch}: "
+          f"against the plain version max abs err {err.max().item():.3e}, mean "
+          f"{err.mean().item():.3e}; against its trunk and a plain proj_out {steps:.3e}")
+    if depth <= 5:
+        assert err.max().item() <= BF16_MAX_ABS and err.mean().item() <= BF16_MEAN_ABS
+
+
+@pytest.mark.gpu
+def test_fused_core_tail_refuses_wide_outputs(cuda):
+    args = fc.operands(fc.example_inputs(B=1, N=64, depth=1), cuda, torch.bfloat16)
+    pw, pb = _tail(fc.MAX_OUT + 1, 0, cuda)
+    with pytest.raises(ValueError):
+        fc.fused_core_tail(*args, pw, pb, DH**-0.5)
+
+
 @pytest.mark.gpu
 def test_fused_core_refuses_float32(cuda):
     args = fc.operands(fc.example_inputs(B=1, N=64, depth=1), cuda, torch.float32)
