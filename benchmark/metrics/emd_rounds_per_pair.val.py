@@ -1,0 +1,18 @@
+"""The EMD auction's rounds a pair: the program's ``emd.rounds`` (the rounds
+the kernel ran, summed over its pairs) over its ``emd.pairs``, both counted
+in the traced window. Read from the program's recorder; a program without
+one gives nothing."""
+
+
+def read(info):
+    if not info.traced_s:
+        return None
+    try:
+        from difffacto_torch.utils import trace
+    except ImportError:
+        return None
+    counts = trace.counters()
+    pairs = counts.get("emd.pairs")
+    if not pairs:
+        return None
+    return counts.get("emd.rounds", 0) / pairs

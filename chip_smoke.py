@@ -308,6 +308,7 @@ Phases, each fatal (non-zero exit, no "ok" line):
 The last line is {"ok": true, "device": {...}}.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -327,6 +328,37 @@ PEAK_F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
 PEAK_SFU_OPS = PEAK_F32_FLOPS / 16
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 BATCH_CHECK, BATCH_TIMED, WARMUP, ITERS = 16, 256, 1, 3
+
+# The hand-written kernels, by the name of their launch counter in the
+# port's recorder (``difffacto_torch/utils/trace.py``: ``<kernel>.launches``).
+KERNELS = ("fused_core", "fused_core_headless", "fused_core_tail", "fused_core_headless_tail",
+           "fused_trunk_train_fwd", "fused_trunk_train_bwd", "emd_hybrid", "fps", "fused_ff",
+           "fused_block")
+_LAUNCH_ZERO = {}  # each kernel's recorder count where its launches were last set to 0
+
+
+def kernel_launches(*kernels) -> dict:
+    """{kernel: launches since ``zero_launches`` last named it} for
+    ``kernels`` (every kernel when none is named), read from the recorder."""
+    from difffacto_torch.utils import trace
+
+    now = trace.counters()
+    return {k: now.get(f"{k}.launches", 0) - _LAUNCH_ZERO.get(k, 0) for k in kernels or KERNELS}
+
+
+def zero_launches(*kernels):
+    """Count the launches of ``kernels`` (every kernel when none is named) from now."""
+    for k, n in kernel_launches(*kernels).items():
+        _LAUNCH_ZERO[k] = _LAUNCH_ZERO.get(k, 0) + n
+
+
+@contextlib.contextmanager
+def uncounted(*kernels):
+    """Leave the launches of ``kernels`` inside the block out of every later reading."""
+    before = kernel_launches(*kernels)
+    yield
+    for k, n in kernel_launches(*kernels).items():
+        _LAUNCH_ZERO[k] = _LAUNCH_ZERO.get(k, 0) + n - before[k]
 
 # bf16 kernel against its bf16 plain version: the two round at the same
 # points but sum in another order, so an intermediate may land one bf16 step
@@ -995,14 +1027,14 @@ def runner_phase(dev, fc, fct, fpsm, eh, ff, fb, keep):
             return out
         return run
 
+    counted = ("fused_core", "fused_trunk_train_fwd", "fused_trunk_train_bwd", "fps",
+               "emd_hybrid", "fused_ff", "fused_block")
+
     def zero():
-        fc.launches = fct.launches_fwd = fct.launches_bwd = 0
-        fpsm.launches = eh.launches = ff.launches = fb.launches = 0
+        zero_launches(*counted)
 
     def read():
-        return dict(fused_core=fc.launches, fused_trunk_train_fwd=fct.launches_fwd,
-                    fused_trunk_train_bwd=fct.launches_bwd, fps=fpsm.launches,
-                    emd_hybrid=eh.launches, fused_ff=ff.launches, fused_block=fb.launches)
+        return kernel_launches(*counted)
 
     from difffacto_torch.models import denoiser
 
@@ -1329,10 +1361,8 @@ def editing_phase(dev, fc, fct, fpsm, eh, ff, fb):
     from difffacto_torch.utils.torch_ingest import load_reference_checkpoint
 
     t_phase = time.perf_counter()
-    counters = dict(fused_core=(fc, "launches"), fused_trunk_train_fwd=(fct, "launches_fwd"),
-                    fused_trunk_train_bwd=(fct, "launches_bwd"), fps=(fpsm, "launches"),
-                    emd_hybrid=(eh, "launches"), fused_ff=(ff, "launches"),
-                    fused_block=(fb, "launches"))
+    counters = ("fused_core", "fused_trunk_train_fwd", "fused_trunk_train_bwd", "fps",
+                "emd_hybrid", "fused_ff", "fused_block")
     total = {k: 0 for k in counters}
     paths = {}
 
@@ -1340,14 +1370,13 @@ def editing_phase(dev, fc, fct, fpsm, eh, ff, fb):
         """Run fn with every count set to 0 just before and read just after;
         fail unless the counts are ``expect`` (a value, or a predicate); then
         time it again with device_busy for the idle share."""
-        for mod, attr in counters.values():
-            setattr(mod, attr, 0)
+        zero_launches(*counters)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts = {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
+        counts = kernel_launches(*counters)
         for k, v in counts.items():
             total[k] += v
         bad = {k: (counts[k], want) for k, want in expect.items()
@@ -1571,7 +1600,7 @@ def chain_phase(dev, fc, eh, noise_scale, checkpoint):
                                  generator=torch.Generator(device=dev).manual_seed(seed))["pred"]
 
     def counted(model, seed):
-        fc.launches = fc.launches_headless = 0
+        zero_launches("fused_core", "fused_core_headless")
         t0 = time.perf_counter()
         pred = generate(model, BATCH_TIMED, seed)
         torch.cuda.synchronize()
@@ -1579,7 +1608,7 @@ def chain_phase(dev, fc, eh, noise_scale, checkpoint):
         if tuple(pred.shape) != (BATCH_TIMED, 2048, 3) or not torch.isfinite(pred).all():
             fail(f"phase 11 generated {tuple(pred.shape)}, finite: "
                  f"{bool(torch.isfinite(pred).all())}")
-        return seconds, dict(fused_core=fc.launches, fused_core_headless=fc.launches_headless)
+        return seconds, kernel_launches("fused_core", "fused_core_headless")
 
     # DDIM-25, quad, eta 1
     model = build_model(noise_scale, dev, diffusion=DDIM)
@@ -1649,10 +1678,9 @@ def chain_phase(dev, fc, eh, noise_scale, checkpoint):
                       torch.bfloat16)
     hl = [ops[0]] + ops[3:]
     bound, by = trunk_bound_ms(hl, BATCH_TIMED * 2048 * fc.D * 2, in_ch=0, depth=5)
-    before = fc.launches_headless
-    ms = cuda_ms(lambda: fc.fused_core_headless(*hl, 0.25), 20)
+    with uncounted("fused_core_headless"):
+        ms = cuda_ms(lambda: fc.fused_core_headless(*hl, 0.25), 20)
     plain_ms = cuda_ms(lambda: fc.fused_core_reference(hl[0], None, None, *hl[1:], 0.25), 3)
-    fc.launches_headless = before
     res.update(headless_ms=ms, headless_plain_ms=plain_ms, headless_bound_ms=bound,
                headless_bound_by=by)
     print(f"fused_core_headless B={BATCH_TIMED} N=2048: {ms:.3f} ms, bound {bound:.3f} ms ({by}), "
@@ -1664,21 +1692,24 @@ def chain_phase(dev, fc, eh, noise_scale, checkpoint):
     tool = runpy.run_path(os.path.join(ROOT, "tools", "eval_ckpt_curve_torch.py"),
                           run_name="imported")
     with tempfile.TemporaryDirectory() as work:
-        fc.launches = eh.launches = 0
+        zero_launches("fused_core", "emd_hybrid")
         t0 = time.perf_counter()
         rows = tool["main"](["--config-file", write_scorer_config(work), "--ckpts", checkpoint,
                              "--ddim", "25", "--gen_num", str(RUNNER_GEN_NUM)])
         torch.cuda.synchronize()
         scorer_s = time.perf_counter() - t0
+    scorer_launches = kernel_launches("fused_core", "emd_hybrid")
     metrics = {k: v for k, v in rows[0].items() if k not in ("ckpt", "epoch", "steps", "eval_s")}
     print(f"eval_ckpt_curve_torch.py --ddim 25 on {os.path.basename(checkpoint)}: "
-          f"{scorer_s:.2f} s with the runner's build, launches fused_core {fc.launches}, "
-          f"emd_hybrid {eh.launches}")
+          f"{scorer_s:.2f} s with the runner's build, launches fused_core "
+          f"{scorer_launches['fused_core']}, emd_hybrid {scorer_launches['emd_hybrid']}")
     if (len(rows) != 1 or rows[0]["steps"] != 25 or len(metrics) != 12
             or not all(np.isfinite(v) for v in metrics.values())):
         fail(f"the scorer gave {rows}")
-    if fc.launches != 25 * -(-RUNNER_GEN_NUM // 128) or eh.launches == 0:
-        fail(f"the scorer launched the trunk {fc.launches} times and EMD {eh.launches}")
+    if (scorer_launches["fused_core"] != 25 * -(-RUNNER_GEN_NUM // 128)
+            or scorer_launches["emd_hybrid"] == 0):
+        fail(f"the scorer launched the trunk {scorer_launches['fused_core']} times and EMD "
+             f"{scorer_launches['emd_hybrid']}")
     res.update(scorer_s=scorer_s, scorer_row=rows[0])
     print(f"phase 11: {time.perf_counter() - t_phase:.1f} s")
     return res
@@ -1905,15 +1936,14 @@ def phase12(dev, fc, fct, fpsm, eh, ff, fb, checkpoint):
 
     t_phase = time.perf_counter()
 
+    counted = ("fused_core", "fused_core_headless", "fused_trunk_train_fwd",
+               "fused_trunk_train_bwd", "fps", "emd_hybrid", "fused_ff", "fused_block")
+
     def zero():
-        fc.launches = fc.launches_headless = fct.launches_fwd = fct.launches_bwd = 0
-        fpsm.launches = eh.launches = ff.launches = fb.launches = 0
+        zero_launches(*counted)
 
     def read():
-        return dict(fused_core=fc.launches, fused_core_headless=fc.launches_headless,
-                    fused_trunk_train_fwd=fct.launches_fwd, fused_trunk_train_bwd=fct.launches_bwd,
-                    fps=fpsm.launches, emd_hybrid=eh.launches, fused_ff=ff.launches,
-                    fused_block=fb.launches)
+        return kernel_launches(*counted)
 
     out = {}
     with tempfile.TemporaryDirectory() as work:
@@ -3316,44 +3346,43 @@ def p17_kernels(dev):
     pb = torch.as_tensor(0.1 * rng.randn(P17_OUT), dtype=torch.float32, device=dev)
     mask = np.ones((BATCH_TIMED, 4), np.float32)
     mask[1::3, 1] = mask[BATCH_TIMED - 1, 2] = 0.0
-    saved = {c: getattr(fc, c) for c in ("launches", "launches_headless", "launches_tail",
-                                         "launches_headless_tail")}
     out = {}
-    for name, head in (("fused_core_tail", True), ("fused_core_headless_tail", False)):
-        err = 0.0
-        for B, N, m in ((2, 1000, [[1, 1, 0, 1], [1, 1, 1, 1]]), (BATCH_TIMED, 2048, mask)):
-            ops = fc.operands(fc.example_inputs(B, N, depth=5, in_ch=13 if head else fc.D,
-                                                seed=N + head, mask=m), dev, torch.bfloat16)
-            if not head:
-                ops = [ops[0]] + ops[3:]
-            entry = getattr(fc, name)
-            got = entry(*ops, pw, pb, 0.25)
-            torch.cuda.synchronize()
-            want = entry_reference(name, ops + [pw, pb, 0.25])
-            if tuple(got.shape) != (B, N, P17_OUT):
-                fail(f"{name} gave {tuple(got.shape)}")
-            err = max(err, hold_bf16(f"{name} B={B} N={N} OUT={P17_OUT}", got, want))
-        bare = fc.fused_core if head else fc.fused_core_headless
-        pb16 = pb.to(torch.bfloat16)
-        runs = {"tail": lambda: entry(*ops, pw, pb, 0.25), "trunk": lambda: bare(*ops, 0.25),
-                "trunk_and_proj_out": lambda: bare(*ops, 0.25) @ pw + pb16}
-        times = {k: [] for k in runs}
-        for k in ("trunk", "trunk_and_proj_out", "tail", "tail", "trunk_and_proj_out", "trunk"):
-            times[k].append(cuda_ms(runs[k], 20))
-        ms = {k: float(np.mean(v)) for k, v in times.items()}
-        plain_ms = cuda_ms(lambda: entry_reference(name, ops + [pw, pb, 0.25]), 3)
-        bound, by = trunk_bound_ms(ops + [pw, pb], BATCH_TIMED * 2048 * P17_OUT * 2,
-                                   in_ch=13 if head else 0, depth=5, out_ch=P17_OUT)
-        out[name] = dict(max_abs_err=err, ms=ms["tail"], plain_ms=plain_ms, bound_ms=bound,
-                         bound_by=by, trunk_ms=ms["trunk"],
-                         trunk_and_proj_out_ms=ms["trunk_and_proj_out"])
-        print(f"{name} B={BATCH_TIMED} N=2048 OUT={P17_OUT}: {ms['tail']:.3f} ms, bound "
-              f"{bound:.3f} ms ({by}), {100 * bound / ms['tail']:.1f}% of roofline; without the "
-              f"tail {ms['trunk']:.3f} ms, and with proj_out after it {ms['trunk_and_proj_out']:.3f}"
-              f" ms (in turns, 20 launches each); plain version {plain_ms:.3f} ms")
-        del ops
-    for c, v in saved.items():
-        setattr(fc, c, v)
+    with uncounted("fused_core", "fused_core_headless", "fused_core_tail",
+                   "fused_core_headless_tail"):
+        for name, head in (("fused_core_tail", True), ("fused_core_headless_tail", False)):
+            err = 0.0
+            for B, N, m in ((2, 1000, [[1, 1, 0, 1], [1, 1, 1, 1]]), (BATCH_TIMED, 2048, mask)):
+                ops = fc.operands(fc.example_inputs(B, N, depth=5, in_ch=13 if head else fc.D,
+                                                    seed=N + head, mask=m), dev, torch.bfloat16)
+                if not head:
+                    ops = [ops[0]] + ops[3:]
+                entry = getattr(fc, name)
+                got = entry(*ops, pw, pb, 0.25)
+                torch.cuda.synchronize()
+                want = entry_reference(name, ops + [pw, pb, 0.25])
+                if tuple(got.shape) != (B, N, P17_OUT):
+                    fail(f"{name} gave {tuple(got.shape)}")
+                err = max(err, hold_bf16(f"{name} B={B} N={N} OUT={P17_OUT}", got, want))
+            bare = fc.fused_core if head else fc.fused_core_headless
+            pb16 = pb.to(torch.bfloat16)
+            runs = {"tail": lambda: entry(*ops, pw, pb, 0.25), "trunk": lambda: bare(*ops, 0.25),
+                    "trunk_and_proj_out": lambda: bare(*ops, 0.25) @ pw + pb16}
+            times = {k: [] for k in runs}
+            for k in ("trunk", "trunk_and_proj_out", "tail", "tail", "trunk_and_proj_out", "trunk"):
+                times[k].append(cuda_ms(runs[k], 20))
+            ms = {k: float(np.mean(v)) for k, v in times.items()}
+            plain_ms = cuda_ms(lambda: entry_reference(name, ops + [pw, pb, 0.25]), 3)
+            bound, by = trunk_bound_ms(ops + [pw, pb], BATCH_TIMED * 2048 * P17_OUT * 2,
+                                       in_ch=13 if head else 0, depth=5, out_ch=P17_OUT)
+            out[name] = dict(max_abs_err=err, ms=ms["tail"], plain_ms=plain_ms, bound_ms=bound,
+                             bound_by=by, trunk_ms=ms["trunk"],
+                             trunk_and_proj_out_ms=ms["trunk_and_proj_out"])
+            print(f"{name} B={BATCH_TIMED} N=2048 OUT={P17_OUT}: {ms['tail']:.3f} ms, bound "
+                  f"{bound:.3f} ms ({by}), {100 * bound / ms['tail']:.1f}% of roofline; without "
+                  f"the tail {ms['trunk']:.3f} ms, and with proj_out after it "
+                  f"{ms['trunk_and_proj_out']:.3f} ms (in turns, 20 launches each); plain "
+                  f"version {plain_ms:.3f} ms")
+            del ops
     torch.cuda.empty_cache()
     return out
 
@@ -3735,22 +3764,10 @@ def mg_gen_draws(device, steps):
 
 
 def mg_counts(zero=False):
-    from difffacto_torch.ops import emd_hybrid as eh
-    from difffacto_torch.ops import fps as fpsm
-    from difffacto_torch.ops import fused_block as fb
-    from difffacto_torch.ops import fused_core as fc
-    from difffacto_torch.ops import fused_core_train as fct
-    from difffacto_torch.ops import fused_ff as ff
-
+    """Every kernel's launches, set to 0 first with ``zero``."""
     if zero:
-        fc.launches = fc.launches_headless = fct.launches_fwd = fct.launches_bwd = 0
-        fc.launches_tail = fc.launches_headless_tail = 0
-        fpsm.launches = eh.launches = ff.launches = fb.launches = 0
-    return dict(fused_core=fc.launches, fused_core_headless=fc.launches_headless,
-                fused_core_tail=fc.launches_tail, fused_core_headless_tail=fc.launches_headless_tail,
-                fused_trunk_train_fwd=fct.launches_fwd, fused_trunk_train_bwd=fct.launches_bwd,
-                emd_hybrid=eh.launches, fps=fpsm.launches, fused_ff=ff.launches,
-                fused_block=fb.launches)
+        zero_launches()
+    return kernel_launches()
 
 
 def mg_flat(tensors):
@@ -4310,11 +4327,11 @@ def main():
     for noise_scale in (100, 1):
         model = build_model(noise_scale, dev)
         valid = torch.ones(BATCH_CHECK, 4, device=dev)
-        fc.launches = 0
+        zero_launches("fused_core")
         out = sample_generation(model, BATCH_CHECK, valid_id=valid,
                                 generator=torch.Generator(device=dev).manual_seed(0))
         torch.cuda.synchronize()
-        launches = fc.launches
+        launches = kernel_launches("fused_core")["fused_core"]
         pred = out["pred"]
         if torch.isfinite(pred).all():
             break
@@ -4427,8 +4444,7 @@ def main():
         return out
 
     ev.emd_cost_eval = timed_emd_cost_eval
-    fc.launches = fpsm.launches = eh.launches = 0
-    fct.launches_fwd = fct.launches_bwd = 0
+    zero_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     gen = generate_samples(model, num_gen=S, batch=S, seed=0)
@@ -4438,7 +4454,7 @@ def main():
     metrics = evaluate_gen(gen, refs)
     torch.cuda.synchronize()
     t_eval = time.perf_counter() - t0
-    counts = dict(fused_core=fc.launches, fps=fpsm.launches, emd_hybrid=eh.launches)
+    counts = kernel_launches("fused_core", "fps", "emd_hybrid")
     ev.emd_cost_eval = emd_cost_eval
     phase6 = dict(gen=gen, refs=refs, metrics=metrics)
 
@@ -4557,8 +4573,7 @@ def main():
     state = init_train_state(tmodel, tx)
     step = make_train_step(tmodel, tx)
     batch = to_device(example_batch(TRAIN_BATCH, 2048), dev)
-    fc.launches = fpsm.launches = eh.launches = 0
-    fct.launches_fwd = fct.launches_bwd = 0
+    zero_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     history = []
@@ -4566,11 +4581,11 @@ def main():
         state, metrics = step(state, batch, 0, 0)
         history.append(metrics)
     torch.cuda.synchronize()
-    train_counts = dict(fused_trunk_train_fwd=fct.launches_fwd, fused_trunk_train_bwd=fct.launches_bwd)
+    train_counts = kernel_launches("fused_trunk_train_fwd", "fused_trunk_train_bwd")
     history = [{k: float(v) for k, v in m.items()} for m in history]
     print(f"{TRAIN_STEPS} steps at batch {TRAIN_BATCH} x 2048 in {time.perf_counter() - t0:.2f} s; "
           f"launches {train_counts}; other kernels "
-          f"{dict(fused_core=fc.launches, fps=fpsm.launches, emd_hybrid=eh.launches)}")
+          f"{kernel_launches('fused_core', 'fps', 'emd_hybrid')}")
     for i in (0, 1, 2, TRAIN_STEPS - 1):
         print(f"  step {i}: " + json.dumps({k: round(v, 5) for k, v in sorted(history[i].items())}))
     print("  total_loss by step: " + " ".join(f"{m['total_loss']:.3f}" for m in history))
@@ -4651,19 +4666,19 @@ def main():
                 y.backward(dy)
         return y.detach().float(), [t.grad.float() for t in (xr, kr, vr, *pr)] if backward else None
 
-    before_f, before_b = fct.launches_fwd, fct.launches_bwd
-    y_k, acts = fct.launch_forward(ops, seed_t, launch, save=True)
-    y_k = y_k.float()
-    dx_k, g_k = fct.launch_backward(ops, acts, dy, seed_t, launch)
-    torch.cuda.synchronize()
-    fe, be = hold_train(f"B={TRAIN_BATCH} N=2048 p=0.2 ({launch[0] * 2048 // fct.TILE} tiles)",
-                        y_k, [dx_k.float()] + g_k, *plain(True))
-    train_fwd_err, train_bwd_err = max(train_fwd_err, fe), max(train_bwd_err, be)
-    del y_k, dx_k, g_k
-    # The forward as the step runs it: saving the activations for the backward.
-    fwd_ms = cuda_ms(lambda: fct.launch_forward(ops, seed_t, launch, save=True), 10)
-    bwd_ms = cuda_ms(lambda: fct.launch_backward(ops, acts, dy, seed_t, launch), 5)
-    fct.launches_fwd, fct.launches_bwd = before_f, before_b
+    with uncounted("fused_trunk_train_fwd", "fused_trunk_train_bwd"):
+        y_k, acts = fct.launch_forward(ops, seed_t, launch, save=True)
+        y_k = y_k.float()
+        dx_k, g_k = fct.launch_backward(ops, acts, dy, seed_t, launch)
+        torch.cuda.synchronize()
+        tiles = launch[0] * 2048 // fct.TILE
+        fe, be = hold_train(f"B={TRAIN_BATCH} N=2048 p=0.2 ({tiles} tiles)",
+                            y_k, [dx_k.float()] + g_k, *plain(True))
+        train_fwd_err, train_bwd_err = max(train_fwd_err, fe), max(train_bwd_err, be)
+        del y_k, dx_k, g_k
+        # The forward as the step runs it: saving the activations for the backward.
+        fwd_ms = cuda_ms(lambda: fct.launch_forward(ops, seed_t, launch, save=True), 10)
+        bwd_ms = cuda_ms(lambda: fct.launch_backward(ops, acts, dy, seed_t, launch), 5)
 
     plain_fwd_ms = cuda_ms(lambda: plain(False), 2)
     plain_bwd_ms = cuda_ms(lambda: plain(True), 2) - plain_fwd_ms
@@ -4785,11 +4800,11 @@ def main():
     valid = torch.ones(BATCH_CHECK, 4, device=dev)
     for noise_scale in (100, 1):
         model = build_model(noise_scale, dev, single_attn=False)
-        ff.launches = fc.launches = fb.launches = 0
+        zero_launches("fused_ff", "fused_core", "fused_block")
         pred = sample_generation(model, BATCH_CHECK, valid_id=valid,
                                  generator=torch.Generator(device=dev).manual_seed(0))["pred"]
         torch.cuda.synchronize()
-        two_counts = dict(fused_ff=ff.launches, fused_core=fc.launches, fused_block=fb.launches)
+        two_counts = kernel_launches("fused_ff", "fused_core", "fused_block")
         if torch.isfinite(pred).all():
             break
         print(f"non-finite samples at aligner noise_scale {noise_scale}; lowering it to 1")
@@ -4830,13 +4845,13 @@ def main():
     sample_generation(model, TWO_ATTN_BATCH_TIMED, valid_id=valid, generator=gen)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ff.launches = 0
+    zero_launches("fused_ff")
     t0 = time.perf_counter()
     for _ in range(TWO_ATTN_ITERS):
         sample_generation(model, TWO_ATTN_BATCH_TIMED, valid_id=valid, generator=gen)
     torch.cuda.synchronize()
     two_dt = (time.perf_counter() - t0) / TWO_ATTN_ITERS
-    two_per_gen = ff.launches / TWO_ATTN_ITERS
+    two_per_gen = kernel_launches("fused_ff")["fused_ff"] / TWO_ATTN_ITERS
     two_peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"two-attention gen_chair batch {TWO_ATTN_BATCH_TIMED}: "
           f"{TWO_ATTN_BATCH_TIMED / two_dt:.2f} shapes/s ({two_dt:.3f} s per batch), peak memory "
@@ -4850,11 +4865,11 @@ def main():
     # UNet: one forward at full size, counted; then batch 2 against the CPU.
     unet = build_unet(dev)
     x, t, ctx, vid = unet_inputs(UNET_BATCH, dev, seed=2)
-    fb.launches = 0
+    zero_launches("fused_block")
     with torch.inference_mode():
         y = unet(x, t, ctx, valid_id=vid)
     torch.cuda.synchronize()
-    unet_launches = fb.launches
+    unet_launches = kernel_launches("fused_block")["fused_block"]
     print(f"UNet B={UNET_BATCH} N=2048: out {tuple(y.shape)} {y.dtype}, fused_block launches "
           f"{unet_launches} (expected {len(unet.prior_blocks)})")
     if tuple(y.shape) != (UNET_BATCH, 2048, 3) or not torch.isfinite(y).all():
@@ -4878,16 +4893,15 @@ def main():
 
     # The two kernels at the main paths' shapes, with their plain versions and bounds.
     args = ff_operands(128, TWO_ATTN_BATCH_TIMED * 2048, dev, seed=5)
-    before = ff.launches
-    ff_bound, ff_by = ff_bound_ms(args, args[0].numel() * 2)
-    ff_ms = cuda_ms(lambda: ff.fused_ln_geglu_ff(*args), 20)
-    ff_plain_ms = cuda_ms(lambda: ff.fused_ln_geglu_ff_reference(*args), 3)
-    args256 = ff_operands(256, 4 * TWO_ATTN_BATCH_TIMED, dev, seed=6)
-    ff_ms_256 = cuda_ms(lambda: ff.fused_ln_geglu_ff(*args256), 20)
-    ff_graph_ms_256 = graph_ms(lambda: ff.fused_ln_geglu_ff(*args256), 20)
-    ff_plain_ms_256 = cuda_ms(lambda: ff.fused_ln_geglu_ff_reference(*args256), 20)
-    ff_bound_256 = ff_bound_ms(args256, args256[0].numel() * 2)[0]
-    ff.launches = before
+    with uncounted("fused_ff"):
+        ff_bound, ff_by = ff_bound_ms(args, args[0].numel() * 2)
+        ff_ms = cuda_ms(lambda: ff.fused_ln_geglu_ff(*args), 20)
+        ff_plain_ms = cuda_ms(lambda: ff.fused_ln_geglu_ff_reference(*args), 3)
+        args256 = ff_operands(256, 4 * TWO_ATTN_BATCH_TIMED, dev, seed=6)
+        ff_ms_256 = cuda_ms(lambda: ff.fused_ln_geglu_ff(*args256), 20)
+        ff_graph_ms_256 = graph_ms(lambda: ff.fused_ln_geglu_ff(*args256), 20)
+        ff_plain_ms_256 = cuda_ms(lambda: ff.fused_ln_geglu_ff_reference(*args256), 20)
+        ff_bound_256 = ff_bound_ms(args256, args256[0].numel() * 2)[0]
     print(f"fused_ff T={args[0].shape[0]} D=128: {ff_ms:.3f} ms, bound {ff_bound:.3f} ms "
           f"({ff_by}), {100 * ff_bound / ff_ms:.1f}% of roofline; plain version "
           f"{ff_plain_ms:.3f} ms; 500 launches are "
@@ -4899,11 +4913,10 @@ def main():
     mask = np.ones((UNET_BATCH, fb.CTX), np.float32)
     mask[::3, 1] = 0.0
     args = fc.operands(fb.example_inputs(UNET_BATCH, 2048, seed=7, mask=mask), dev, torch.bfloat16)
-    before = fb.launches
-    block_bound, block_by = block_bound_ms(args, args[0].numel() * 2)
-    block_ms = cuda_ms(lambda: fb.fused_block(*args, 0.25), 20)
-    block_plain_ms = cuda_ms(lambda: fb.fused_block_reference(*args, 0.25), 3)
-    fb.launches = before
+    with uncounted("fused_block"):
+        block_bound, block_by = block_bound_ms(args, args[0].numel() * 2)
+        block_ms = cuda_ms(lambda: fb.fused_block(*args, 0.25), 20)
+        block_plain_ms = cuda_ms(lambda: fb.fused_block_reference(*args, 0.25), 3)
     print(f"fused_block B={UNET_BATCH} N=2048: {block_ms:.3f} ms, bound {block_bound:.3f} ms "
           f"({block_by}), {100 * block_bound / block_ms:.1f}% of roofline; plain version "
           f"{block_plain_ms:.3f} ms; 5 launches are {100 * 5 * block_ms / unet_ms:.1f}% of the "

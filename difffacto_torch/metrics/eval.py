@@ -42,6 +42,7 @@ from ..ops.chamfer import chamfer_split
 from ..ops.emd import emd_cost_eval, resolved_emd_eval_config
 from ..ops.points import fps, gather_points_nd
 from ..parallel.mesh import all_gather_cat
+from ..utils import trace
 from ..utils.device import resolve_device
 from .iou import aabb_iou
 
@@ -297,14 +298,19 @@ def compute_all_metrics(
     key fingerprints the ref bytes and every knob that changes the values
     (batch size, EMD impl/eps/iters, sweep mode, device kind), so a stale hit
     is impossible.
+
+    Each sweep is recorded as a span ``sweep`` (``utils/trace.py``) whose
+    ``block`` is ``rs`` (ref x sample), ``ss`` or ``rr`` (only where the
+    cache misses); each ends with its matrices on the host.
     """
     dev = resolve_device(device)
     sample_pcs, ref_pcs = _to_np(sample_pcs), _to_np(ref_pcs)
     results: Dict[str, float] = {}
-    M_rs_cd, M_rs_emd = pairwise_cd_emd(
-        ref_pcs, sample_pcs, batch_size, compute_emd=compute_emd, mask_ref=mask, device=dev,
-        mesh=mesh,
-    )
+    with trace.span("sweep", block="rs"):
+        M_rs_cd, M_rs_emd = pairwise_cd_emd(
+            ref_pcs, sample_pcs, batch_size, compute_emd=compute_emd, mask_ref=mask, device=dev,
+            mesh=mesh,
+        )
     for name, M in (("CD", M_rs_cd), ("EMD", M_rs_emd)):
         if not compute_emd and name == "EMD":
             continue
@@ -328,17 +334,18 @@ def compute_all_metrics(
             _emd_config(dev) if compute_emd else None,
         )
 
-    def self_sweep(pts, m):
-        if symmetric:
-            return pairwise_self_cd_emd(pts, batch_size, compute_emd=compute_emd, mask=m,
-                                        device=dev, mesh=mesh)
-        return pairwise_cd_emd(pts, pts, batch_size, compute_emd=compute_emd,
-                               mask_sample=m, mask_ref=m, device=dev, mesh=mesh)
+    def self_sweep(pts, m, block):
+        with trace.span("sweep", block=block):
+            if symmetric:
+                return pairwise_self_cd_emd(pts, batch_size, compute_emd=compute_emd, mask=m,
+                                            device=dev, mesh=mesh)
+            return pairwise_cd_emd(pts, pts, batch_size, compute_emd=compute_emd,
+                                   mask_sample=m, mask_ref=m, device=dev, mesh=mesh)
 
     if cache_key is not None and cache_key in ref_self_cache:
         M_rr_cd, M_rr_emd = ref_self_cache[cache_key]
     else:
-        M_rr_cd, M_rr_emd = self_sweep(ref_pcs, None)
+        M_rr_cd, M_rr_emd = self_sweep(ref_pcs, None, "rr")
         if cache_key is not None:
             ref_self_cache[cache_key] = (M_rr_cd, M_rr_emd)
     if one_way:
@@ -346,7 +353,7 @@ def compute_all_metrics(
         M_ss_cd = np.full((S, S), np.inf)
         M_ss_emd = np.full((S, S), np.inf)
     else:
-        M_ss_cd, M_ss_emd = self_sweep(sample_pcs, mask)
+        M_ss_cd, M_ss_emd = self_sweep(sample_pcs, mask, "ss")
     one_nn_cd = knn(M_rr_cd, M_rs_cd, M_ss_cd, 1, sqrt=False, one_way=one_way)
     results.update({f"1-NN-CD-{k}": v for k, v in one_nn_cd.items() if "acc" in k})
     if compute_emd:

@@ -27,6 +27,7 @@ from torch import nn
 
 from ..parallel.axes import fold_generator
 from ..parallel.mesh import all_gather_cat
+from ..utils import trace
 from ..utils.device import randn, resolve_device
 from ..utils.gaussian import reparameterize_gaussian
 from ..utils.registry import DIFFUSIONS, ENCODERS, MODELS, NETS, SAMPLERS, build_from_cfg
@@ -457,15 +458,21 @@ def sample_generation(model: AnchorDiffAE, sample_num: int, valid_id=None, fixed
     (len(model.diff.steps), S*K, N, 3). Returns a dict with 'pred'
     (S*K, N, 3), 'seg_mask', 'valid_id', 'anchors', 'variance', 'latents'.
     With ``mesh`` every rank draws the same latents from the same
-    ``generator`` and the chain is sharded as ``decode`` says."""
-    if fixed_id is None:
-        fixed_id = torch.zeros(model.num_anchors, device=model.device)
-    ctx, mean_pp, var_pp, seg_mask, vid, latents = model.prepare_generation(
-        sample_num, fixed_id, valid_id, epoch, generator=generator, z=z, cimle_noise=cimle_noise
-    )
-    out = decode(model, mean_pp, ctx=ctx, variance=var_pp, seg_mask=seg_mask, valid_id=vid,
-                 noise=noise, step_noise=step_noise, generator=generator, ret_traj=ret_traj,
-                 mesh=mesh)
+    ``generator`` and the chain is sharded as ``decode`` says.
+
+    Recorded as the span ``sample_generation``, with the latents'
+    ``prepare_generation`` as its child; the rest of it is the chain's
+    enqueue (``utils/trace.py``)."""
+    with trace.span("sample_generation"):
+        if fixed_id is None:
+            fixed_id = torch.zeros(model.num_anchors, device=model.device)
+        with trace.span("prepare_generation"):
+            ctx, mean_pp, var_pp, seg_mask, vid, latents = model.prepare_generation(
+                sample_num, fixed_id, valid_id, epoch, generator=generator, z=z,
+                cimle_noise=cimle_noise)
+        out = decode(model, mean_pp, ctx=ctx, variance=var_pp, seg_mask=seg_mask, valid_id=vid,
+                     noise=noise, step_noise=step_noise, generator=generator, ret_traj=ret_traj,
+                     mesh=mesh)
     out.update(seg_mask=seg_mask, valid_id=vid, anchors=mean_pp, variance=var_pp, latents=latents)
     return out
 

@@ -23,6 +23,7 @@ import torch
 from ..ops.schedule import (DiffusionSchedule, ddim_steps, ddim_xt_dir_coeff, extract,
                             make_beta_schedule, make_schedule)
 from ..parallel.axes import fold_points, psum_points, sp_size
+from ..utils import trace
 from ..utils.device import randn
 from ..utils.gaussian import gaussian_log_likelihood, normal_kl
 from ..utils.registry import DIFFUSIONS
@@ -321,6 +322,10 @@ class AnchoredDiffusion:
         with t % ``ret_interval`` == 0 returned (every run of a repeated
         step), and 'traj_t' (T_kept,) those t in the order they ran
         (``diffusion.py:419-422``). Only the kept samples are stored.
+
+        While the recorder records (``utils/trace.py``) each step adds to
+        ``chain.steps`` and, on the card, a step the host begins with the
+        stream already drained adds to ``chain.starved_steps``.
         """
         steps = self.steps[::-1]
         if step_noise is not None and step_noise.shape[0] != len(steps):
@@ -338,7 +343,12 @@ class AnchoredDiffusion:
             x = noise.float()
         B = x.shape[0]
         traj, traj_t = [], []
+        stream = torch.cuda.current_stream(x.device) if x.device.type == "cuda" else None
         for i, step in enumerate(steps.tolist()):
+            if trace.on():
+                trace.count("chain.steps")
+                if stream is not None and stream.query():
+                    trace.count("chain.starved_steps")
             t = torch.full((B,), step, dtype=torch.long, device=x.device)
             eps = None if step_noise is None else step_noise[i].float()
             x = self.p_sample(model_fn, x, t, anchors, ctx, variance, seg_mask, valid_id,

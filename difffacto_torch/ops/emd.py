@@ -27,6 +27,7 @@ from typing import Optional
 
 import torch
 
+from ..utils import trace
 from .points import gather_points_nd, square_distance
 
 _NEG = -1e9
@@ -164,6 +165,12 @@ def resolved_emd_eval_config(n: Optional[int] = None, device=None):
 _HYBRID_NOTICE_SHOWN = False
 
 
+def _auction_work(rounds: torch.Tensor, bids: torch.Tensor, cap: int) -> dict:
+    """The ``emd.*`` counts of one hybrid call from its per-pair rounds and bids."""
+    return {"emd.pairs": rounds.numel(), "emd.rounds": int(rounds.sum()),
+            "emd.bids": int(bids.sum()), "emd.capped_pairs": int((rounds >= cap).sum())}
+
+
 def emd_cost_eval(xyz1: torch.Tensor, xyz2: torch.Tensor, eps: float = 0.002,
                   iters: int = 10000) -> torch.Tensor:
     """Eval-grade EMD cost with implementation selection -> (B,).
@@ -177,6 +184,12 @@ def emd_cost_eval(xyz1: torch.Tensor, xyz2: torch.Tensor, eps: float = 0.002,
         The default for CPU tensors, and what any n that 128 does not divide
         gets whatever the setting.
     The choice is printed once.
+
+    While the recorder records (``utils/trace.py``) the hybrid's work is
+    counted: ``emd.pairs``, ``emd.rounds`` and ``emd.bids`` (the auction's
+    rounds and bids, summed over the pairs) and ``emd.capped_pairs`` (pairs
+    whose auction reached ``auction_iters`` and force-assigned the rows
+    left). The kernel's per-pair counts stay on the device until read.
     """
     impl, sinkhorn_iters, auction_iters, skrows = resolved_emd_eval_config(
         xyz1.shape[1], xyz1.device
@@ -193,9 +206,13 @@ def emd_cost_eval(xyz1: torch.Tensor, xyz2: torch.Tensor, eps: float = 0.002,
             )
         from .emd_hybrid import emd_assignment_hybrid
 
+        work = trace.on()
         assignment = emd_assignment_hybrid(
             xyz1, xyz2, eps=eps, sinkhorn_iters=sinkhorn_iters, auction_iters=auction_iters,
-            sinkhorn_rows=skrows,
+            sinkhorn_rows=skrows, return_work=work,
         )
+        if work:
+            assignment, rounds, bids = assignment
+            trace.defer(lambda: _auction_work(rounds, bids, auction_iters))
         return _matched_sqdist(xyz1.float(), xyz2.float(), assignment).clamp_min(0.0).sqrt().mean(dim=1)
     return emd_cost(xyz1, xyz2, eps, iters)

@@ -34,12 +34,11 @@ import math
 import numpy as np
 import torch
 
+from ..utils import trace
 from . import _build
 
 _NEG = -1e30
 _LOW32 = 0xFFFFFFFF
-
-launches = 0  # kernel launches since the caller last set it to 0
 
 
 def eps_schedule(sinkhorn_iters: int, sinkhorn_inner: int, eps: float, eps_start: float,
@@ -282,7 +281,6 @@ def emd_assignment_hybrid(
     ``return_work`` the auction rounds each pair ran and the bids it computed
     come back too, each (B,) int32.
     """
-    global launches
     _check(xyz1, xyz2)
     kwargs = dict(sinkhorn_iters=sinkhorn_iters, sinkhorn_inner=sinkhorn_inner,
                   auction_iters=auction_iters, eps=eps, eps_start=eps_start,
@@ -317,7 +315,7 @@ def emd_assignment_hybrid(
             raise RuntimeError(
                 f"emd_hybrid kernel launch failed: {lib.difffacto_cuda_error_string(rc).decode()}"
             )
-        launches += 1
+        trace.count("emd_hybrid.launches")
     if inv_perm is not None:
         out = out[:, inv_perm]
     return (out, rounds, bids) if return_work else out

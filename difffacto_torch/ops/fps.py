@@ -22,9 +22,8 @@ from typing import Optional
 
 import torch
 
+from ..utils import trace
 from . import _build
-
-launches = 0  # kernel launches since the caller last set it to 0
 
 REG_POINTS = (16, 32)  # points a thread
 BLOCK_POINTS = 8192  # the most points a block holds in registers
@@ -155,7 +154,6 @@ def furthest_point_sample(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
     The CUDA kernel for tensors on the card, launched by ``plan``, the plain
     version for tensors on the CPU. A failed build or launch raises.
     """
-    global launches
     if xyz.dim() != 3 or xyz.shape[-1] != 3:
         raise ValueError(f"furthest_point_sample: xyz has shape {tuple(xyz.shape)}, expected (B, N, 3)")
     if npoint < 1:
@@ -163,7 +161,7 @@ def furthest_point_sample(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
     if xyz.device.type == "cpu":
         return furthest_point_sample_reference(xyz, npoint)
     out = _launch(xyz, npoint, None, probe=False)
-    launches += 1
+    trace.count("fps.launches")
     return out
 
 
@@ -172,14 +170,14 @@ def latency_floor_probe(xyz: torch.Tensor, npoint: int,
     """The kernel's steps with no distance sweep (``csrc/fps.cu``:
     ``fps_reg_kernel<P, false>``): the reduction, exchange, barrier and index
     store of npoint - 1 steps, for timing, at the plan's cluster size or at
-    ``cluster``. Its indices are not FPS; it is not counted in ``launches``."""
+    ``cluster``. Its indices are not FPS; it is not counted in ``fps.launches``."""
     return _launch(xyz, npoint, cluster, probe=True)
 
 
 def _launch(xyz: torch.Tensor, npoint: int, cluster: Optional[int],
             probe: bool = False) -> torch.Tensor:
     """The kernel on a CUDA tensor at the plan's cluster size or at
-    ``cluster``; not counted in ``launches``. Measurements call it to force a
+    ``cluster``; not counted in ``fps.launches``. Measurements call it to force a
     cluster size."""
     if xyz.device.type != "cuda":
         raise ValueError(f"furthest_point_sample: no kernel for device {xyz.device}")

@@ -22,13 +22,12 @@ import numpy as np
 import torch
 
 from ..nn.functional import ln_affine, small_ctx_attention
+from ..utils import trace
 from . import _build
 from .fused_ff import fused_ln_geglu_ff_reference
 
 # The kernel's fixed shapes (csrc/fused_core.cu).
 D, HEADS, CTX, FF = 128, 8, 4, 512
-
-launches = 0  # kernel launches since the caller last set it to 0
 
 
 def takes(width: int, heads: int, ctx_tokens: int) -> bool:
@@ -83,7 +82,6 @@ def fused_block(x, k, v, mask, n2_scale, n2_bias, wq, wout, bout, ff_scale, ff_b
     for tensors on the CPU. On the card every operand is bf16 except bout,
     b1, b2 and the mask, which are f32; other shapes than D = 128, 8 heads and
     M = 4 raise ``NotImplementedError``."""
-    global launches
     args = (x, k, v, mask, n2_scale, n2_bias, wq, wout, bout, ff_scale, ff_bias, w1, b1, w2, b2)
     if x.device.type == "cpu":
         return fused_block_reference(*args, scale, heads)
@@ -114,7 +112,7 @@ def fused_block(x, k, v, mask, n2_scale, n2_bias, wq, wout, bout, ff_scale, ff_b
             *(t.data_ptr() for t in args), out.data_ptr(), B, N, float(scale),
             *launch_schedule(B, N, x.device), stream)
     _build.check_launch(lib, "fused_block", rc)
-    launches += 1
+    trace.count("fused_block.launches")
     return out
 
 

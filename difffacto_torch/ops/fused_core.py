@@ -8,14 +8,15 @@ residual] -> post-LN; proj_out stays outside, as in the JAX default.
 
 K and V of the context come in as (depth, B, 4, 128), not the TPU's
 block-diagonal layout; the mask is (B, 4). ``fused_core`` launches the kernel
-for CUDA tensors and runs ``fused_core_reference`` for CPU tensors.
+for CUDA tensors, counting each launch in the recorder's ``fused_core.launches``
+(``utils/trace.py``), and runs ``fused_core_reference`` for CPU tensors.
 
 ``fused_core_headless`` is the same trunk without proj_in (the TPU kernel's
 ``has_head=False`` form, ``difffacto_tpu/ops/fused_core.py:118-160``): x is
 the hidden state h0 (B, N, 128) that the caller projected, as the denoiser
 does when it adds the time embedding to h0 (``add_t_to_x``). It is a second
 entry point of the same kernel (``Mode::HEADLESS`` of ``csrc/trunk.cuh``) and
-counts its launches in ``launches_headless``; its plain version is
+counts its launches in ``fused_core_headless.launches``; its plain version is
 ``fused_core_reference`` with ``pin_w=None``.
 
 ``fused_core_tail`` and ``fused_core_headless_tail`` are those two with
@@ -23,8 +24,8 @@ proj_out fused (the TPU kernel's ``has_tail=True`` forms, which the JAX
 denoiser takes under ``DIFFFACTO_FUSE_TAIL=1``): after the post-LN each
 token's row goes through bf16(LN(h) W_out + b_out) with f32 sums, and the
 kernel writes (B, N, OUT) for OUT <= 8. They count their launches in
-``launches_tail`` and ``launches_headless_tail``; their plain version is
-``fused_core_reference`` with ``pout_w`` and ``pout_b``.
+``fused_core_tail.launches`` and ``fused_core_headless_tail.launches``; their
+plain version is ``fused_core_reference`` with ``pout_w`` and ``pout_b``.
 
 The kernel is persistent: ``schedule`` computes its walk over (batch row,
 128-token tile) work items, and the kernel walks the grid and the tiles per
@@ -40,17 +41,13 @@ import numpy as np
 import torch
 
 from ..nn.functional import ln_affine
+from ..utils import trace
 from . import _build
 from .fused_block import fused_block_reference, takes
 
 # The kernel's fixed shapes (csrc/fused_core.cu).
 D, HEADS, CTX, FF, MAX_IN, MAX_OUT = 128, 8, 4, 512, 16, 8
 TILE = 128  # tokens per work item
-
-launches = 0  # kernel launches since the caller last set it to 0
-launches_headless = 0  # the same for the head-less entry
-launches_tail = 0  # the same for the entry with proj_out fused
-launches_headless_tail = 0  # and for the head-less one with proj_out fused
 
 
 def fused_core_reference(x, pin_w, pin_b, k, v, mask, pre_scale, pre_bias, post_scale,
@@ -180,16 +177,10 @@ def _rest(args: dict) -> tuple:
     return tuple(args[n] for n in _REST)
 
 
-# Each entry's launch counter.
-_COUNTERS = {"fused_core": "launches", "fused_core_headless": "launches_headless",
-             "fused_core_tail": "launches_tail",
-             "fused_core_headless_tail": "launches_headless_tail"}
-
-
 def _trunk(name, x, head, rest, tail, scale, heads):
     """One of the four entries: head (pin_w, pin_b) or None for the head-less
     trunk, tail (pout_w, pout_b) or None. The plain version on the CPU, the
-    kernel's ``difffacto_<name>`` on the card, counted in its counter."""
+    kernel's ``difffacto_<name>`` on the card, counted in ``<name>.launches``."""
     pin_w, pin_b = head or (None, None)
     pout_w, pout_b = tail or (None, None)
     if x.device.type == "cpu":
@@ -234,7 +225,7 @@ def _trunk(name, x, head, rest, tail, scale, heads):
             *(t.data_ptr() for t in operands), out.data_ptr(), *sizes, float(scale),
             *launch_schedule(B, N, x.device), stream)
     _build.check_launch(lib, name, rc)
-    globals()[_COUNTERS[name]] += 1
+    trace.count(name + ".launches")
     return out
 
 

@@ -34,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from ..nn.functional import ln_affine
+from ..utils import trace
 from . import _build
 from .fused_block import takes
 from .fused_core import CTX, D, FF, HEADS, TILE, launch_schedule
@@ -42,8 +43,6 @@ PARAM_NAMES = ("pre_scale", "pre_bias", "post_scale", "post_bias", "n2_scale", "
                "wout", "bout", "ff_scale", "ff_bias", "w1", "b1", "w2", "b2")
 F32_PARAMS = ("bout", "b1", "b2")  # the kernels read these in f32, the rest in bf16
 
-launches_fwd = 0  # forward kernel launches since the caller last set it to 0
-launches_bwd = 0  # backward kernel launches since the caller last set it to 0
 
 _M32 = 0xFFFFFFFF
 
@@ -234,7 +233,6 @@ def _raise(lib, what, rc):
 def launch_forward(ops, seed_t, launch, save: bool = False):
     """Launch the forward kernel on the checked operands of ``_cast_operands``:
     (y, the saved activations for the backward or None)."""
-    global launches_fwd
     B, N, depth, scale, keep_scale, thresh, drop = launch
     x = ops[0]
     lib = _library()
@@ -249,7 +247,7 @@ def launch_forward(ops, seed_t, launch, save: bool = False):
             *launch_schedule(B, N, x.device), stream)
     if rc != 0:
         _raise(lib, "forward", rc)
-    launches_fwd += 1
+    trace.count("fused_trunk_train_fwd.launches")
     return out, acts
 
 
@@ -258,7 +256,6 @@ def launch_backward(ops, acts, dy, seed_t, launch, lib=None):
     and the f32 gradients of k, v and the 15 parameters, in ``grad_sizes``
     order. ``lib`` is another build of the source, passed through ``bind``
     (default: the port's own)."""
-    global launches_bwd
     B, N, depth, scale, keep_scale, thresh, drop = launch
     x = ops[0]
     lib = lib or _library()
@@ -277,7 +274,7 @@ def launch_backward(ops, acts, dy, seed_t, launch, lib=None):
             grid, tiles_per_row, stream)
     if rc != 0:
         _raise(lib, "backward", rc)
-    launches_bwd += 1
+    trace.count("fused_trunk_train_bwd.launches")
     grads, off = [], 0
     for _, shape in sizes:
         n = int(np.prod(shape))

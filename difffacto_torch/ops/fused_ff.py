@@ -19,11 +19,10 @@ import numpy as np
 import torch
 
 from ..nn.functional import gelu, ln_affine
+from ..utils import trace
 from . import _build
 
 WIDTHS = (128, 256)  # the model widths the kernel takes; FF = 4 D
-
-launches = 0  # kernel launches since the caller last set it to 0
 
 
 def takes(width: int) -> bool:
@@ -111,7 +110,6 @@ def fused_ln_geglu_ff(x, ln_scale, ln_bias, w1, b1, w2, b2) -> torch.Tensor:
     plain version for tensors on the CPU. On the card every operand is bf16
     except b1 and b2, which are f32; D is 128 or 256 and any T from 1 to 2^31 - 1
     is taken."""
-    global launches
     args = (x, ln_scale, ln_bias, w1, b1, w2, b2)
     if x.device.type == "cpu":
         return fused_ln_geglu_ff_reference(*args)
@@ -141,7 +139,7 @@ def fused_ln_geglu_ff(x, ln_scale, ln_bias, w1, b1, w2, b2) -> torch.Tensor:
         rc = lib.difffacto_fused_ff(*(t.data_ptr() for t in args), out.data_ptr(), T, D, grid,
                                     tiles_per_row, stream)
     _build.check_launch(lib, "fused_ff", rc)
-    launches += 1
+    trace.count("fused_ff.launches")
     return out
 
 

@@ -16,6 +16,7 @@ from ..data.dataset_utils import bbox_normalize, sample_part_presence
 from ..metrics.eval import compute_all_metrics
 from ..models.anchor_diff import sample_generation
 from ..ops.points import fps
+from ..utils import trace
 from ..utils.device import resolve_device
 
 def generate_samples(model, num_gen: int = 400, batch: int = 128, seed: int = 0,
@@ -61,20 +62,26 @@ def evaluate_gen(gen: np.ndarray, refs: np.ndarray, ref_self_cache: Optional[dic
     ``ref_self_cache`` is a dict the caller keeps for the life of its val
     set: the ref-vs-ref block is then paid once over a curve of checkpoints.
     ``mesh`` deals the sweeps' pairs out to its ranks (``metrics/eval.py``).
+
+    Recorded as the span ``evaluate_gen``; each set's FPS, with its copies
+    in and out, is a child ``resample``, and each sweep a child ``sweep``
+    (``compute_all_metrics``). The rest of it is host work.
     """
     dev = resolve_device(device)
 
     def resample(pts):
-        return fps(torch.as_tensor(pts, dtype=torch.float32, device=dev), 2048).cpu().numpy()
+        with trace.span("resample"):
+            return fps(torch.as_tensor(pts, dtype=torch.float32, device=dev), 2048).cpu().numpy()
 
-    gen, refs = np.asarray(gen), np.asarray(refs)
-    if gen.shape[1] > 2048:
-        gen = resample(gen)
-    if refs.shape[1] > 2048:
-        refs = resample(refs)
-    gen = bbox_normalize(gen)
-    refs = bbox_normalize(refs)
-    return compute_all_metrics(
-        gen, refs, batch_size=32, one_way=False, ref_self_cache=ref_self_cache, device=dev,
-        mesh=mesh,
-    )
+    with trace.span("evaluate_gen"):
+        gen, refs = np.asarray(gen), np.asarray(refs)
+        if gen.shape[1] > 2048:
+            gen = resample(gen)
+        if refs.shape[1] > 2048:
+            refs = resample(refs)
+        gen = bbox_normalize(gen)
+        refs = bbox_normalize(refs)
+        return compute_all_metrics(
+            gen, refs, batch_size=32, one_way=False, ref_self_cache=ref_self_cache, device=dev,
+            mesh=mesh,
+        )

@@ -23,6 +23,7 @@ import jax.numpy as jnp
 from difffacto_tpu.ops.emd_pallas import emd_assignment_hybrid as jax_hybrid
 from difffacto_torch.ops import emd as te
 from difffacto_torch.ops import emd_hybrid as th
+from difffacto_torch.utils import trace
 
 je = importlib.import_module("difffacto_tpu.ops.emd")  # the module, not the function
 
@@ -131,9 +132,9 @@ def test_hybrid_reference_cost_within_1_percent_of_pallas_kernel(hybrid_256):
 
 def test_hybrid_wrapper_runs_the_plain_version_on_cpu_tensors(hybrid_256):
     a, b, plain, _, _ = hybrid_256
-    before = th.launches
+    before = trace.counters()
     got = th.emd_assignment_hybrid(torch.as_tensor(a), torch.as_tensor(b))
-    assert th.launches == before  # no kernel for a CPU tensor
+    assert trace.counters() == before  # no kernel for a CPU tensor
     np.testing.assert_array_equal(got.numpy(), plain)
     with pytest.raises(TypeError):  # the TPU kernel's scheduling knobs have no counterpart
         th.emd_assignment_hybrid(torch.as_tensor(a), torch.as_tensor(b), auction_chunk=8)

@@ -16,6 +16,7 @@ import jax.numpy as jnp
 
 from difffacto_tpu.ops.fused_core import fused_denoiser_core_call
 from difffacto_torch.ops import fused_core as fc
+from difffacto_torch.utils import trace
 
 H, DH, M = 8, 16, 4
 
@@ -71,9 +72,9 @@ def test_absent_part_is_ignored():
 
 def test_cpu_wrapper_runs_plain_version_without_counting():
     inp = fc.example_inputs(B=1, N=32, depth=1)
-    before = fc.launches
+    before = trace.counters()
     out = fc.fused_core(*fc.operands(inp), DH**-0.5)
-    assert fc.launches == before
+    assert trace.counters() == before
     assert torch.equal(out, fc.fused_core_reference(*fc.operands(inp), DH**-0.5))
 
 
@@ -117,11 +118,10 @@ def test_tail_is_proj_out_after_the_trunk(dtype):
 def test_cpu_tail_wrappers_run_plain_version_without_counting():
     ops = fc.operands(fc.example_inputs(B=1, N=32, depth=1, in_ch=fc.D))
     pw, pb = (torch.as_tensor(a) for a in tail_weights(3, seed=2))
-    counts = (fc.launches, fc.launches_headless, fc.launches_tail, fc.launches_headless_tail)
+    counts = trace.counters()
     got = fc.fused_core_tail(*ops, pw, pb, DH**-0.5)
     got_hl = fc.fused_core_headless_tail(ops[0], *ops[3:], pw, pb, DH**-0.5)
-    assert counts == (fc.launches, fc.launches_headless, fc.launches_tail,
-                      fc.launches_headless_tail)
+    assert trace.counters() == counts
     assert torch.equal(got, fc.fused_core_reference(*ops, DH**-0.5, pout_w=pw, pout_b=pb))
     assert torch.equal(got_hl, fc.fused_core_reference(ops[0], None, None, *ops[3:], DH**-0.5,
                                                        pout_w=pw, pout_b=pb))

@@ -15,10 +15,19 @@ from difffacto_torch.ops import fused_block as fb
 from difffacto_torch.ops import fused_core as fc
 from difffacto_torch.ops import fused_core_train as fct
 from difffacto_torch.ops import fused_ff as ff
+from difffacto_torch.utils import trace
 
 torch.set_num_threads(1)
 
 DH = 16
+
+
+def launched(*ops):
+    """The recorder's count of each op's kernel launches: a number for one
+    op, a tuple for several."""
+    counts = trace.counters()
+    got = tuple(counts.get(f"{op}.launches", 0) for op in ops)
+    return got[0] if len(ops) == 1 else got
 
 # bf16 kernel against the bf16 plain version: both round at the same points,
 # but sums run in another order, so an intermediate may round one bf16 step
@@ -51,10 +60,10 @@ def test_fused_core_matches_plain_version(cuda, B, N, depth):
     mask = np.ones((B, fc.CTX), np.float32)
     mask[B - 1, 2] = 0.0
     args = fc.operands(fc.example_inputs(B, N, depth=depth, mask=mask), cuda, torch.bfloat16)
-    before = fc.launches
+    before = launched("fused_core")
     got = fc.fused_core(*args, DH**-0.5)
     torch.cuda.synchronize()
-    assert fc.launches == before + 1
+    assert launched("fused_core") == before + 1
     want = fc.fused_core_reference(*args, DH**-0.5)
     assert got.shape == want.shape == (B, N, 128)
     assert torch.isfinite(got.float()).all()
@@ -70,17 +79,17 @@ def test_fused_core_matches_plain_version(cuda, B, N, depth):
 def test_fused_core_headless_matches_plain_version(cuda, B, N, depth):
     """The trunk without proj_in: h0 (B, N, 128) in, a part absent in the
     last row, a ragged N, many tiles a block and depth 10; counted in
-    ``launches_headless`` alone."""
+    ``fused_core_headless.launches`` alone."""
     mask = np.ones((B, fc.CTX), np.float32)
     mask[B - 1, 1] = 0.0
     args = fc.operands(fc.example_inputs(B, N, depth=depth, in_ch=fc.D, mask=mask), cuda,
                        torch.bfloat16)
     x = (args[0].float() @ args[1].float() + args[2]).to(torch.bfloat16)
     rest = args[3:]
-    before, before_core = fc.launches_headless, fc.launches
+    before, before_core = launched("fused_core_headless"), launched("fused_core")
     got = fc.fused_core_headless(x, *rest, DH**-0.5)
     torch.cuda.synchronize()
-    assert fc.launches_headless == before + 1 and fc.launches == before_core
+    assert launched("fused_core_headless", "fused_core") == (before + 1, before_core)
     want = fc.fused_core_reference(x, None, None, *rest, DH**-0.5)
     assert got.shape == want.shape == (B, N, 128) and torch.isfinite(got.float()).all()
     err = (got.float() - want.float()).abs()
@@ -122,12 +131,12 @@ def test_fused_core_tail_matches_plain_version(cuda, head, B, N, depth, out_ch):
     pw, pb = _tail(out_ch, out_ch, cuda)
     entry = fc.fused_core_tail if head else fc.fused_core_headless_tail
     bare = fc.fused_core if head else fc.fused_core_headless
-    counters = ("launches", "launches_headless", "launches_tail", "launches_headless_tail")
-    before = {c: getattr(fc, c) for c in counters}
+    counters = ("fused_core", "fused_core_headless", "fused_core_tail", "fused_core_headless_tail")
+    before = {c: launched(c) for c in counters}
     got = entry(*args, pw, pb, DH**-0.5)
     torch.cuda.synchronize()
-    moved = {c: getattr(fc, c) - before[c] for c in counters}
-    assert moved == {c: int(c == ("launches_tail" if head else "launches_headless_tail"))
+    moved = {c: launched(c) - before[c] for c in counters}
+    assert moved == {c: int(c == ("fused_core_tail" if head else "fused_core_headless_tail"))
                      for c in counters}
     assert got.shape == (B, N, out_ch) and got.dtype == torch.bfloat16
     assert torch.isfinite(got.float()).all()
@@ -187,10 +196,10 @@ def test_fps_matches_plain_version_index_for_index(cuda, B, N, m, distinct):
     Both sides compute (dx*dx + dy*dy) + dz*dz in f32 without FMA, so the
     indices are equal."""
     x = _clouds(B, N, seed=N, distinct=distinct).to(cuda)
-    before = fps_mod.launches
+    before = launched("fps")
     got = fps_mod.furthest_point_sample(x, m)
     torch.cuda.synchronize()
-    assert fps_mod.launches == before + 1
+    assert launched("fps") == before + 1
     want = fps_mod.furthest_point_sample_reference(x, m)
     assert got.dtype == torch.int32 and got.shape == (B, m)
     assert torch.equal(got, want)
@@ -215,10 +224,10 @@ def test_fps_each_cluster_size(cuda, cluster):
 @pytest.mark.gpu
 def test_fps_latency_floor_probe_runs_and_is_not_counted(cuda):
     x = _clouds(4, 8192, seed=12).to(cuda)
-    before = fps_mod.launches
+    before = launched("fps")
     idx = fps_mod.latency_floor_probe(x, 2048)
     torch.cuda.synchronize()
-    assert fps_mod.launches == before
+    assert launched("fps") == before
     assert idx.shape == (4, 2048) and int(idx.min()) >= 0 and int(idx.max()) < 8192
 
 
@@ -236,10 +245,10 @@ def test_emd_hybrid_matches_plain_version(cuda, n):
     kernel's cost is held to 1.01 x the Hungarian optimum."""
     a = (_clouds(2, n, seed=n) * 0.3).to(cuda)
     b = (_clouds(2, n, seed=n + 1) * 0.3).to(cuda)
-    before = eh.launches
+    before = launched("emd_hybrid")
     got, rounds, bids = eh.emd_assignment_hybrid(a, b, auction_iters=150, return_work=True)
     torch.cuda.synchronize()
-    assert eh.launches == before + 1
+    assert launched("emd_hybrid") == before + 1
     want, rounds_w, bids_w = eh.emd_assignment_hybrid_reference(
         a, b, auction_iters=150, return_work=True)
     assert got.dtype == torch.int32 and got.shape == (2, n)
@@ -265,10 +274,10 @@ def _hold_emd(a, b, label):
     """The kernel against its plain version with the gates above: in range,
     matched cost within 0.5 %, the bids invariant; the share of equal
     assignments is printed, not held."""
-    before = eh.launches
+    before = launched("emd_hybrid")
     got, rounds, bids = eh.emd_assignment_hybrid(a, b, auction_iters=150, return_work=True)
     torch.cuda.synchronize()
-    assert eh.launches == before + 1
+    assert launched("emd_hybrid") == before + 1
     want, rounds_w, bids_w = eh.emd_assignment_hybrid_reference(
         a, b, auction_iters=150, return_work=True)
     n = a.shape[1]
@@ -359,10 +368,11 @@ def test_fused_trunk_train_matches_plain_version(cuda, n, p, depth):
     inp = fct.example_inputs(B=2, N=n, depth=depth, seed=1, mask=[[1, 1, 1, 1], [1, 1, 0, 1]])
     inp["cot"] = np.random.RandomState(2).randn(2, n, 128).astype(np.float32)
     par = fct.example_params(depth=depth, seed=3)
-    before = fct.launches_fwd, fct.launches_bwd
+    before = launched("fused_trunk_train_fwd", "fused_trunk_train_bwd")
     y, g = fct.run_example(fct.fused_trunk_train, inp, par, p, 99, cuda)
     torch.cuda.synchronize()
-    assert (fct.launches_fwd, fct.launches_bwd) == (before[0] + 1, before[1] + 1)
+    assert launched("fused_trunk_train_fwd", "fused_trunk_train_bwd") == (before[0] + 1,
+                                                                         before[1] + 1)
     yr, gr = fct.run_example(fct.fused_trunk_train_reference, inp, par, p, 99, cuda)
     err = (y - yr).abs()
     assert err.max().item() <= BF16_MAX_ABS and err.mean().item() <= BF16_MEAN_ABS
@@ -436,10 +446,10 @@ def test_fused_ff_matches_plain_version(cuda, D, T):
     batch 256, a smaller aligner T, T = 128 (one tile), and T = 100, shorter
     than a tile at both widths (128 tokens at D = 128, 64 at D = 256)."""
     args = _ff_operands(D, T, cuda, seed=T)
-    before = ff.launches
+    before = launched("fused_ff")
     got = ff.fused_ln_geglu_ff(*args)
     torch.cuda.synchronize()
-    assert ff.launches == before + 1
+    assert launched("fused_ff") == before + 1
     want = ff.fused_ln_geglu_ff_reference(*args)
     assert got.shape == want.shape == (T, D) and torch.isfinite(got.float()).all()
     err = (got.float() - want.float()).abs()
@@ -458,10 +468,10 @@ def test_fused_block_matches_plain_version(cuda, B, N):
     mask = np.ones((B, fb.CTX), np.float32)
     mask[min(1, B - 1), 1] = mask[B - 1, 3] = 0.0
     args = fc.operands(fb.example_inputs(B, N, seed=N, mask=mask), cuda, torch.bfloat16)
-    before = fb.launches
+    before = launched("fused_block")
     got = fb.fused_block(*args, DH**-0.5)
     torch.cuda.synchronize()
-    assert fb.launches == before + 1
+    assert launched("fused_block") == before + 1
     want = fb.fused_block_reference(*args, DH**-0.5)
     assert got.shape == want.shape == (B, N, fb.D) and torch.isfinite(got.float()).all()
     err = (got.float() - want.float()).abs()
@@ -529,7 +539,8 @@ def test_shapes_the_kernels_do_not_take_run_unfused(cuda, case):
     from difffacto_torch.models import UNet
     from difffacto_torch.nn.layers import FusedLNFF
 
-    counts = lambda: (fc.launches, fct.launches_fwd, fct.launches_bwd, fb.launches, ff.launches)
+    counts = lambda: launched("fused_core", "fused_trunk_train_fwd", "fused_trunk_train_bwd",
+                              "fused_block", "fused_ff")
     before = counts()
     if case.startswith("denoiser"):
         heads = (4, 32) if "4x32" in case else (16, 8)
@@ -570,7 +581,8 @@ def test_shapes_the_kernels_do_not_take_run_unfused(cuda, case):
                         valid_id=torch.ones(2, 4, device=dev), language_code=lang.to(dev))
             adds.append((y - x.to(dev)).float().cpu())
         torch.cuda.synchronize()
-        assert fb.launches == before[3] + 2  # the part-token blocks still take the kernel
+        # the part-token blocks still take the kernel
+        assert launched("fused_block") == before[3] + 2
         assert counts()[:3] + counts()[4:] == before[:3] + before[4:]
         assert torch.isfinite(adds[1]).all()
         rel = ((adds[1] - adds[0]).norm() / adds[0].norm()).item()
@@ -605,13 +617,13 @@ def test_separate_point_cloud_on_the_card_matches_the_cpu(cuda, crop, padding_ze
     n = 8192 if isinstance(crop, list) else 2000
     xyz = torch.as_tensor(np.random.RandomState(0).randn(4, n, 3).astype(np.float32))
     center = np.array([0.2, 0.9, -0.1], np.float32)
-    before = fps_mod.launches
+    before = launched("fps")
     got = separate_point_cloud(xyz.to(cuda), n, crop, fixed_points=center,
                                padding_zeros=padding_zeros, rng=np.random.RandomState(1))
     torch.cuda.synchronize()
     want = separate_point_cloud(xyz, n, crop, fixed_points=center, padding_zeros=padding_zeros,
                                 rng=np.random.RandomState(1))
-    assert fps_mod.launches == before + (2 if isinstance(crop, list) else 0)
+    assert launched("fps") == before + (2 if isinstance(crop, list) else 0)
     for g, w in zip(got, want):
         assert g.is_cuda and g.shape == w.shape
         g = g.cpu()
@@ -682,11 +694,11 @@ def test_fused_ff_at_the_sample_one_part_search_size(cuda):
     m = FusedLNFF(256, dtype=torch.bfloat16, device=cuda, generator=torch.Generator().manual_seed(4))
     x = torch.randn(32 * 10 * 100, 4, 256, generator=torch.Generator().manual_seed(5))
     x = x.to(cuda, torch.bfloat16)
-    before = ff.launches
+    before = launched("fused_ff")
     with torch.inference_mode():
         got = m(x)
         torch.cuda.synchronize()
-        assert ff.launches == before + 1
+        assert launched("fused_ff") == before + 1
         bf = torch.bfloat16
         want = ff.fused_ln_geglu_ff_reference(
             x.reshape(-1, 256), m.ln_scale.to(bf), m.ln_bias.to(bf), m.w1.to(bf), m.b1.float(),
@@ -710,19 +722,19 @@ def test_fused_ff_under_autograd_takes_the_unfused_math(cuda):
                                           generator=torch.Generator().manual_seed(6)))
     x = torch.randn(256, 4, 256, generator=torch.Generator().manual_seed(7))
     grads = []
-    before = ff.launches
+    before = launched("fused_ff")
     for m, dev in ((cpu, "cpu"), (gpu, cuda)):
         xi = x.clone().to(dev).requires_grad_(True)
         (m(xi) ** 2).sum().backward()
         grads.append(xi.grad.cpu())
     torch.cuda.synchronize()
-    assert ff.launches == before
+    assert launched("fused_ff") == before
     torch.testing.assert_close(grads[1], grads[0], rtol=1e-4, atol=1e-4)
     with torch.no_grad():  # the kernel takes bf16
         gpu.dtype = torch.bfloat16
         gpu(x.to(cuda, torch.bfloat16))
     torch.cuda.synchronize()
-    assert ff.launches == before + 1
+    assert launched("fused_ff") == before + 1
 
 
 @pytest.mark.gpu
@@ -896,11 +908,11 @@ def test_pointnet2_forward_on_the_card_matches_the_cpu(cuda, kind):
     cls = getattr(models, kind)
     card = cls(additioinal_dim=4, zdim=256, num_anchors=1, device=cuda)
     cpu = cls(additioinal_dim=4, zdim=256, num_anchors=1, device="cpu")
-    before = fps_mod.launches
+    before = launched("fps")
     with torch.no_grad():
         got = card(x.to(cuda)).cpu()
         want = cpu(x)
-    assert fps_mod.launches == before + 2
+    assert launched("fps") == before + 2
     assert got.shape == want.shape == (4, 1, 256)
     assert ((got - want).norm() / want.norm()).item() <= 1e-4
 
@@ -928,11 +940,11 @@ def test_td_variant_generation_on_the_card_matches_the_cpu(cuda):
     for where in (cuda, "cpu"):
         model = build_from_cfg(dict(cfg), MODELS, device=where, seed=0)
         d = {k: torch.as_tensor(v, dtype=torch.float32, device=where) for k, v in draws.items()}
-        before = fc.launches
+        before = launched("fused_core")
         preds[str(where)] = sample_generation(model, 2, **d)["pred"].float().cpu()
         if where == cuda:
             torch.cuda.synchronize()
-            assert fc.launches == before + 10
+            assert launched("fused_core") == before + 10
     card, cpu = preds["cuda"], preds["cpu"]
     assert torch.isfinite(card).all()
     assert ((card - cpu).norm() / cpu.norm()).item() < 5e-3
@@ -965,10 +977,10 @@ def test_anchored_generation_predict_on_the_card_matches_the_cpu(cuda):
     for where in (cuda, "cpu"):
         model = AnchoredGeneration(**cfg, device=where, seed=0)
         d = {k: torch.as_tensor(v, dtype=torch.float32, device=where) for k, v in draws.items()}
-        before = (fc.launches, fps_mod.launches, eh.launches)
+        before = launched("fused_core", "fps", "emd_hybrid")
         out = model.predict({k: torch.as_tensor(v, device=where) for k, v in batch.items()}, **d)
         preds[str(where)] = out["pred"].float().cpu()
-        assert (fc.launches, fps_mod.launches, eh.launches) == before
+        assert launched("fused_core", "fps", "emd_hybrid") == before
     card, cpu = preds["cuda"], preds["cpu"]
     assert card.shape == (2, 256, 3) and torch.isfinite(card).all()
     assert ((card - cpu).norm() / cpu.norm()).item() < 1e-4
@@ -1000,7 +1012,7 @@ def test_ldmnet_chain_with_the_fused_ff_on_the_card_matches_the_cpu(cuda):
                 C, C, generator=torch.Generator().manual_seed(4)))
         chain = build_diffusion(diffusion, T)
         put = lambda a: torch.as_tensor(a, dtype=torch.float32, device=where)  # noqa: E731
-        before = ff.launches
+        before = launched("fused_ff")
         with torch.inference_mode():
             out = chain.p_sample_loop(lambda i, ts, c, *a: net(i, ts, c, *a),
                                       torch.zeros(B, K, C, device=where), ctx=put(ctx),
@@ -1008,7 +1020,7 @@ def test_ldmnet_chain_with_the_fused_ff_on_the_card_matches_the_cpu(cuda):
         preds[str(where)] = out.float().cpu()
         if where == cuda:
             torch.cuda.synchronize()
-            assert ff.launches == before + T * depth
+            assert launched("fused_ff") == before + T * depth
     card, cpu = preds["cuda"], preds["cpu"]
     assert torch.isfinite(card).all()
     assert ((card - cpu).norm() / cpu.norm()).item() < 5e-3
@@ -1041,10 +1053,10 @@ def test_supseg_predict_on_the_card_matches_the_cpu(cuda):
     for where in (cuda, "cpu"):
         model = AnchorDiffGenSuperSegments(**cfg, device=where, seed=0)
         d = {k: torch.as_tensor(v, dtype=torch.float32, device=where) for k, v in draws.items()}
-        before = (fc.launches, fps_mod.launches, eh.launches, ff.launches)
+        before = launched("fused_core", "fps", "emd_hybrid", "fused_ff")
         out = model.predict({k: torch.as_tensor(v, device=where) for k, v in batch.items()}, **d)
         preds[str(where)] = out["pred"].float().cpu()
-        assert (fc.launches, fps_mod.launches, eh.launches, ff.launches) == before
+        assert launched("fused_core", "fps", "emd_hybrid", "fused_ff") == before
     card, cpu = preds["cuda"], preds["cpu"]
     assert card.shape == (2, 256, 3) and torch.isfinite(card).all()
     assert ((card - cpu).norm() / cpu.norm()).item() < 1e-4

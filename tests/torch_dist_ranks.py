@@ -419,9 +419,9 @@ def card_suite(rank, world, workdir):
     card) the dp step against the two slices' arithmetic."""
     import torch
 
-    from difffacto_torch.ops import fused_core_train as fct
     from difffacto_torch.parallel import (build_optimizer_from_cfg, init_train_state, make_mesh,
                                           make_train_step, replicate, shard_batch)
+    from difffacto_torch.utils import trace
 
     dev = torch.device("cuda", rank % torch.cuda.device_count())
     mesh = make_mesh()
@@ -448,9 +448,11 @@ def card_suite(rank, world, workdir):
             return total, metrics, grads
 
         step.local = local_then_plain_update
-    fct.launches_fwd = fct.launches_bwd = 0
+    before = trace.counters()
     _, m = step(state, tensors(shard_batch(mesh, batch), dev), 0, 0)
-    out["launches"] = np.asarray([fct.launches_fwd, fct.launches_bwd])
+    after = trace.counters()
+    out["launches"] = np.asarray([after.get(k, 0) - before.get(k, 0) for k in (
+        "fused_trunk_train_fwd.launches", "fused_trunk_train_bwd.launches")])
     out["params"], out["stats"] = flat(model.parameters()), flat(model.buffers())
     out["total"], out["gnorm"] = np.float64(m["total_loss"]), np.float64(m["grad_norm"])
     out["digest"] = digest(list(model.parameters()) + list(model.buffers()))
