@@ -326,6 +326,11 @@ PEAK_F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
 # Square roots and exponentials go through the special-function units: 16 lanes
 # an SM against the 128 FMA lanes (2 operations each) behind the f32 peak.
 PEAK_SFU_OPS = PEAK_F32_FLOPS / 16
+# The EMD Sinkhorn sweep's instructions an element with both exp2s on the
+# special-function units, and the further instructions of one exp2 on the FMA
+# pipes, from the SASS of its inner loop (tools/sass_diff_torch.py --source
+# emd_hybrid: 185 instructions for 16 elements; 218 with 3 of them soft).
+SWEEP_INSTRUCTIONS, SWEEP_SOFT_INSTRUCTIONS = 185 / 16, 33 / 3
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 BATCH_CHECK, BATCH_TIMED, WARMUP, ITERS = 16, 256, 1, 3
 
@@ -714,21 +719,25 @@ def fps_bound_ms(B, N, m):
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def emd_bound_ms(n, bids, sinkhorn_iters=150, rows=None):
+def emd_bound_ms(n, bids, sinkhorn_iters=150, rows=None, soft=0.0):
     """EMD assignment: per pair 2 * sinkhorn_iters sweeps of rows * n elements
     for the Sinkhorn, and n elements for each bid this run computed (only
     unassigned rows bid; ``bids`` is the kernel's count per pair, the
-    force-assigned rows included). An element is a distance (10 f32 operations
-    and a square root) and in a Sinkhorn sweep one exp. The larger of the f32
-    time and the special-function time, against 28 n bytes a pair."""
+    force-assigned rows included). A sweep element is SWEEP_INSTRUCTIONS
+    instructions and a square root and an exp2 on the special-function units,
+    but for the share ``soft`` of its exp2s that the FMA pipes take in
+    SWEEP_SOFT_INSTRUCTIONS more; a bid element 10 instructions and a square
+    root. The larger of the dispatch time (an instruction a clock on each of an
+    SM's four schedulers: PEAK_F32_FLOPS / 2 a second) and the special-function
+    time, against 28 n bytes a pair."""
     rows = n if rows is None else rows
     sink = 2.0 * sinkhorn_iters * rows * n * len(bids)
     auction = float(sum(bids)) * n
-    t_f32 = (sink + auction) * 10 / PEAK_F32_FLOPS * 1e3
-    t_sfu = (sink * 2 + auction) / PEAK_SFU_OPS * 1e3
+    t_dispatch = (sink * (SWEEP_INSTRUCTIONS + soft * SWEEP_SOFT_INSTRUCTIONS) + auction * 10) / (
+        PEAK_F32_FLOPS / 2) * 1e3
+    t_sfu = (sink * (2 - soft) + auction) / PEAK_SFU_OPS * 1e3
     t_bytes = len(bids) * n * 28 / PEAK_BYTES * 1e3
-    t_ops = max(t_f32, t_sfu)
-    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+    return max((t_dispatch, "dispatch"), (t_sfu, "special-function units"), (t_bytes, "bytes"))
 
 
 def matched_cost(a, b, assign):
@@ -4293,7 +4302,7 @@ def main():
         a = (seeded_clouds(B, n, seed=n) * 0.3).to(dev)
         b = (seeded_clouds(B, n, seed=n + 1) * 0.3).to(dev)
         t0 = time.perf_counter()
-        got, rounds, bids = eh.emd_assignment_hybrid(
+        got, rounds, bids, _ = eh.emd_assignment_hybrid(
             a, b, auction_iters=AUCTION_ITERS, return_work=True)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
@@ -4544,9 +4553,10 @@ def main():
         # The split: with no auction round the kernel runs the Sinkhorn and one
         # force-assignment sweep; the difference is the auction.
         sink_ms = cuda_ms(lambda: eh.emd_assignment_hybrid(a, b, auction_iters=0), 2)
-        _, rounds, bids = eh.emd_assignment_hybrid(
+        _, rounds, bids, sinkhorn = eh.emd_assignment_hybrid(
             a, b, auction_iters=AUCTION_ITERS, return_work=True)
-        bound, by = emd_bound_ms(2048, bids.tolist())
+        soft = sinkhorn["emd.sweep_soft_terms"] / sinkhorn["emd.sweep_terms"]
+        bound, by = emd_bound_ms(2048, bids.tolist(), soft=soft)
         emd[B] = (ms, bound, by, sink_ms)
         print(f"emd_hybrid B={B} n=2048: {ms:.2f} ms ({ms / B:.3f} ms a pair), mean rounds "
               f"{rounds.float().mean().item():.1f}, mean bids {bids.float().mean().item():.0f} "
@@ -4554,7 +4564,9 @@ def main():
               f"of rounds + 1 full sweeps), bound {bound:.3f} ms ({by}, {bound / B:.4f} ms a "
               f"pair), {100 * bound / ms:.1f}% of roofline; split: Sinkhorn and one "
               f"force-assignment sweep {sink_ms:.2f} ms, the auction {ms - sink_ms:.2f} ms "
-              f"({100 * (ms - sink_ms) / ms:.1f}%)")
+              f"({100 * (ms - sink_ms) / ms:.1f}%); Sinkhorn "
+              f"{sinkhorn['cycles'].double().mean().item() / 1e6:.2f} Mcycles a pair, "
+              f"{100 * soft:.1f}% of its terms on the soft exp2")
     emd_plain_ms = cuda_ms(
         lambda: eh.emd_assignment_hybrid_reference(a, b, auction_iters=AUCTION_ITERS), 1)
     print(f"emd_hybrid plain version B=132 n=2048: {emd_plain_ms:.1f} ms")

@@ -13,8 +13,9 @@
 //      bids), evicts its owner and raises its price; it stops when no row is
 //      unassigned or after auction_iters rounds;
 //   3. rows still unassigned take their best object at the final prices.
-// Only the assignment comes out (and, for the bound, the rounds run and the
-// bids computed); matched distances are computed outside in f32 (ops/emd.py).
+// Only the assignment comes out (and, for the bound, the rounds run, the bids
+// computed and the Sinkhorn's clock cycles); matched distances are computed
+// outside in f32 (ops/emd.py).
 //
 // What is not carried over from the TPU: its 8 MB bf16 distance cache (an SM
 // has 227 KB), its 128-lane tiles and per-tile fori_loops, the padded K = 8
@@ -23,17 +24,28 @@
 // branch, and rows that are assigned simply do not bid.
 //
 // What bounds it on an H100: the Sinkhorn's 2 * iterations * m * n elements a
-// pair (1.26e9 at n = 2048), each a square root and an exp on the
-// special-function units (MUFU: 16 lanes an SM against 128 FMA lanes), so at
-// best 8 elements a clock an SM; the bids add n elements each (one square
-// root); the bytes (24 n read, 4 n written) are negligible. The design keeps
-// the sweep at about 11 instructions an element, so that the MUFU and
-// not the dispatch slots set its pace:
+// pair (1.26e9 at n = 2048); the bids add n elements each (one square root);
+// the bytes (24 n read, 4 n written) are negligible. With both its exp2 and its
+// square root on the special-function units (MUFU: 16 lanes an SM against
+// 128 FMA lanes, so a warp's MUFU instruction holds its sub-partition's unit 8
+// clocks, where the dispatch takes one instruction a clock), an element costs
+// 16 MUFU clocks a warp against 11.6 dispatch slots (185 instructions for 16
+// elements in the SASS of the inner loop): the MUFU sets the pace and the FMA
+// pipes idle. So a fixed share of the exp2s runs on the FMA pipes instead:
 //
 // - Base-2 log domain. The potentials are held scaled by c = log2(e) / eps in
 //   the .w of each point's float4 (rescaled when eps steps), so an element is
 //   z = fma(-c, d, w_other) + w_self and the term 2^z is one ex2.approx.
-// - d = sqrt.approx(dx^2 + dy^2 + dz^2): one MUFU.
+// - The soft exp2 (exp2_soft): 2^z at least as accurately as ex2.approx in
+//   12 FMA-pipe instructions, 11 dispatch slots more than ex2.approx. A sweep
+//   step takes ROWS x KSTEP = 16 terms; SOFT_TERMS of them go to
+//   exp2_soft. With s the soft share, 16 - 8 s MUFU clocks against
+//   11.6 + 11 s dispatch slots a warp-element: they meet near s = 1/4, but one
+//   row slot in four (s = 1/4) ran at 80% of that bound with both pipes full;
+//   s = 3/16 keeps the MUFU the bound (14.5 clocks against 13.6 slots) with
+//   a slot to spare and ran faster, in both instantiations (PERF.md §6 row 5).
+// - d = sqrt.approx(dx^2 + dy^2 + dz^2): one MUFU for every element. A square
+//   root in software to 2^-22 costs about 15 instructions.
 // - No running max. A point's sum is shifted by its own potential from the
 //   previous sweep (w_self above): with f_i + g_j - d_ij <= about 0 at every
 //   sweep of the annealed Sinkhorn the terms stay near 1 or below. A sum
@@ -48,13 +60,14 @@
 //
 // What the approximations cost: sqrt.approx and ex2.approx (flush-to-zero)
 // are within about 2 ulp of the exact results (PTX ISA: relative error 2^-22
-// and 2^-22.5 for ex2 of an argument in range); a term below 2^-126 flushes to
-// 0, which inside the band is below 2^-51 of the sum. In the potentials that
+// and 2^-22.5 for ex2 of an argument in range), exp2_soft within 2^-23.6; a
+// term below 2^-126 flushes to 0, in both exp2s, which inside the band is
+// below 2^-51 of the sum. In the potentials that
 // is a few f32 ulp a sweep, far below eps; the plain version
 // (ops/emd_hybrid.py) computes exact square roots and exps with a max shift,
 // so near-ties may go to other objects: the matched costs agree within 0.5 %.
 // ops/emd_hybrid.py:sinkhorn_log2_reference models this sweep (shift, band,
-// redo) on the CPU.
+// redo, the soft terms) on the CPU, and exp2_soft_reference the soft exp2.
 //
 // The auction's bids are a warp's job each: the unassigned rows of each
 // 32-row chunk (a ballot over the assignment), chunks striped over the
@@ -81,10 +94,25 @@ namespace {
 constexpr int SMEM_LIMIT = 232448;   // what one Hopper thread block may use
 constexpr int STATE_BYTES = 48;      // per point: 2 float4, u64, 2 int
 constexpr int ROWS = 4;              // points a thread sweeps at once
+constexpr int KSTEP = 4;             // points of the other axis a step of the sweep takes
 constexpr float NEG = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float SUM_LO = 0x1p-64f, SUM_HI = 0x1p64f;  // the shifted sum's band
 constexpr unsigned FULL = 0xffffffffu;
+
+// Terms of each ROWS x KSTEP block of a sweep step on the soft exp2, in both
+// instantiations: the global-workspace one (n > 4736), whose sweeps L1 and L2
+// serve, gained from it too.
+constexpr int SOFT_TERMS = 3;
+
+// 2^f = 1 + f (C1 + f (C2 + ... + f C6)) on [-1/2, 1/2]: minimax for the
+// relative error with the constant term 1, the coefficients rounded to f32;
+// 2^-28.9 exact, 2^-23.6 with the f32 roundings. Degree 5 (2^-22.58) keeps
+// ex2.approx's 2^-22 too; the sixth FFMA leaves the sums nearer the exact
+// ones the plain version takes (PERF.md §6 row 5).
+constexpr float EXP2_C1 = 0x1.62e430p-1f, EXP2_C2 = 0x1.ebfbdcp-3f, EXP2_C3 = 0x1.c6aee8p-5f,
+                EXP2_C4 = 0x1.3b2d4cp-7f, EXP2_C5 = 0x1.5f3e52p-10f, EXP2_C6 = 0x1.41fbbcp-13f;
+constexpr float EXP2_SHIFT = 0x1.8p23f + 127.0f;  // t = z + this holds rint(z) + 127 in its low bits
 
 __device__ __forceinline__ float sqrt_approx(float x) {
   float y;
@@ -98,6 +126,28 @@ __device__ __forceinline__ float exp2_approx(float x) {
   return y;
 }
 
+// 2^z on the FMA pipes, as ex2.approx.ftz gives it: relative error under
+// 2^-23.5, and 0 where the result is below 2^-126. z = j + f with j = rint(z)
+// from the magic-number add and f in [-1/2, 1/2] exact; 2^j is built in the
+// exponent field from t's low bits (0 at j = -127, where z is clamped) and the
+// product flushes a subnormal to 0. Valid for z < 128.5; the sweep's z stay
+// below about 0 (sweep_shifted).
+__device__ __forceinline__ float exp2_soft(float z) {
+  z = fmaxf(z, -127.0f);
+  const float t = __fadd_rn(z, EXP2_SHIFT);
+  const float f = __fsub_rn(z, __fsub_rn(t, EXP2_SHIFT));
+  float p = fmaf(EXP2_C6, f, EXP2_C5);
+  p = fmaf(p, f, EXP2_C4);
+  p = fmaf(p, f, EXP2_C3);
+  p = fmaf(p, f, EXP2_C2);
+  p = fmaf(p, f, EXP2_C1);
+  p = fmaf(p, f, 1.0f);
+  const float scale = __uint_as_float(__float_as_uint(t) << 23);
+  float y;
+  asm("mul.ftz.f32 %0, %1, %2;" : "=f"(y) : "f"(p), "f"(scale));
+  return y;
+}
+
 __device__ __forceinline__ float dist(const float4& a, const float4& b) {
   const float dx = a.x - b.x, dy = a.y - b.y, dz = a.z - b.z;
   return sqrt_approx(fmaf(dz, dz, fmaf(dy, dy, dx * dx)));
@@ -106,7 +156,11 @@ __device__ __forceinline__ float dist(const float4& a, const float4& b) {
 // One half of a Sinkhorn iteration: every point of `self` (count of them)
 // against every point of `other`. With w the scaled potentials,
 // S = sum_k 2^(fma(-c, d, other[k].w) + self.w) and self.w -= log2(S); a sum
-// outside the band goes on the redo list instead.
+// outside the band goes on the redo list instead. Each exponent is at most
+// about 0: self.w and other[k].w were each set by a log-sum-exp that holds
+// the other's term, and a rescale multiplies both by the same ratio. A step
+// takes KSTEP other points (others % KSTEP == 0); of its ROWS x KSTEP terms,
+// term (r, u) takes exp2_soft where (ROWS - 1 - r) KSTEP + u < SOFT_TERMS.
 __device__ __forceinline__ void sweep_shifted(float4* self, int count, const float4* other,
                                               int others, float c, int* redo, int* redo_count) {
   const int tid = threadIdx.x, T = blockDim.x;
@@ -118,11 +172,16 @@ __device__ __forceinline__ void sweep_shifted(float4* self, int count, const flo
       p[r] = self[min(base + r * T + tid, count - 1)];
       S[r] = 0.0f;
     }
-#pragma unroll 4
-    for (int k = 0; k < others; ++k) {
-      const float4 q = other[k];
+    for (int k = 0; k < others; k += KSTEP) {
 #pragma unroll
-      for (int r = 0; r < ROWS; ++r) S[r] += exp2_approx(fmaf(-c, dist(p[r], q), q.w) + p[r].w);
+      for (int u = 0; u < KSTEP; ++u) {
+        const float4 q = other[k + u];
+#pragma unroll
+        for (int r = 0; r < ROWS; ++r) {
+          const float z = fmaf(-c, dist(p[r], q), q.w) + p[r].w;
+          S[r] += (ROWS - 1 - r) * KSTEP + u < SOFT_TERMS ? exp2_soft(z) : exp2_approx(z);
+        }
+      }
     }
 #pragma unroll
     for (int r = 0; r < ROWS; ++r) {
@@ -219,7 +278,7 @@ __global__ void __launch_bounds__(1024, 1)
 emd_hybrid_kernel(const float* __restrict__ x1, const float* __restrict__ x2,
                   const float* __restrict__ eps_table, int* __restrict__ out,
                   int* __restrict__ rounds_out, int* __restrict__ bids_out,
-                  unsigned char* workspace,
+                  long long* __restrict__ cycles_out, unsigned char* workspace,
                   int n, int m, int sinkhorn_iters, int auction_iters, float eps) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ int unassigned;
@@ -250,6 +309,7 @@ emd_hybrid_kernel(const float* __restrict__ x1, const float* __restrict__ x2,
 
   // ---- phase 1: Sinkhorn. Rows 0..m-1 carry c f, every column c g; the
   // redo list lies in `assign` until the auction.
+  const long long start = clock64();
   float c = sinkhorn_iters > 0 ? LOG2E / eps_table[0] : 1.0f;
   for (int k = 0; k < sinkhorn_iters; ++k) {
     const float ck = LOG2E / eps_table[k];
@@ -263,6 +323,7 @@ emd_hybrid_kernel(const float* __restrict__ x1, const float* __restrict__ x2,
     sinkhorn_half(p1, m, p2, n, c, assign, &redo_count[0], &redo_count[1]);
     sinkhorn_half(p2, n, p1, m, c, assign, &redo_count[1], &redo_count[0]);
   }
+  if (tid == 0 && cycles_out != nullptr) cycles_out[blockIdx.x] = clock64() - start;
 
   // ---- phase 2: auction from price = -g = -w / c.
   for (int j = tid; j < n; j += T) {
@@ -331,6 +392,14 @@ emd_hybrid_kernel(const float* __restrict__ x1, const float* __restrict__ x2,
   if (tid == 0 && bids_out != nullptr) bids_out[blockIdx.x] = bids;
 }
 
+// The sweep's two exp2s over count values of z, for the tests: exp2_soft
+// where soft, else ex2.approx.ftz.
+__global__ void exp2_probe_kernel(const float* __restrict__ z, float* __restrict__ out, int count,
+                                  bool soft) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < count) out[i] = soft ? exp2_soft(z[i]) : exp2_approx(z[i]);
+}
+
 }  // namespace
 
 // Bytes of global workspace one pair needs, 0 where the state fits in shared memory.
@@ -339,13 +408,26 @@ extern "C" long long difffacto_emd_hybrid_workspace_bytes(int n) {
   return bytes <= SMEM_LIMIT ? 0 : bytes;
 }
 
+// The terms of each ROWS x KSTEP block of a sweep step that take the soft exp2.
+extern "C" int difffacto_emd_hybrid_soft_terms() { return SOFT_TERMS; }
+
+// z, out (count,) f32 on the card. Returns a cudaError_t.
+extern "C" int difffacto_emd_exp2_probe(const void* z, void* out, int count, int soft,
+                                        void* stream) {
+  if (count <= 0) return (int)cudaErrorInvalidValue;
+  exp2_probe_kernel<<<(count + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
+      (const float*)z, (float*)out, count, soft != 0);
+  return (int)cudaGetLastError();
+}
+
 // x1, x2 (B, n, 3) f32 contiguous; eps_table (sinkhorn_iters,) f32; out (B, n)
-// int32; rounds, bids (B,) int32 or null; workspace B * workspace_bytes(n) bytes,
+// int32; rounds, bids (B,) int32 or null; cycles (B,) int64 or null, the clock
+// cycles of each pair's Sinkhorn; workspace B * workspace_bytes(n) bytes,
 // 16-byte aligned, or null where that is 0. n % 128 == 0 and 0 < m <= n.
 // Returns a cudaError_t.
 extern "C" int difffacto_emd_hybrid(const void* x1, const void* x2, const void* eps_table,
-                                    void* out, void* rounds, void* bids, void* workspace,
-                                    int B, int n, int m, int sinkhorn_iters,
+                                    void* out, void* rounds, void* bids, void* cycles,
+                                    void* workspace, int B, int n, int m, int sinkhorn_iters,
                                     int auction_iters, float eps, void* stream) {
   if (B <= 0 || n <= 0 || n % (32 * ROWS) || m <= 0 || m > n) return (int)cudaErrorInvalidValue;
   // ROWS points a thread, whole warps: n / ROWS threads up to 1024.
@@ -358,12 +440,13 @@ extern "C" int difffacto_emd_hybrid(const void* x1, const void* x2, const void* 
     if (err != cudaSuccess) return (int)err;
     emd_hybrid_kernel<true><<<B, threads, bytes, s>>>(
         (const float*)x1, (const float*)x2, (const float*)eps_table, (int*)out, (int*)rounds,
-        (int*)bids, nullptr, n, m, sinkhorn_iters, auction_iters, eps);
+        (int*)bids, (long long*)cycles, nullptr, n, m, sinkhorn_iters, auction_iters, eps);
   } else {
     if (workspace == nullptr) return (int)cudaErrorInvalidValue;
     emd_hybrid_kernel<false><<<B, threads, 0, s>>>(
         (const float*)x1, (const float*)x2, (const float*)eps_table, (int*)out, (int*)rounds,
-        (int*)bids, (unsigned char*)workspace, n, m, sinkhorn_iters, auction_iters, eps);
+        (int*)bids, (long long*)cycles, (unsigned char*)workspace, n, m, sinkhorn_iters,
+        auction_iters, eps);
   }
   return (int)cudaGetLastError();
 }

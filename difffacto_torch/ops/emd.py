@@ -165,10 +165,15 @@ def resolved_emd_eval_config(n: Optional[int] = None, device=None):
 _HYBRID_NOTICE_SHOWN = False
 
 
-def _auction_work(rounds: torch.Tensor, bids: torch.Tensor, cap: int) -> dict:
-    """The ``emd.*`` counts of one hybrid call from its per-pair rounds and bids."""
-    return {"emd.pairs": rounds.numel(), "emd.rounds": int(rounds.sum()),
-            "emd.bids": int(bids.sum()), "emd.capped_pairs": int((rounds >= cap).sum())}
+def _hybrid_work(rounds: torch.Tensor, bids: torch.Tensor, cap: int, sinkhorn) -> dict:
+    """The ``emd.*`` counts of one hybrid call from its per-pair rounds and
+    bids and, where the kernel ran, its Sinkhorn work."""
+    counts = {"emd.pairs": rounds.numel(), "emd.rounds": int(rounds.sum()),
+              "emd.bids": int(bids.sum()), "emd.capped_pairs": int((rounds >= cap).sum())}
+    if sinkhorn is not None:
+        counts.update((k, v) for k, v in sinkhorn.items() if k != "cycles")
+        counts["emd.sinkhorn_cycles"] = int(sinkhorn["cycles"].sum())
+    return counts
 
 
 def emd_cost_eval(xyz1: torch.Tensor, xyz2: torch.Tensor, eps: float = 0.002,
@@ -189,7 +194,11 @@ def emd_cost_eval(xyz1: torch.Tensor, xyz2: torch.Tensor, eps: float = 0.002,
     counted: ``emd.pairs``, ``emd.rounds`` and ``emd.bids`` (the auction's
     rounds and bids, summed over the pairs) and ``emd.capped_pairs`` (pairs
     whose auction reached ``auction_iters`` and force-assigned the rows
-    left). The kernel's per-pair counts stay on the device until read.
+    left); where the kernel ran, also ``emd.sweep_terms`` and
+    ``emd.sweep_soft_terms`` (its shifted sweep's terms, and those its soft
+    exp2 took) and ``emd.sinkhorn_cycles`` (the clock cycles of each pair's
+    Sinkhorn, summed). The kernel's per-pair counts stay on the device until
+    read.
     """
     impl, sinkhorn_iters, auction_iters, skrows = resolved_emd_eval_config(
         xyz1.shape[1], xyz1.device
@@ -212,7 +221,7 @@ def emd_cost_eval(xyz1: torch.Tensor, xyz2: torch.Tensor, eps: float = 0.002,
             sinkhorn_rows=skrows, return_work=work,
         )
         if work:
-            assignment, rounds, bids = assignment
-            trace.defer(lambda: _auction_work(rounds, bids, auction_iters))
+            assignment, rounds, bids, sinkhorn = assignment
+            trace.defer(lambda: _hybrid_work(rounds, bids, auction_iters, sinkhorn))
         return _matched_sqdist(xyz1.float(), xyz2.float(), assignment).clamp_min(0.0).sqrt().mean(dim=1)
     return emd_cost(xyz1, xyz2, eps, iters)

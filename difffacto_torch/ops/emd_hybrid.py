@@ -21,8 +21,9 @@ redoes a point with the exact max only when that sum leaves its band. So the
 two no longer agree bit for bit, and on near-ties they may choose other
 objects: their costs agree, their assignments need not.
 ``sinkhorn_log2_reference`` models the kernel's sweep (the scaled base-2
-potentials, the shift, the band and the redo) and ``best_two_strided`` its
-warp-parallel bid (lanes over strided objects, then a butterfly of (best,
+potentials, the shift, the band, the redo and the terms that take the
+kernel's exp2 in software, ``exp2_soft_reference``) and ``best_two_strided``
+its warp-parallel bid (lanes over strided objects, then a butterfly of (best,
 second, lowest index)), for the CPU tests.
 """
 
@@ -103,9 +104,70 @@ def sinkhorn_reference(d: torch.Tensor, table) -> torch.Tensor:
 
 LOG2E = np.float32(1.4426950408889634)
 SUM_BAND = (2.0**-64, 2.0**64)  # a shifted sum outside it is redone with the exact max
+ROWS = 4  # points a thread of the kernel sweeps at once, in its row slots
+KSTEP = 4  # points of the other axis a step of the kernel's sweep takes
+# exp2_soft's polynomial for 2^f on [-1/2, 1/2] (C1..C6; the constant term is
+# 1) and the shift whose add leaves rint(z) + 127 in a float's low bits.
+EXP2_POLY = tuple(float.fromhex(c) for c in (
+    "0x1.62e430p-1", "0x1.ebfbdcp-3", "0x1.c6aee8p-5", "0x1.3b2d4cp-7", "0x1.5f3e52p-10",
+    "0x1.41fbbcp-13"))
+EXP2_SHIFT = 1.5 * 2.0**23 + 127.0
 
 
-def sinkhorn_log2_reference(d: torch.Tensor, table, force_redo=(), return_redone=False):
+def exp2_soft_reference(z: torch.Tensor) -> torch.Tensor:
+    """The kernel's exp2 on the FMA pipes (``csrc/emd_hybrid.cu:exp2_soft``),
+    step for step in float32: z clamped at -127; t = z + EXP2_SHIFT,
+    j = t - EXP2_SHIFT = rint(z), f = z - j in [-1/2, 1/2]; 2^f by Horner over
+    ``EXP2_POLY``; times 2^j built from t's low bits in the exponent field (0
+    at j = -127), a subnormal product flushed to 0. Each fused multiply-add is
+    taken in float64 and rounded once to float32 (the product of two float32
+    is exact there; a rare double rounding may move the last bit). For
+    z < 128.5, as in the kernel."""
+    z = z.float().clamp_min(-127.0)
+    t = z + EXP2_SHIFT
+    f = (z - (t - EXP2_SHIFT)).double()
+    p = torch.full_like(f, EXP2_POLY[-1])
+    for c in EXP2_POLY[-2::-1] + (1.0,):
+        p = (p * f + c).float().double()
+    scale = ((t.view(torch.int32) & 0xFF) << 23).view(torch.float32)
+    y = p.float() * scale
+    return torch.where(y < 2.0**-126, 0.0, y)
+
+
+def sweep_threads(n: int) -> int:
+    """Threads of a launch at n points: n / ROWS, up to 1024."""
+    return min(n // ROWS, 1024)
+
+
+def soft_per_step(n: int, count: int, soft: int) -> torch.Tensor:
+    """For each of the ``count`` points one sweep updates in a launch at n
+    points, how many of each step's KSTEP terms take the soft exp2, int64
+    (count,): with T threads, point i lies in row slot r = (i mod ROWS T) // T
+    of its thread, and of a step's ROWS x KSTEP terms, term (r, u) is soft
+    where (ROWS - 1 - r) KSTEP + u < ``soft``."""
+    T = sweep_threads(n)
+    slot = (torch.arange(count) % (ROWS * T)) // T
+    return (soft - (ROWS - 1 - slot) * KSTEP).clamp(0, KSTEP)
+
+
+def soft_mask(n: int, count: int, others: int, soft: int) -> torch.Tensor:
+    """Which terms of one sweep (``count`` points against ``others``) take
+    the soft exp2 in a launch at n points, bool (count, others): term (i, k)
+    where k mod KSTEP is below the point's ``soft_per_step``."""
+    return torch.arange(others) % KSTEP < soft_per_step(n, count, soft)[:, None]
+
+
+def sweep_counts(B: int, n: int, m: int, sinkhorn_iters: int, soft: int) -> dict:
+    """The shifted sweep's terms in a launch of B pairs (m rows of n points
+    in the Sinkhorn) and those the soft exp2 takes, as ``emd.*`` counts."""
+    per_iter = (int(soft_per_step(n, m, soft).sum()) * (n // KSTEP)
+                + int(soft_per_step(n, n, soft).sum()) * (m // KSTEP))
+    return {"emd.sweep_terms": B * sinkhorn_iters * 2 * m * n,
+            "emd.sweep_soft_terms": B * sinkhorn_iters * per_iter}
+
+
+def sinkhorn_log2_reference(d: torch.Tensor, table, force_redo=(), return_redone=False,
+                            soft=0):
     """The kernel's Sinkhorn sweep on the CPU, over d (B, m, n): returns g (B, n).
 
     The potentials are held scaled by c = log2(e) / eps and rescaled when eps
@@ -116,9 +178,11 @@ def sinkhorn_log2_reference(d: torch.Tensor, table, force_redo=(), return_redone
     max: w = -(M + log2 sum_k 2^(z_k - M)), z_k = w_k - c d, M = max z. Sweep
     2 k is the row half of iteration k, 2 k + 1 its column half; the sweeps in
     ``force_redo`` redo every point. With ``return_redone`` the number of
-    points redone in each sweep comes back too, as a list. The exps and
-    square roots here are exact in f32; the kernel's approximate ones differ
-    from them by a few ulp.
+    points redone in each sweep comes back too, as a list. The terms to
+    which the kernel gives its soft exp2 (``soft_mask`` with ``soft`` of each
+    step's ROWS x KSTEP terms) take ``exp2_soft_reference`` in the shifted
+    sum. The other exps and the square roots here are exact in f32; the
+    kernel's approximate ones differ from them by a few ulp.
     """
     B, m, n = d.shape
     w = [torch.zeros((B, m), device=d.device), torch.zeros((B, n), device=d.device)]
@@ -133,7 +197,12 @@ def sinkhorn_log2_reference(d: torch.Tensor, table, force_redo=(), return_redone
         for half, axis in ((0, 2), (1, 1)):  # rows sum over the columns, columns over the rows
             other = w[1][:, None, :] if half == 0 else w[0][:, :, None]
             z = other - c * d
-            S = torch.exp2(z + w[half].unsqueeze(axis)).sum(dim=axis)
+            arg = z + w[half].unsqueeze(axis)
+            terms = torch.exp2(arg)
+            if soft:
+                mask = soft_mask(n, m, n, soft) if half == 0 else soft_mask(n, n, m, soft).T
+                terms = torch.where(mask, exp2_soft_reference(arg), terms)
+            S = terms.sum(dim=axis)
             redo = ~((S >= SUM_BAND[0]) & (S <= SUM_BAND[1]))
             if 2 * k + half in force_redo:
                 redo = torch.ones_like(redo)
@@ -279,14 +348,17 @@ def emd_assignment_hybrid(
     does not divide n). The TPU kernel's scheduling arguments (``tile``,
     ``auction_chunk``, ``cache_dist``) have no counterpart here. With
     ``return_work`` the auction rounds each pair ran and the bids it computed
-    come back too, each (B,) int32.
+    come back too, each (B,) int32, and the kernel's Sinkhorn work: a dict of
+    its clock cycles a pair (``cycles``, (B,) int64, read on the card) and the
+    launch's ``sweep_counts``, or None where the plain version ran.
     """
     _check(xyz1, xyz2)
     kwargs = dict(sinkhorn_iters=sinkhorn_iters, sinkhorn_inner=sinkhorn_inner,
                   auction_iters=auction_iters, eps=eps, eps_start=eps_start,
                   eps_decay=eps_decay, sinkhorn_rows=sinkhorn_rows, return_work=return_work)
     if xyz1.device.type == "cpu":
-        return emd_assignment_hybrid_reference(xyz1, xyz2, **kwargs)
+        got = emd_assignment_hybrid_reference(xyz1, xyz2, **kwargs)
+        return (*got, None) if return_work else got
     if xyz1.device.type != "cuda":
         raise ValueError(f"emd_assignment_hybrid: no kernel for device {xyz1.device}")
     B, n, _ = xyz1.shape
@@ -299,37 +371,57 @@ def emd_assignment_hybrid(
     out = torch.empty((B, n), dtype=torch.int32, device=dev)
     rounds = torch.empty(B, dtype=torch.int32, device=dev)
     bids = torch.empty(B, dtype=torch.int32, device=dev)
+    cycles = torch.empty(B, dtype=torch.int64, device=dev) if return_work else None
+    lib = _library()
     if B > 0:
-        lib = _library()
         ws_bytes = lib.difffacto_emd_hybrid_workspace_bytes(n)
         workspace = torch.empty(B * ws_bytes, dtype=torch.uint8, device=dev) if ws_bytes else None
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             rc = lib.difffacto_emd_hybrid(
                 x1.data_ptr(), x2.data_ptr(), table.data_ptr(), out.data_ptr(), rounds.data_ptr(),
-                bids.data_ptr(),
+                bids.data_ptr(), cycles.data_ptr() if cycles is not None else None,
                 workspace.data_ptr() if workspace is not None else None,
                 B, n, m, sinkhorn_iters, auction_iters, float(eps), stream,
             )
-        if rc != 0:
-            raise RuntimeError(
-                f"emd_hybrid kernel launch failed: {lib.difffacto_cuda_error_string(rc).decode()}"
-            )
+        _build.check_launch(lib, "emd_hybrid", rc)
         trace.count("emd_hybrid.launches")
     if inv_perm is not None:
         out = out[:, inv_perm]
-    return (out, rounds, bids) if return_work else out
+    if not return_work:
+        return out
+    sinkhorn = dict(sweep_counts(B, n, m, sinkhorn_iters, lib.difffacto_emd_hybrid_soft_terms()),
+                    cycles=cycles)
+    return out, rounds, bids, sinkhorn
+
+
+def exp2_probe(z: torch.Tensor, soft: bool) -> torch.Tensor:
+    """The kernel's exp2 over z (f32 on the card), for the tests:
+    ``exp2_soft`` where ``soft``, else ``ex2.approx.ftz``."""
+    z = z.float().contiguous()
+    out = torch.empty_like(z)
+    lib = _library()
+    with torch.cuda.device(z.device):
+        rc = lib.difffacto_emd_exp2_probe(z.data_ptr(), out.data_ptr(), z.numel(), int(soft),
+                                          torch.cuda.current_stream(z.device).cuda_stream)
+    _build.check_launch(lib, "emd_exp2_probe", rc)
+    return out
 
 
 def _library() -> ctypes.CDLL:
     lib = _build.load("emd_hybrid")
     fn = lib.difffacto_emd_hybrid
     if not fn.argtypes:
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         lib.difffacto_emd_hybrid_workspace_bytes.argtypes = [ctypes.c_int]
         lib.difffacto_emd_hybrid_workspace_bytes.restype = ctypes.c_longlong
+        lib.difffacto_emd_hybrid_soft_terms.argtypes = []
+        lib.difffacto_emd_hybrid_soft_terms.restype = ctypes.c_int
+        lib.difffacto_emd_exp2_probe.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [
+            ctypes.c_void_p]
+        lib.difffacto_emd_exp2_probe.restype = ctypes.c_int
         lib.difffacto_cuda_error_string.argtypes = [ctypes.c_int]
         lib.difffacto_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -142,6 +142,19 @@ def test_hybrid_wrapper_runs_the_plain_version_on_cpu_tensors(hybrid_256):
         th.emd_assignment_hybrid(torch.zeros(1, 100, 3), torch.zeros(1, 100, 3))
 
 
+def test_hybrid_wrapper_work_on_cpu_tensors_has_no_kernel_sinkhorn(hybrid_256):
+    """With ``return_work`` the wrapper gives the plain version's rounds and
+    bids on CPU tensors, and no kernel Sinkhorn work (None): there is no
+    device clock and no soft exp2 on the CPU."""
+    a, b, plain, (rounds, bids), _ = hybrid_256
+    got, got_rounds, got_bids, sinkhorn = th.emd_assignment_hybrid(
+        torch.as_tensor(a), torch.as_tensor(b), return_work=True)
+    np.testing.assert_array_equal(got.numpy(), plain)
+    np.testing.assert_array_equal(got_rounds.numpy(), rounds)
+    np.testing.assert_array_equal(got_bids.numpy(), bids)
+    assert sinkhorn is None
+
+
 def test_hybrid_subsampled_sinkhorn_stays_in_band():
     """Half the rows in the warm start (n = 512, m = 256): the auction absorbs
     the cheaper start, as tests/test_ops.py asks of the Pallas kernel."""

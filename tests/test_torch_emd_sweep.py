@@ -2,11 +2,14 @@
 
 ``csrc/emd_hybrid.cu`` runs its Sinkhorn in base 2 with each sum shifted by
 the point's own potential from the previous sweep (no running max), redoing a
-point with the exact max when its sum leaves a band, and its bids as a warp's
-job (lanes over strided objects, then a butterfly). ``ops/emd_hybrid.py``
-models both: ``sinkhorn_log2_reference`` and ``best_two_strided``. Here the
-first is held against the plain Sinkhorn and, through the auction, against
-the Pallas kernel in interpret mode; the second against the serial
+point with the exact max when its sum leaves a band, with a share of its
+exp2s in software (``exp2_soft``), and its bids as a warp's job (lanes over
+strided objects, then a butterfly). ``ops/emd_hybrid.py`` models them:
+``sinkhorn_log2_reference``, ``exp2_soft_reference`` and
+``best_two_strided``. Here the first is held against the plain Sinkhorn (with
+the soft exp2 in none, some or all of a sweep step's terms) and, through the
+auction, against the Pallas kernel in interpret mode; the second against
+float64 to ``ex2.approx``'s accuracy; the third against the serial
 ``_best_two`` exactly, ties included. The FF kernel at D = 128 walks
 ``ops/fused_core.py:schedule(1, T, sms)``: every token once.
 """
@@ -51,18 +54,83 @@ def distances(a, b):
     return eh.pair_distances(torch.as_tensor(a), torch.as_tensor(b))
 
 
+@pytest.mark.parametrize("soft", [0, 3, eh.ROWS * eh.KSTEP])
 @pytest.mark.parametrize("n, seed, rows", [(128, 3, 128), (256, 11, 256), (256, 7, 128)])
-def test_log2_sweep_g_matches_the_plain_sinkhorn(n, seed, rows):
-    """All rows, and the subsampled Sinkhorn (the first ``rows`` rows)."""
+def test_log2_sweep_g_matches_the_plain_sinkhorn(n, seed, rows, soft):
+    """All rows, and the subsampled Sinkhorn (the first ``rows`` rows); the
+    soft exp2 in none, 3 or all of each sweep step's ROWS x KSTEP terms."""
     a, b = pair(2, n, seed)
     d = distances(a, b)[:, :rows]
-    g, redone = eh.sinkhorn_log2_reference(d, TABLE, return_redone=True)
+    g, redone = eh.sinkhorn_log2_reference(d, TABLE, return_redone=True, soft=soft)
     want = eh.sinkhorn_reference(d, TABLE)
     assert g.shape == want.shape == (2, n) and len(redone) == 300
     err = (g - want).abs().max().item()
-    print(f"n={n} rows={rows}: max |g - g_plain| {err:.3e} (|g| up to "
+    print(f"n={n} rows={rows} soft={soft}: max |g - g_plain| {err:.3e} (|g| up to "
           f"{want.abs().max().item():.2f}), sweeps with a redo {sum(r > 0 for r in redone)}")
     np.testing.assert_allclose(g.numpy(), want.numpy(), rtol=G_RTOL, atol=G_ATOL)
+    if soft:  # the soft terms moved g, within f32 rounding
+        exact = eh.sinkhorn_log2_reference(d, TABLE)
+        assert 0 < (g - exact).abs().max().item() <= G_ATOL
+
+
+# ex2.approx.ftz.f32's relative error (PTX ISA), which the soft exp2 keeps.
+EX2_REL = 2.0**-22
+
+
+def test_exp2_soft_within_ex2_approx_accuracy():
+    """Every multiple of 2^-12 in [-126, 0] (so every integer and half
+    integer) and 10^6 random float32 values there: relative error at most
+    2^-22 against float64, exact at the integers."""
+    grid = np.linspace(-126.0, 0.0, 126 * 4096 + 1)
+    rand = np.random.RandomState(0).uniform(-126.0, 0.0, 10**6)
+    z = np.concatenate([grid, rand]).astype(np.float32)
+    got = eh.exp2_soft_reference(torch.as_tensor(z)).double().numpy()
+    want = np.exp2(z.astype(np.float64))
+    rel = np.abs(got / want - 1)
+    print(f"max relative error {rel.max():.3e} = 2^{np.log2(rel.max()):.2f}")
+    assert rel.max() <= EX2_REL
+    ints = np.arange(-126, 1, dtype=np.float32)
+    assert np.array_equal(eh.exp2_soft_reference(torch.as_tensor(ints)).numpy(),
+                          np.exp2(ints.astype(np.float64)).astype(np.float32))
+
+
+def test_exp2_soft_flushes_below_2_to_the_minus_126():
+    """As ex2.approx.ftz: a result below 2^-126 is 0, exactly, down past
+    the clamp at -127; at -126 the result is 2^-126."""
+    z = np.concatenate([np.linspace(-126.0, -1000.0, 20001)[1:], [-127.0, -126.5, -3.0e38,
+                                                                    -np.inf]]).astype(np.float32)
+    got = eh.exp2_soft_reference(torch.as_tensor(z))
+    assert (got == 0).all() and not torch.signbit(got).any()
+    assert eh.exp2_soft_reference(torch.tensor([-126.0])).item() == 2.0**-126
+
+
+def _soft_by_the_kernels_loop(n, count, others, soft):
+    """The terms the kernel's loops give the soft exp2: thread tid's slot r of
+    the pass at base holds point base + r T + tid, where it is below count,
+    and at step k its term u is against point k + u of the other axis."""
+    T = eh.sweep_threads(n)
+    mask = np.zeros((count, others), bool)
+    for base in range(0, count, eh.ROWS * T):
+        for r in range(eh.ROWS):
+            i = base + r * T + np.arange(T)
+            for u in range(eh.KSTEP):
+                if (eh.ROWS - 1 - r) * eh.KSTEP + u < soft:
+                    mask[i[i < count][:, None], np.arange(u, others, eh.KSTEP)] = True
+    return mask
+
+
+@pytest.mark.parametrize("n, m", [(2048, 2048), (2048, 1024), (8192, 8192), (8192, 2048),
+                                  (384, 384), (512, 256)])
+def test_sweep_counts_follow_the_kernels_loops(n, m):
+    for soft in (0, 1, 3, 4, 5, 16):
+        for count, others in ((m, n), (n, m)):
+            assert np.array_equal(eh.soft_mask(n, count, others, soft).numpy(),
+                                  _soft_by_the_kernels_loop(n, count, others, soft))
+    counts = eh.sweep_counts(3, n, m, 150, 3)
+    soft = _soft_by_the_kernels_loop(n, m, n, 3).sum() + _soft_by_the_kernels_loop(n, n, m, 3).sum()
+    assert counts == {"emd.sweep_terms": 3 * 150 * 2 * m * n, "emd.sweep_soft_terms": 3 * 150 * soft}
+    if m == n:  # 3 terms of each 16
+        assert 16 * counts["emd.sweep_soft_terms"] == 3 * counts["emd.sweep_terms"]
 
 
 def test_shift_keeps_every_sum_in_band_on_normalized_clouds():

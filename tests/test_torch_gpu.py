@@ -246,7 +246,7 @@ def test_emd_hybrid_matches_plain_version(cuda, n):
     a = (_clouds(2, n, seed=n) * 0.3).to(cuda)
     b = (_clouds(2, n, seed=n + 1) * 0.3).to(cuda)
     before = launched("emd_hybrid")
-    got, rounds, bids = eh.emd_assignment_hybrid(a, b, auction_iters=150, return_work=True)
+    got, rounds, bids, _ = eh.emd_assignment_hybrid(a, b, auction_iters=150, return_work=True)
     torch.cuda.synchronize()
     assert launched("emd_hybrid") == before + 1
     want, rounds_w, bids_w = eh.emd_assignment_hybrid_reference(
@@ -259,6 +259,7 @@ def test_emd_hybrid_matches_plain_version(cuda, n):
           f"plain {bids_w.tolist()}, cost {cg.tolist()} vs plain {cw.tolist()}")
     assert ((cg - cw).abs() <= 0.005 * cw).all()
     assert ((n + rounds - 1 <= bids) & (bids <= n * (rounds + 1))).all()
+    _hold_permutation(got, rounds, 150)
     if torch.equal(got, want):
         assert torch.equal(rounds, rounds_w) and torch.equal(bids, bids_w)
     if n == 512:
@@ -270,12 +271,19 @@ def test_emd_hybrid_matches_plain_version(cuda, n):
             assert cg[i].item() <= 1.01 * d[ri, ci].mean()
 
 
+def _hold_permutation(got, rounds, cap):
+    """Each pair whose auction finished before its cap holds every object once."""
+    n = got.shape[1]
+    for i in torch.nonzero(rounds < cap).flatten().tolist():
+        assert got[i].unique().numel() == n, f"pair {i} finished in {rounds[i]} rounds"
+
+
 def _hold_emd(a, b, label):
     """The kernel against its plain version with the gates above: in range,
-    matched cost within 0.5 %, the bids invariant; the share of equal
-    assignments is printed, not held."""
+    matched cost within 0.5 %, the bids invariant, a permutation wherever the
+    auction finished; the share of equal assignments is printed, not held."""
     before = launched("emd_hybrid")
-    got, rounds, bids = eh.emd_assignment_hybrid(a, b, auction_iters=150, return_work=True)
+    got, rounds, bids, _ = eh.emd_assignment_hybrid(a, b, auction_iters=150, return_work=True)
     torch.cuda.synchronize()
     assert launched("emd_hybrid") == before + 1
     want, rounds_w, bids_w = eh.emd_assignment_hybrid_reference(
@@ -291,6 +299,7 @@ def _hold_emd(a, b, label):
           f"cost off by at most {rel:.3e}")
     assert ((cg - cw).abs() <= 0.005 * cw).all()
     assert ((n + rounds - 1 <= bids) & (bids <= n * (rounds + 1))).all()
+    _hold_permutation(got, rounds, 150)
     return rounds, bids
 
 
@@ -329,7 +338,7 @@ def test_emd_hybrid_global_state_at_8192(cuda):
     because the plain version holds several (B, 8192, 8192) f32 matrices."""
     a = (_clouds(1, 8192, seed=3) * 0.3).to(cuda)
     b = (_clouds(1, 8192, seed=4) * 0.3).to(cuda)
-    got, rounds, bids = eh.emd_assignment_hybrid(a, b, auction_iters=150, return_work=True)
+    got, rounds, bids, _ = eh.emd_assignment_hybrid(a, b, auction_iters=150, return_work=True)
     torch.cuda.synchronize()
     want = eh.emd_assignment_hybrid_reference(a, b, auction_iters=150)
     assert (got >= 0).all() and (got < 8192).all()
@@ -340,6 +349,64 @@ def test_emd_hybrid_global_state_at_8192(cuda):
           f"cost {cg.tolist()} vs plain {cw.tolist()}")
     assert 1 <= rounds.item() <= 150 and share >= 0.98
     assert ((cg - cw).abs() <= 0.005 * cw).all()
+    _hold_permutation(got, rounds, 150)
+
+
+@pytest.mark.gpu
+def test_emd_exp2s_on_the_card(cuda):
+    """The sweep's soft exp2 equals its model (``exp2_soft_reference``) to
+    the last bit but for a rare double rounding in the model, keeps
+    ex2.approx's relative error of 2^-22 on [-126, 0], and is 0 where a
+    result falls below 2^-126, as ex2.approx.ftz is; ex2.approx's own error is
+    printed beside it."""
+    grid = np.linspace(-126.0, 0.0, 126 * 4096 + 1)
+    rand = np.random.RandomState(1).uniform(-126.0, 0.0, 10**6)
+    z = torch.as_tensor(np.concatenate([grid, rand]).astype(np.float32))
+    soft = eh.exp2_probe(z.to(cuda), soft=True).cpu()
+    hard = eh.exp2_probe(z.to(cuda), soft=False).cpu()
+    ulps = (soft.view(torch.int32) - eh.exp2_soft_reference(z).view(torch.int32)).abs()
+    want = torch.exp2(z.double())
+    rel_soft = (soft.double() / want - 1).abs().max().item()
+    rel_hard = (hard.double() / want - 1).abs().max().item()
+    print(f"exp2 on [-126, 0]: soft 2^{np.log2(rel_soft):.2f}, ex2.approx 2^{np.log2(rel_hard):.2f}"
+          f"; soft against its model: {(ulps > 0).sum().item()} of {z.numel()} off by one ulp")
+    assert ulps.max().item() <= 1 and (ulps > 0).float().mean().item() < 1e-3
+    assert rel_soft <= 2.0**-22
+    low = torch.linspace(-126.001, -1000.0, 10001).to(cuda)
+    assert (eh.exp2_probe(low, soft=True) == 0).all()
+    assert (eh.exp2_probe(low, soft=False) == 0).all()
+
+
+@pytest.mark.gpu
+def test_emd_sinkhorn_counters_only_while_recording(cuda, monkeypatch):
+    """Through the eval EMD at n = 2048: the kernel's sweep terms, the share
+    its soft exp2 took and its Sinkhorn's clock cycles are counted while the
+    recorder records, and not otherwise."""
+    from difffacto_torch.ops import emd as te
+
+    monkeypatch.delenv("DIFFFACTO_EMD_IMPL", raising=False)
+    keys = ("emd.sweep_terms", "emd.sweep_soft_terms", "emd.sinkhorn_cycles")
+
+    def read():
+        counts = trace.counters()
+        return {k: counts.get(k, 0) for k in keys}
+
+    a = (_clouds(3, 2048, seed=21) * 0.3).to(cuda)
+    b = (_clouds(3, 2048, seed=22) * 0.3).to(cuda)
+    before = read()
+    te.emd_cost_eval(a, b)
+    torch.cuda.synchronize()
+    assert read() == before
+    with trace.recording():
+        te.emd_cost_eval(a, b)
+    got = {k: v - before[k] for k, v in read().items()}
+    soft = eh._library().difffacto_emd_hybrid_soft_terms()
+    want = eh.sweep_counts(3, 2048, 2048, 150, soft)
+    print(f"soft terms {soft} of {eh.ROWS * eh.KSTEP}; counts {got}; "
+          f"{got['emd.sinkhorn_cycles'] / 3e6:.1f} Mcycles a pair")
+    assert got["emd.sweep_terms"] == want["emd.sweep_terms"] == 3 * 150 * 2 * 2048 * 2048
+    assert got["emd.sweep_soft_terms"] == want["emd.sweep_soft_terms"] > 0
+    assert got["emd.sinkhorn_cycles"] > 0
 
 
 @pytest.mark.gpu

@@ -12,13 +12,18 @@ parent, change, change, parent.
 
 What a child times, with CUDA events after one warm-up:
 
-- the EMD kernel at n = 2048 on 132 pairs (one pair per SM of an H100) and on
-  32, each with ``auction_iters=150`` (the protocol's call) and with
+- the EMD kernel at n = 2048 on 132 pairs (one pair per SM of an H100), on
+  32, and on 528 (four a SM, two blocks on an SM at a time, as in the
+  protocol's launches of 1984–2112 pairs), each with ``auction_iters=150``
+  (the protocol's call) and with
   ``auction_iters=0`` (the Sinkhorn and one force-assignment sweep): the
   difference is the auction. The clouds are seeded Gaussians with random
   axis scales, bbox-normalized as the protocol normalizes its clouds, paired
   as ``chip_smoke.py`` phase 6 pairs its 32 references with its 32 samples;
-  the rounds and bids of the full call are printed with them;
+  the rounds and bids of the full call are printed with them, and the clock
+  cycles of a pair's Sinkhorn where the checkout's kernel counts them;
+- the EMD kernel at n = 8192 on 132 pairs (its global-workspace variant),
+  with ``auction_iters=150``;
 - the fused FF at T = 524,288, D = 128 (the two-attention denoiser at batch
   256) and at T = 1024, D = 256 (the aligner).
 """
@@ -68,16 +73,25 @@ def one(root):
     _build.build(["emd_hybrid", "fused_ff"])
     out = {"root": root}
     refs, gens = (torch.as_tensor(clouds(s), device=dev) for s in (1, 2))
-    ii = torch.arange(132, device=dev)
-    a132, b132 = refs[ii % 32].contiguous(), gens[(ii + ii // 32) % 32].contiguous()
-    for B in (132, 32):
-        a, b = a132[:B].contiguous(), b132[:B].contiguous()
+    ii = torch.arange(528, device=dev)
+    a528, b528 = refs[ii % 32].contiguous(), gens[(ii + ii // 32) % 32].contiguous()
+    for B in (132, 32, 528):
+        a, b = a528[:B].contiguous(), b528[:B].contiguous()
         for iters in (150, 0):
             out[f"emd_ms_{B}_auction{iters}"] = cuda_ms(
                 torch, lambda: eh.emd_assignment_hybrid(a, b, auction_iters=iters), 2)
-        _, rounds, bids = eh.emd_assignment_hybrid(a, b, auction_iters=150, return_work=True)
-        out[f"emd_rounds_{B}"] = rounds.float().mean().item()
-        out[f"emd_bids_{B}"] = bids.float().mean().item()
+        work = eh.emd_assignment_hybrid(a, b, auction_iters=150, return_work=True)
+        out[f"emd_rounds_{B}"] = work[1].float().mean().item()
+        out[f"emd_bids_{B}"] = work[2].float().mean().item()
+        if len(work) > 3:  # the Sinkhorn's clock cycles, where the kernel counts them
+            out[f"emd_sinkhorn_mcycles_{B}"] = work[3]["cycles"].double().mean().item() / 1e6
+    del a528, b528
+    refs, gens = (torch.as_tensor(clouds(s, n=8192), device=dev) for s in (3, 4))
+    ii = ii[:132]
+    a, b = refs[ii % 32].contiguous(), gens[(ii + ii // 32) % 32].contiguous()
+    out["emd_ms_132_n8192_auction150"] = cuda_ms(
+        torch, lambda: eh.emd_assignment_hybrid(a, b, auction_iters=150), 2)
+    del a, b, refs, gens
     for D, T in ((128, 256 * 2048), (256, 1024)):
         args = fc.operands(ff.example_inputs(T, D, seed=5), dev, torch.bfloat16)
         out[f"ff_ms_d{D}_t{T}"] = cuda_ms(torch, lambda: ff.fused_ln_geglu_ff(*args), 20)
