@@ -90,14 +90,21 @@ Phases, each fatal (non-zero exit, no "ok" line):
    Pallas pair's inputs is printed under its own label.
 8. two-attention generation and UNet, full width: ``configs/gen_chair.py``
    with ``single_attn=False`` set on the loaded config in the aligner and the
-   denoiser. Batch-16 generation with launch counts set to 0 just before and
-   read just after: 500 fused-FF launches (5 blocks x 100 steps; the
-   aligner's T = 64 takes the unfused FF) and no trunk launch; a batch-1 run
-   with every draw injected against the same model on the CPU; generation at
-   batch 256 (1 warm-up, 2 timed runs, 505 fused-FF launches each: the
-   aligner's T = 1024 takes the kernel). Then a UNet forward at B = 256 x 2048
-   with the gen_chair denoiser's widths (3 channels, 8 x 16, depth 5, part
-   tokens (B, 4, 522) with parts absent): 5 one-block launches, and at batch 2
+   denoiser. Batch-16 generation (a part absent in every third row) with
+   launch counts set to 0 just before and read just after: 100 launches of
+   the two-attention trunk's entry (one a step), no fused-FF launch (the
+   denoiser's FF is inside the trunk; the aligner's T = 64 takes the unfused
+   FF) and no single-attention trunk launch; a batch-1 run with every draw
+   injected against the same model on the CPU; generation at batch 256 (1
+   warm-up with parts absent in some rows, 2 timed runs, 100 trunk and 5
+   fused-FF launches each: the aligner's T = 1024 takes the FF kernel). The
+   entry's first launch at batch 16 and in the warm-up (2 and 32 tiles for
+   each persistent block, across rows) is held against its plain version on
+   the same inputs, and timed on the warm-up's inputs beside its plain
+   version and its bound (the ``fused_core_two_attn`` row of the last line).
+   Then a UNet forward at B = 256 x 2048 with the gen_chair denoiser's
+   widths (3 channels, 8 x 16, depth 5, part tokens (B, 4, 522) with parts
+   absent): 5 one-block launches, and at batch 2
    against the CPU. The fused FF and the one-block kernel are timed with CUDA
    events beside their plain versions and bounds; the FF at D = 256 and
    T = 1024, whose launch takes less device time than the wrapper's host
@@ -338,7 +345,7 @@ BATCH_CHECK, BATCH_TIMED, WARMUP, ITERS = 16, 256, 1, 3
 # port's recorder (``difffacto_torch/utils/trace.py``: ``<kernel>.launches``).
 KERNELS = ("fused_core", "fused_core_headless", "fused_core_tail", "fused_core_headless_tail",
            "fused_trunk_train_fwd", "fused_trunk_train_bwd", "emd_hybrid", "fps", "fused_ff",
-           "fused_block")
+           "fused_block", "fused_core_two_attn")
 _LAUNCH_ZERO = {}  # each kernel's recorder count where its launches were last set to 0
 
 
@@ -514,16 +521,16 @@ def graph_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def trunk_bound_ms(args, out_bytes, in_ch, depth, out_ch=0):
+def trunk_bound_ms(args, out_bytes, in_ch, depth, out_ch=0, attn1=False):
     """The least time for one trunk launch: its operations over the bf16 peak
     against its bytes (inputs read once, output written once) over HBM;
-    ``out_ch`` counts a fused proj_out's."""
+    ``out_ch`` counts a fused proj_out's, ``attn1`` a first attention in
+    every block (the two-attention entry: one more attention half)."""
     from difffacto_torch.ops import fused_core as fc
 
     B, N = args[0].shape[:2]
-    macs = (in_ch + out_ch) * fc.D + depth * (
-        2 * fc.D * fc.D + 2 * fc.HEADS * fc.CTX * (fc.D // fc.HEADS) + 3 * fc.D * fc.FF
-    )
+    half = 2 * fc.D * fc.D + 2 * fc.HEADS * fc.CTX * (fc.D // fc.HEADS)
+    macs = (in_ch + out_ch) * fc.D + depth * ((2 if attn1 else 1) * half + 3 * fc.D * fc.FF)
     t_ops = 2.0 * B * N * macs / PEAK_BF16_FLOPS * 1e3
     t_bytes = (sum(a.numel() * a.element_size() for a in args) + out_bytes) / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
@@ -841,6 +848,18 @@ def runner_state(r):
     return out
 
 
+def core_reference(name, args):
+    """fused_core_reference on the arguments of a call of the trunk entry
+    ``name``: ``fused_core``'s, or ``fused_core_two_attn``'s with the first
+    attention's seven operands between the trunk's and the scale."""
+    from difffacto_torch.ops import fused_core as fc
+
+    if name != "fused_core_two_attn":
+        return fc.fused_core_reference(*args)
+    n = len(fc.example_inputs(1, 1, 1))
+    return fc.fused_core_reference(*args[:n], *args[n + 7:], attn1=tuple(args[n:n + 7]))
+
+
 class KernelRecorder:
     """While entered, wraps each kernel wrapper at its (module, name) site,
     where the model calls it, and keeps the first launch of each at each
@@ -897,16 +916,16 @@ class KernelRecorder:
             fail(f"{label} recorded no launch of {name}")
         return got
 
-    def hold_core(self, label):
-        """Fail unless every kept trunk launch agrees with fused_core_reference
-        on the same inputs (hold_bf16); returns the largest difference."""
-        from difffacto_torch.ops import fused_core as fc
-
+    def hold_core(self, label, name="fused_core"):
+        """Fail unless every kept launch of the trunk entry ``name``
+        (``fused_core`` or ``fused_core_two_attn``) agrees with
+        fused_core_reference on the same inputs (hold_bf16); returns the
+        largest difference."""
         err = 0.0
-        for (B, N), (args, _, out) in self.launches("fused_core", label):
+        for (B, N), (args, _, out) in self.launches(name, label):
             with torch.inference_mode():
-                want = fc.fused_core_reference(*args)
-            err = max(err, hold_bf16(f"fused_core as {label} launched it, B={B} N={N}", out, want))
+                want = core_reference(name, args)
+            err = max(err, hold_bf16(f"{name} as {label} launched it, B={B} N={N}", out, want))
         return err
 
     def hold_train(self, label):
@@ -4809,21 +4828,31 @@ def main():
 
     phase("8 two-attention gen_chair generation and UNet, full width")
     t_phase = time.perf_counter()
+    from difffacto_torch.models import denoiser
+
+    # The entry's first launch at batch 16 and at batch 256 (a part absent in
+    # some rows: tiles of rows with other masks and other K1, V1 on each
+    # block's walk, 2 and 32 tiles a block) is kept and held below.
+    two_rec = KernelRecorder((denoiser, "fused_core_two_attn"))
     valid = torch.ones(BATCH_CHECK, 4, device=dev)
+    valid[1::3, 2] = 0.0
     for noise_scale in (100, 1):
         model = build_model(noise_scale, dev, single_attn=False)
-        zero_launches("fused_ff", "fused_core", "fused_block")
-        pred = sample_generation(model, BATCH_CHECK, valid_id=valid,
-                                 generator=torch.Generator(device=dev).manual_seed(0))["pred"]
+        zero_launches("fused_ff", "fused_core", "fused_block", "fused_core_two_attn")
+        with two_rec:
+            pred = sample_generation(model, BATCH_CHECK, valid_id=valid,
+                                     generator=torch.Generator(device=dev).manual_seed(0))["pred"]
         torch.cuda.synchronize()
-        two_counts = kernel_launches("fused_ff", "fused_core", "fused_block")
+        two_counts = kernel_launches("fused_ff", "fused_core", "fused_block", "fused_core_two_attn")
         if torch.isfinite(pred).all():
             break
+        two_rec.first.clear()
         print(f"non-finite samples at aligner noise_scale {noise_scale}; lowering it to 1")
     else:
         fail("two-attention generation: non-finite samples")
     depth = len(model.net.blocks)
-    expected = dict(fused_ff=depth * model.num_timesteps, fused_core=0, fused_block=0)
+    expected = dict(fused_ff=0, fused_core=0, fused_block=0,
+                    fused_core_two_attn=model.num_timesteps)
     print(f"noise_scale {noise_scale}, batch {BATCH_CHECK}: pred {tuple(pred.shape)}, launches "
           f"{two_counts}, expected {expected} (the aligner's T = {4 * BATCH_CHECK} takes the "
           f"unfused FF)")
@@ -4847,31 +4876,69 @@ def main():
         print(f"two-attention batch-1 generation on {where}: {time.perf_counter() - t0:.1f} s")
     diff = (runs["cuda"] - runs["cpu"]).abs()
     two_rel = (diff.norm() / runs["cpu"].norm()).item()
-    print(f"card vs CPU plain FF: max abs {diff.max().item():.4e}, relative L2 {two_rel:.4e} "
+    print(f"card vs CPU plain trunk: max abs {diff.max().item():.4e}, relative L2 {two_rel:.4e} "
           f"(tol {E2E_REL_L2})")
     if not torch.isfinite(runs["cuda"]).all() or two_rel > E2E_REL_L2:
         fail("two-attention generation on the card disagrees with the CPU plain version")
 
     valid = torch.ones(TWO_ATTN_BATCH_TIMED, 4, device=dev)
     gen = torch.Generator(device=dev).manual_seed(1)
-    sample_generation(model, TWO_ATTN_BATCH_TIMED, valid_id=valid, generator=gen)
+    warm = valid.clone()
+    warm[::5, 0] = warm[2::7, 3] = 0.0
+    with two_rec:
+        sample_generation(model, TWO_ATTN_BATCH_TIMED, valid_id=warm, generator=gen)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    zero_launches("fused_ff")
+    zero_launches("fused_ff", "fused_core_two_attn")
     t0 = time.perf_counter()
     for _ in range(TWO_ATTN_ITERS):
         sample_generation(model, TWO_ATTN_BATCH_TIMED, valid_id=valid, generator=gen)
     torch.cuda.synchronize()
     two_dt = (time.perf_counter() - t0) / TWO_ATTN_ITERS
-    two_per_gen = kernel_launches("fused_ff")["fused_ff"] / TWO_ATTN_ITERS
+    timed = kernel_launches("fused_ff", "fused_core_two_attn")
+    two_per_gen = timed["fused_ff"] / TWO_ATTN_ITERS
+    trunk_per_gen = timed["fused_core_two_attn"] / TWO_ATTN_ITERS
     two_peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"two-attention gen_chair batch {TWO_ATTN_BATCH_TIMED}: "
           f"{TWO_ATTN_BATCH_TIMED / two_dt:.2f} shapes/s ({two_dt:.3f} s per batch), peak memory "
-          f"{two_peak:.2f} GiB, {two_per_gen:.0f} fused_ff launches per generation")
-    if two_per_gen != depth * model.num_timesteps + depth:
-        fail(f"{two_per_gen} fused_ff launches per batch-{TWO_ATTN_BATCH_TIMED} generation, "
-             f"expected {depth * model.num_timesteps + depth}")
+          f"{two_peak:.2f} GiB, {two_per_gen:.0f} fused_ff and {trunk_per_gen:.0f} two-attention "
+          f"trunk launches per generation")
+    if (two_per_gen, trunk_per_gen) != (depth, model.num_timesteps):
+        fail(f"{two_per_gen} fused_ff and {trunk_per_gen} trunk launches per "
+             f"batch-{TWO_ATTN_BATCH_TIMED} generation, expected {depth} and "
+             f"{model.num_timesteps}")
     del model, runs, pred
+    torch.cuda.empty_cache()
+
+    # The entry as the generations launched it, held against its plain
+    # version; then timed at batch 256 on the warm-up's recorded inputs,
+    # beside its plain version and its bound on those inputs.
+    two_err = two_rec.hold_core("phase 8", "fused_core_two_attn")
+    kept = dict(two_rec.launches("fused_core_two_attn", "phase 8"))
+    if sorted(kept) != [(BATCH_CHECK, 2048), (TWO_ATTN_BATCH_TIMED, 2048)]:
+        fail(f"phase 8 kept two-attention trunk launches at {sorted(kept)}")
+    targs = kept[(TWO_ATTN_BATCH_TIMED, 2048)][0]
+    ops = [a for a in targs if torch.is_tensor(a)]
+    with uncounted("fused_core_two_attn"):
+        two_ms = cuda_ms(lambda: fc.fused_core_two_attn(*targs), 20)
+        with torch.inference_mode():
+            two_plain_ms = cuda_ms(lambda: core_reference("fused_core_two_attn", targs), 3)
+    two_bound, two_by = trunk_bound_ms(ops, TWO_ATTN_BATCH_TIMED * 2048 * fc.D * 2,
+                                       in_ch=ops[0].shape[-1], depth=depth, attn1=True)
+    print(f"fused_core_two_attn B={TWO_ATTN_BATCH_TIMED} N=2048 (the warm-up's inputs): "
+          f"{two_ms:.3f} ms, bound {two_bound:.3f} ms ({two_by}), "
+          f"{100 * two_bound / two_ms:.1f}% of roofline; plain version {two_plain_ms:.3f} ms; "
+          f"100 launches are {100 * 100 * two_ms / (1e3 * two_dt):.1f}% of a batch's generation")
+    two_attn = {
+        "name": "fused_core_two_attn", "route": "cuda",
+        "source": "difffacto_torch/csrc/fused_core.cu",
+        "replaces": "difffacto_tpu/models/denoiser.py:301-309 (the blocks one by one)",
+        "launches": two_counts["fused_core_two_attn"], "max_abs_err": two_err, "ms": two_ms,
+        "plain_ms": two_plain_ms, "bound_ms": two_bound, "bound_by": two_by, "library_ms": None,
+        "launches_per_generation_batch256": trunk_per_gen,
+        "gen_shapes_per_s_batch256": TWO_ATTN_BATCH_TIMED / two_dt,
+    }
+    del two_rec, kept, targs, ops
     torch.cuda.empty_cache()
 
     # UNet: one forward at full size, counted; then batch 2 against the CPU.
@@ -4916,8 +4983,7 @@ def main():
         ff_bound_256 = ff_bound_ms(args256, args256[0].numel() * 2)[0]
     print(f"fused_ff T={args[0].shape[0]} D=128: {ff_ms:.3f} ms, bound {ff_bound:.3f} ms "
           f"({ff_by}), {100 * ff_bound / ff_ms:.1f}% of roofline; plain version "
-          f"{ff_plain_ms:.3f} ms; 500 launches are "
-          f"{100 * 500 * ff_ms / (1e3 * two_dt):.1f}% of a batch's generation; "
+          f"{ff_plain_ms:.3f} ms; "
           f"T=1024 D=256: {ff_ms_256:.4f} ms ({ff_graph_ms_256:.4f} as a CUDA graph of 20 "
           f"launches), bound "
           f"{ff_bound_256:.4f} ms, plain version {ff_plain_ms_256:.3f} ms")
@@ -5039,7 +5105,7 @@ def main():
                     gen_shapes_per_s_fuse_tail=p17g["tail_shapes_per_s"],
                     gen_card_vs_cpu_rel_l2=p17g["tail_card_vs_cpu_rel_l2"])
     sa = run14["pointnet2"]
-    print(json.dumps({"kernels": [trunk, headless, *tails, {
+    print(json.dumps({"kernels": [trunk, headless, *tails, two_attn, {
         "name": "fps", "route": "cuda", "source": "difffacto_torch/csrc/fps.cu",
         "replaces": "difffacto_tpu/ops/fps_pallas.py:27", "launches": counts["fps"],
         "max_abs_err": fps_diff, "ms": fps_ms, "plain_ms": fps_plain_ms, "bound_ms": fps_bound,

@@ -4,7 +4,9 @@
 // Pallas program launched at difffacto_tpu/models/denoiser.py:270) in all
 // four of its forms: the head fused and the tail not, as the JAX default runs
 // it (difffacto_fused_core), the head-less trunk, and each of those with
-// proj_out fused (the *_tail entries below). For every token:
+// proj_out fused (the *_tail entries below). One more entry, which no
+// TPU kernel has, runs the two-attention trunk (difffacto_fused_core_two_attn,
+// below). For every token:
 //
 //   h = proj_in(x)                      13 -> 128, f32 accumulate, round bf16
 //   h = LN(h)                           pre-LN
@@ -177,6 +179,39 @@ extern "C" int difffacto_fused_core_headless_tail(
   p.pout_w = (const bf16*)pout_w; p.pout_b = (const float*)pout_b; p.out_ch = out_ch;
   return (int)launch<Mode::HEADLESS, true>(p, grid, tiles_per_row, wq, wout, w1, w2,
                                            (cudaStream_t)stream);
+}
+
+// The two-attention trunk (single_attn=False, as DiffFacto's
+// BasicTransformerBlock runs by default, nets/attention.py:152-195): the
+// operands of difffacto_fused_core, then the first attention's k1, v1
+// (depth, B, 4, 128) bf16, norm1's n1_scale, n1_bias (depth, 128) bf16, wq1,
+// wout1 (depth, 128, 128) bf16 and bout1 (depth, 128) f32. Each block runs
+//   a = LN1(h); h = h + bf16(attn(a Wq1; K1, V1) Wout1 + bout1)
+// with attn1's arithmetic that of attn2 (above), before attn2 and the GEGLU;
+// both attentions cross-attend to the 4 part tokens under the same mask.
+// Bound: the trunk's plus 2 D^2 + 2 K D = 33,792 MACs a token a block
+// (1,322,624 a token at depth 5: 0.70 ms at B=128, N=2048), with Wq1, Wout1,
+// K1 and V1 read once: compute-bound. Its kernel is fused_core_two_attn_kernel.
+extern "C" int difffacto_fused_core_two_attn(
+    const void* x, const void* pin_w, const void* pin_b, const void* k, const void* v,
+    const void* mask, const void* pre_scale, const void* pre_bias, const void* post_scale,
+    const void* post_bias, const void* n2_scale, const void* n2_bias, const void* wq,
+    const void* wout, const void* bout, const void* ff_scale, const void* ff_bias,
+    const void* w1, const void* b1, const void* w2, const void* b2, const void* k1,
+    const void* v1, const void* n1_scale, const void* n1_bias, const void* wq1,
+    const void* wout1, const void* bout1, void* out, int B, int N, int in_ch, int depth,
+    float scale, int grid, int tiles_per_row, void* stream) {
+  if (B < 1 || B > 65535 || N < 1 || in_ch < 1 || in_ch > MAX_IN || depth < 1)
+    return (int)cudaErrorInvalidValue;
+  Params p = trunk_params(k, v, mask, pre_scale, pre_bias, post_scale, post_bias, n2_scale,
+                          n2_bias, bout, ff_scale, ff_bias, b1, b2, out, B, N, depth, scale);
+  p.x = (const bf16*)x; p.pin_w = (const bf16*)pin_w; p.pin_b = (const float*)pin_b;
+  p.in_ch = in_ch;
+  p.k1 = (const bf16*)k1; p.v1 = (const bf16*)v1;
+  p.n1_scale = (const bf16*)n1_scale; p.n1_bias = (const bf16*)n1_bias;
+  p.bout1 = (const float*)bout1;
+  return (int)launch<Mode::TRUNK, false, true>(p, grid, tiles_per_row, wq, wout, w1, w2,
+                                               (cudaStream_t)stream, wq1, wout1);
 }
 
 // One block: x, out (B, N, 128) bf16; k, v (B, 4, 128) bf16; mask (B, 4) f32.

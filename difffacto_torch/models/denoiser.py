@@ -21,10 +21,14 @@ trunk kernel (``fused_core_tail``, or ``fused_core_headless_tail`` without
 the head), and ``DIFFFACTO_FUSE_HEAD=0`` applies proj_in outside the kernel
 and runs the head-less entry. Their defaults are the JAX package's: head
 fused, tail not. Training reads neither.
-With two-attention blocks (``single_attn=False``) the blocks run one by one,
-each ending in ``FusedLNFF``, as the JAX package runs them
-(``denoiser.py:301-309``); in training with the unfused math and dropout, as
-the JAX package trains them.
+With two-attention blocks (``single_attn=False``) generation at those shapes,
+without ``add_t_to_x``, runs the trunk as one call of
+``ops/fused_core.fused_core_two_attn`` (the kernel's two-attention form, with
+the head fused and proj_out outside; it reads neither switch); the JAX
+package has no such kernel and runs the blocks one by one, each ending in
+``FusedLNFF`` (``denoiser.py:301-309``), as the port still does at every
+other shape, with ``add_t_to_x``, and in training, there with the unfused
+math and dropout, as the JAX package trains them.
 
 And of ``UNet`` (``denoiser.py:381-434``): GroupNorm + SiLU + proj_in, a
 time-embedding MLP, then per level a scale-shift LayerNorm, a flat block
@@ -45,6 +49,7 @@ And of the latent denoisers over the K part tokens: ``LDMNet``
 from __future__ import annotations
 
 import os
+from operator import attrgetter
 
 import torch
 import torch.nn.functional as F
@@ -56,12 +61,24 @@ from ..nn.layers import (Dense, FeedForward, GroupNorm, LayerNorm, default_gener
                          timestep_embedding)
 from ..ops.fused_block import takes as trunk_kernel_takes
 from ..ops.fused_core import (fused_core, fused_core_headless, fused_core_headless_tail,
-                              fused_core_tail)
+                              fused_core_tail, fused_core_two_attn)
 from ..ops.fused_core_train import fused_trunk_train
 from ..utils.device import kernel_dtype, resolve_device
 from ..utils.registry import NETS
 
 T_DIM = 256  # width of the t-embedding appended to every context token
+
+# The two-attention trunk's per-block operands by their path in a block
+# (``TransformerBlock``): K and V of attn2 and of attn1; attn2's half and the
+# FF, then attn1's half, in the entry's argument order. The biases go in as f32.
+_TWO_KV_PATHS = ("attn2.to_k.kernel", "attn2.to_v.kernel", "attn1.to_k.kernel",
+                 "attn1.to_v.kernel")
+_TWO_BLOCK_PATHS = ("norm2.scale", "norm2.bias", "attn2.to_q.kernel", "attn2.to_out.kernel",
+                    "attn2.to_out.bias", "ffn.ln_scale", "ffn.ln_bias", "ffn.w1", "ffn.b1",
+                    "ffn.w2", "ffn.b2")
+_ATTN1_PATHS = ("norm1.scale", "norm1.bias", "attn1.to_q.kernel", "attn1.to_out.kernel",
+                "attn1.to_out.bias")
+_F32_PATHS = {"attn2.to_out.bias", "ffn.b1", "ffn.b2", "attn1.to_out.bias"}
 
 
 @NETS.register_module()
@@ -108,6 +125,7 @@ class TransformerNet(nn.Module):
         self.res, self.include_std, self.dtype, self.dropout = res, include_std, dtype, dropout
         self.single_attn, self.add_class_cond = single_attn, add_class_cond
         self.add_t_to_x = add_t_to_x
+        self._kept, self._kept_stamp = {}, None  # _kept_operand's store
         inner = n_heads * d_head
         in_ch = in_channels + (6 if cat_params_to_x else 0) + (n_class if cat_class_to_x else 0)
         ctx_dim = (context_dim + (n_class if class_cond and not add_class_cond else 0)
@@ -126,6 +144,38 @@ class TransformerNet(nn.Module):
             for _ in range(depth)
         )
 
+    def train(self, mode: bool = True):
+        self._kept = {}  # a mode switch drops the kept operands (see _drop_stale_kept)
+        return super().train(mode)
+
+    def _drop_stale_kept(self):
+        """Drop the operands ``_kept_operand`` keeps once a parameter of the
+        net has changed since they were made: a new storage (``to``, a copy)
+        or an in-place write that the parameter's version counter saw (the
+        optimizer's and ``load_state_dict``'s ``copy_``, any in-place op on the
+        parameter or on ``p.detach()``). A write through ``p.data`` bypasses
+        that counter and is not seen: after one, call ``train()`` or
+        ``eval()``, which drop the kept operands too."""
+        if torch.is_grad_enabled():
+            return
+        stamp = tuple((p.data_ptr(), p._version) for p in self.parameters())
+        if stamp != self._kept_stamp:
+            self._kept, self._kept_stamp = {}, stamp
+
+    def _kept_operand(self, key, build):
+        """``build()``, kept under ``key`` outside autograd until
+        ``_drop_stale_kept`` drops it, so that a chain's steps do not cast and
+        stack the same weights a hundred times; built anew under autograd.
+        The two-attention trunk keeps its operands so. The single-attention
+        trunk casts and stacks them every step (``_stacked``): its cell reads
+        a few tens of microseconds of Python a step, and keeping there read
+        3% slower on the card (``PERF.md`` §7)."""
+        if torch.is_grad_enabled():
+            return build()
+        if key not in self._kept:
+            self._kept[key] = build()
+        return self._kept[key]
+
     def _stacked(self, name: str, dtype) -> torch.Tensor:
         return torch.stack([getattr(b, name) for b in self.blocks]).to(dtype)
 
@@ -137,8 +187,8 @@ class TransformerNet(nn.Module):
 
     def _block_trunk(self, x, ctx, valid_id, cdt, train=False, generator=None, t_embed=None):
         """proj_in -> pre-LN -> the blocks one by one -> post-LN
-        (``denoiser.py:301-308``): the two-attention trunk, and the
-        single-attention trunk at shapes the trunk kernels do not take."""
+        (``denoiser.py:301-308``): the two-attention trunk in training and
+        with ``add_t_to_x``, and either trunk at shapes the kernels do not take."""
         mask = valid_id if self.mask_out_unreferenced_code else None
         h = ln_affine(self._proj_in(x, cdt, t_embed), self.pre_norm.scale, self.pre_norm.bias)
         for blk in self.blocks:
@@ -193,12 +243,13 @@ class TransformerNet(nn.Module):
             x = torch.cat([x, F.one_hot(seg_mask.long(), self.n_class).to(x.dtype)], dim=-1)
         x_in = x
 
-        if self.single_attn and trunk_kernel_takes(self.n_heads * self.d_head, self.n_heads,
-                                                   ctx.shape[1]):
+        takes = trunk_kernel_takes(self.n_heads * self.d_head, self.n_heads, ctx.shape[1])
+        if self.single_attn and takes:
             out = self._single_attention_trunk(x, ctx, valid_id, cdt, train, generator, t_x)
+        elif takes and not train and t_x is None:
+            out = self._two_attention_trunk(x, ctx, valid_id, cdt)
         else:
-            # the two-attention trunk, or the JAX package's per-block
-            # composition at other shapes (denoiser.py:301-309)
+            # the JAX package's per-block composition (denoiser.py:301-309)
             out = self._proj_out(self._block_trunk(x, ctx, valid_id, cdt, train, generator, t_x),
                                  cdt, x.dtype)
         if x_in.shape[-1] == out.shape[-1]:
@@ -209,6 +260,38 @@ class TransformerNet(nn.Module):
 
     def _proj_out(self, h, cdt, dtype):
         return (h.to(cdt) @ self.proj_out.kernel.to(cdt) + self.proj_out.bias.to(cdt)).to(dtype)
+
+    def _two_attention_trunk(self, x, ctx, valid_id, cdt):
+        """The two-attention trunk in generation as one call of
+        ``fused_core_two_attn`` (proj_in inside, proj_out after it), K and V
+        of both attentions computed here once a step; its weights cast (and
+        stacked over the blocks) once and kept (``_kept_operand``)."""
+        self._drop_stale_kept()
+        kdt = kernel_dtype(x.device, cdt)
+        f32 = torch.float32
+
+        def kept(path, dtype, blocks=True):
+            def build():
+                if blocks:
+                    return torch.stack([attrgetter(path)(b) for b in self.blocks]).to(dtype)
+                return attrgetter(path)(self).to(dtype)
+            return self._kept_operand((path, dtype), build)
+
+        ctx_c = ctx.to(cdt)
+        k, v, k1, v1 = (torch.einsum("bmc,icd->ibmd", ctx_c, kept(p, cdt)).to(kdt).contiguous()
+                        for p in _TWO_KV_PATHS)
+        if self.mask_out_unreferenced_code:
+            mask = valid_id.float().contiguous()
+        else:
+            mask = torch.ones(ctx.shape[:2], device=x.device)
+        head = (kept("proj_in.kernel", kdt, False), kept("proj_in.bias", f32, False))
+        norms = [kept(f"{n}.{w}", kdt, False) for n in ("pre_norm", "post_norm")
+                 for w in ("scale", "bias")]
+        w = [kept(p, f32 if p in _F32_PATHS else kdt) for p in _TWO_BLOCK_PATHS + _ATTN1_PATHS]
+        n = len(_TWO_BLOCK_PATHS)
+        h = fused_core_two_attn(x.to(kdt).contiguous(), *head, k, v, mask, *norms, *w[:n], k1, v1,
+                                *w[n:], self.d_head**-0.5)
+        return self._proj_out(h, cdt, x.dtype)
 
     def _single_attention_trunk(self, x, ctx, valid_id, cdt, train, generator, t_embed=None):
         """The whole trunk as one kernel call, at the shapes

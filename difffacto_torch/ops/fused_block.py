@@ -46,18 +46,27 @@ def fused_block_reference(x, k, v, mask, n2_scale, n2_bias, wq, wout, bout, ff_s
     product accumulates in f32 and LayerNorm statistics are f32; results
     round to x's dtype where the Pallas kernel rounds. Returns (B, N, D).
     """
+    h = attention_residual_reference(x, k, v, mask, n2_scale, n2_bias, wq, wout, bout, scale,
+                                     heads)
+    return fused_ln_geglu_ff_reference(h, ff_scale, ff_bias, w1, b1, w2, b2)
+
+
+def attention_residual_reference(x, k, v, mask, n_scale, n_bias, wq, wout, bout, scale: float,
+                                 heads: int = HEADS) -> torch.Tensor:
+    """The attention half of a block with the kernels' arithmetic:
+    x + bf16(attn(LN(x) Wq; k, v) Wout + bout), rounded as
+    ``fused_block_reference`` rounds."""
     dt = x.dtype
     B, N, Dm = x.shape
     M = k.shape[1]
     dh = Dm // heads
-    a = ln_affine(x, n2_scale, n2_bias)
+    a = ln_affine(x, n_scale, n_bias)
     q = (a.float() @ wq.float()).to(dt).reshape(B, N, heads, dh)
     attn = small_ctx_attention(
         q, k.reshape(B, M, heads, dh), v.reshape(B, M, heads, dh), mask, scale
     ).reshape(B, N, Dm)
     o = (attn.float() @ wout.float() + bout.float()).to(dt)
-    h = (x.float() + o.float()).to(dt)
-    return fused_ln_geglu_ff_reference(h, ff_scale, ff_bias, w1, b1, w2, b2)
+    return (x.float() + o.float()).to(dt)
 
 
 def example_inputs(B: int, N: int, seed: int = 0, mask=None):

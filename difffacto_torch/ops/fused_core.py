@@ -27,6 +27,14 @@ kernel writes (B, N, OUT) for OUT <= 8. They count their launches in
 ``fused_core_tail.launches`` and ``fused_core_headless_tail.launches``; their
 plain version is ``fused_core_reference`` with ``pout_w`` and ``pout_b``.
 
+``fused_core_two_attn`` is the trunk with two-attention blocks
+(``single_attn=False``): each block runs norm1 -> attn1 -> out-projection ->
+residual before the single-attention block's body, attn1 cross-attending to
+the same 4 part tokens with K1 and V1 of its own. It is the kernel's
+``TWO`` form (``csrc/trunk.cuh``), a kernel of its own name
+(``fused_core_two_attn_kernel``), counted in ``fused_core_two_attn.launches``;
+its plain version is ``fused_core_reference`` with ``attn1``.
+
 The kernel is persistent: ``schedule`` computes its walk over (batch row,
 128-token tile) work items, and the kernel walks the grid and the tiles per
 row it is given.
@@ -43,7 +51,7 @@ import torch
 from ..nn.functional import ln_affine
 from ..utils import trace
 from . import _build
-from .fused_block import fused_block_reference, takes
+from .fused_block import attention_residual_reference, fused_block_reference, takes
 
 # The kernel's fixed shapes (csrc/fused_core.cu).
 D, HEADS, CTX, FF, MAX_IN, MAX_OUT = 128, 8, 4, 512, 16, 8
@@ -53,20 +61,25 @@ TILE = 128  # tokens per work item
 def fused_core_reference(x, pin_w, pin_b, k, v, mask, pre_scale, pre_bias, post_scale,
                          post_bias, n2_scale, n2_bias, wq, wout, bout, ff_scale, ff_bias,
                          w1, b1, w2, b2, scale: float, heads: int = HEADS, pout_w=None,
-                         pout_b=None) -> torch.Tensor:
+                         pout_b=None, attn1=None) -> torch.Tensor:
     """Plain PyTorch trunk with the kernel's arithmetic.
 
     x (B, N, IN) in the compute dtype; pin_w (IN, D), or None for the
     head-less trunk, whose x is h0 (B, N, D); k, v (depth, B, M, D)
     with D split into ``heads`` heads; mask (B, M); per-block parameters
     stacked on a leading depth axis; pout_w (D, OUT) and pout_b (OUT,) fuse
-    proj_out (the tail). Every product accumulates in f32 and LayerNorm
+    proj_out (the tail); ``attn1`` (k1, v1, n1_scale, n1_bias, wq1, wout1,
+    bout1), stacked alike, puts the first attention of a two-attention block
+    ahead of each block. Every product accumulates in f32 and LayerNorm
     statistics are f32; results round to x's dtype where the Pallas kernel
     rounds. Returns (B, N, D), or (B, N, OUT) with the tail.
     """
     h = x if pin_w is None else (x.float() @ pin_w.float() + pin_b.float()).to(x.dtype)
     h = ln_affine(h, pre_scale, pre_bias)
     for i in range(k.shape[0]):
+        if attn1 is not None:
+            k1, v1, *first = (a[i] for a in attn1)
+            h = attention_residual_reference(h, k1, v1, mask, *first, scale, heads)
         h = fused_block_reference(h, k[i], v[i], mask, n2_scale[i], n2_bias[i], wq[i], wout[i],
                                   bout[i], ff_scale[i], ff_bias[i], w1[i], b1[i], w2[i], b2[i],
                                   scale, heads)
@@ -76,16 +89,19 @@ def fused_core_reference(x, pin_w, pin_b, k, v, mask, pre_scale, pre_bias, post_
     return (h.float() @ pout_w.float() + pout_b.float()).to(x.dtype)
 
 
-F32_OPERANDS = ("pin_b", "mask", "bout", "b1", "b2")
+F32_OPERANDS = ("pin_b", "mask", "bout", "b1", "b2", "bout1")
 
 
-def example_inputs(B: int, N: int, depth: int, in_ch: int = 13, seed: int = 0, mask=None):
+def example_inputs(B: int, N: int, depth: int, in_ch: int = 13, seed: int = 0, mask=None,
+                   two_attn: bool = False):
     """Random trunk operands at the gen_chair widths, as float32 numpy arrays
-    in ``fused_core``'s argument order (weights scaled like lecun_normal)."""
+    in ``fused_core``'s argument order (weights scaled like lecun_normal);
+    with ``two_attn`` the first attention's operands follow, in
+    ``fused_core_two_attn``'s order."""
     rng = np.random.RandomState(seed)
     r = lambda *s: rng.randn(*s).astype(np.float32)
     mask = np.ones((B, CTX), np.float32) if mask is None else np.asarray(mask, np.float32)
-    return dict(
+    out = dict(
         x=r(B, N, in_ch), pin_w=r(in_ch, D) * in_ch**-0.5, pin_b=r(D) * 0.1,
         k=r(depth, B, CTX, D), v=r(depth, B, CTX, D), mask=mask,
         pre_scale=1 + 0.1 * r(D), pre_bias=0.1 * r(D),
@@ -96,6 +112,14 @@ def example_inputs(B: int, N: int, depth: int, in_ch: int = 13, seed: int = 0, m
         w1=r(depth, D, 2 * FF) * D**-0.5, b1=0.1 * r(depth, 2 * FF),
         w2=r(depth, FF, D) * FF**-0.5, b2=0.1 * r(depth, D),
     )
+    if two_attn:
+        out.update(
+            k1=r(depth, B, CTX, D), v1=r(depth, B, CTX, D),
+            n1_scale=1 + 0.1 * r(depth, D), n1_bias=0.1 * r(depth, D),
+            wq1=r(depth, D, D) * D**-0.5, wout1=r(depth, D, D) * D**-0.5,
+            bout1=0.1 * r(depth, D),
+        )
+    return out
 
 
 def operands(inputs, device="cpu", dtype=torch.float32):
@@ -167,6 +191,18 @@ def fused_core_headless_tail(x, k, v, mask, pre_scale, pre_bias, post_scale, pos
                   scale, heads)
 
 
+def fused_core_two_attn(x, pin_w, pin_b, k, v, mask, pre_scale, pre_bias, post_scale,
+                        post_bias, n2_scale, n2_bias, wq, wout, bout, ff_scale, ff_bias, w1, b1,
+                        w2, b2, k1, v1, n1_scale, n1_bias, wq1, wout1, bout1, scale: float,
+                        heads: int = HEADS) -> torch.Tensor:
+    """``fused_core`` with two-attention blocks: k1, v1 (depth, B, 4, 128),
+    n1_scale, n1_bias (depth, 128), wq1, wout1 (depth, 128, 128) bf16 and
+    bout1 (depth, 128) f32 on the card, the first attention of every block."""
+    attn1 = (k1, v1, n1_scale, n1_bias, wq1, wout1, bout1)
+    return _trunk("fused_core_two_attn", x, (pin_w, pin_b), _rest(locals()), None, scale, heads,
+                  attn1)
+
+
 _REST = ("k", "v", "mask", "pre_scale", "pre_bias", "post_scale", "post_bias", "n2_scale",
          "n2_bias", "wq", "wout", "bout", "ff_scale", "ff_bias", "w1", "b1", "w2", "b2")
 
@@ -177,15 +213,16 @@ def _rest(args: dict) -> tuple:
     return tuple(args[n] for n in _REST)
 
 
-def _trunk(name, x, head, rest, tail, scale, heads):
-    """One of the four entries: head (pin_w, pin_b) or None for the head-less
-    trunk, tail (pout_w, pout_b) or None. The plain version on the CPU, the
-    kernel's ``difffacto_<name>`` on the card, counted in ``<name>.launches``."""
+def _trunk(name, x, head, rest, tail, scale, heads, attn1=None):
+    """One of the five entries: head (pin_w, pin_b) or None for the head-less
+    trunk, tail (pout_w, pout_b) or None, attn1 (the first attention's
+    operands) or None. The plain version on the CPU, the kernel's
+    ``difffacto_<name>`` on the card, counted in ``<name>.launches``."""
     pin_w, pin_b = head or (None, None)
     pout_w, pout_b = tail or (None, None)
     if x.device.type == "cpu":
         return fused_core_reference(x, pin_w, pin_b, *rest, scale, heads, pout_w=pout_w,
-                                    pout_b=pout_b)
+                                    pout_b=pout_b, attn1=attn1)
     if x.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {x.device}")
     k, wq = rest[0], rest[9]
@@ -208,6 +245,9 @@ def _trunk(name, x, head, rest, tail, scale, heads):
         operands += head
     shapes += _trunk_shapes(B, depth)
     operands += tuple(rest)
+    if attn1 is not None:
+        shapes += _attn1_shapes(B, depth)
+        operands += tuple(attn1)
     if tail is not None:
         out_ch = pout_w.shape[-1]
         if pout_w.dim() != 2 or not 1 <= out_ch <= MAX_OUT:
@@ -244,9 +284,20 @@ def _trunk_shapes(B: int, depth: int):
     )
 
 
+def _attn1_shapes(B: int, depth: int):
+    """(name, shape, dtype) of the first attention's operands."""
+    bf, f32 = torch.bfloat16, torch.float32
+    return (
+        ("k1", (depth, B, CTX, D), bf), ("v1", (depth, B, CTX, D), bf),
+        ("n1_scale", (depth, D), bf), ("n1_bias", (depth, D), bf),
+        ("wq1", (depth, D, D), bf), ("wout1", (depth, D, D), bf), ("bout1", (depth, D), f32),
+    )
+
+
 # Each entry's (pointer operands, int sizes) before (scale, grid, tiles_per_row, stream).
 _ENTRIES = {"difffacto_fused_core": (22, 4), "difffacto_fused_core_headless": (20, 3),
-            "difffacto_fused_core_tail": (24, 5), "difffacto_fused_core_headless_tail": (22, 4)}
+            "difffacto_fused_core_tail": (24, 5), "difffacto_fused_core_headless_tail": (22, 4),
+            "difffacto_fused_core_two_attn": (29, 4)}
 
 
 def _library() -> ctypes.CDLL:

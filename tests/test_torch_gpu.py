@@ -157,6 +157,82 @@ def test_fused_core_tail_matches_plain_version(cuda, head, B, N, depth, out_ch):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("absent", [False, True])
+@pytest.mark.parametrize("B, N, depth", [(4, 2048, 5), (1, 8192, 5), (2, 300, 10), (64, 2048, 5),
+                                         (64, 300, 10)])
+def test_fused_core_two_attn_matches_plain_version(cuda, absent, B, N, depth):
+    """The two-attention trunk at 4 x 2048 and 1 x 8192 (the two cells' shapes
+    a row), with and without absent parts in the last row, and at a ragged N
+    with depth 10, past the 8 blocks whose K, V, K1 and V1 the kernel holds at
+    once; at 64 rows each persistent block walks several tiles of different
+    rows (8 a block at 2048 points, up to 2 at 300), and with ``absent`` a
+    part is also absent in every third row, so K1, V1 and the mask are
+    restaged between tiles of one block; counted in
+    ``fused_core_two_attn.launches`` alone. Held to the
+    trunk's band up to depth 5. At depth 10 the output has passed 20 attention
+    halves and 10 feed-forwards, each a chance for a bf16 step, and the mean
+    reads 9.5e-4 to 1.19e-3 on an H100; it is held to the band's max and
+    twice its mean there (a stale or misplaced K1, V1 group moves most
+    tokens by 1e-1 or more)."""
+    mask = np.ones((B, fc.CTX), np.float32)
+    if absent:
+        mask[B - 1, 1] = mask[B - 1, 3] = 0.0
+        if B > 4:
+            mask[1:-1:3, 2] = 0.0
+    args = fc.operands(fc.example_inputs(B, N, depth=depth, mask=mask, two_attn=True, seed=N + B),
+                       cuda, torch.bfloat16)
+    counters = ("fused_core", "fused_core_two_attn")
+    before = {c: launched(c) for c in counters}
+    got = fc.fused_core_two_attn(*args, DH**-0.5)
+    torch.cuda.synchronize()
+    assert {c: launched(c) - before[c] for c in counters} == {"fused_core": 0,
+                                                            "fused_core_two_attn": 1}
+    n = len(fc.example_inputs(1, 1, 1))
+    want = fc.fused_core_reference(*args[:n], DH**-0.5, attn1=args[n:])
+    assert got.shape == want.shape == (B, N, 128) and torch.isfinite(got.float()).all()
+    err = (got.float() - want.float()).abs()
+    print(f"fused_core_two_attn B={B} N={N} depth={depth} absent={absent}: max abs err "
+          f"{err.max().item():.3e}, mean {err.mean().item():.3e}")
+    mean_band = BF16_MEAN_ABS * (1 if depth <= 5 else 2)
+    assert err.max().item() <= BF16_MAX_ABS and err.mean().item() <= mean_band
+
+
+@pytest.mark.gpu
+def test_two_attention_generation_takes_the_trunk_kernel(cuda, monkeypatch):
+    """The gen_chair_two_attn configuration as the benchmark builds it, at
+    batch 2: one launch of the two-attention entry a step (100 a batch), none
+    of the single-attention trunk's, no per-block trunk and so no denoiser FF
+    launch; the samples finite."""
+    import json
+    import os
+
+    from difffacto_torch import MODELS, build_from_cfg, sample_generation
+    from difffacto_torch.models import denoiser
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "benchmark", "configs", "gen_chair_two_attn.json")) as f:
+        mcfg = json.load(f)["model"]
+    mcfg["dtype"] = torch.bfloat16
+    model = build_from_cfg(mcfg, MODELS, device=cuda, seed=0)
+    blocks = []
+    real = denoiser.TransformerNet._block_trunk
+    monkeypatch.setattr(denoiser.TransformerNet, "_block_trunk",
+                        lambda *a, **k: blocks.append(1) or real(*a, **k))
+    counters = ("fused_core", "fused_core_two_attn", "fused_ff")
+    before = {c: launched(c) for c in counters}
+    with torch.no_grad():
+        pred = sample_generation(model, 2, valid_id=torch.tensor([[1, 1, 1, 0], [1, 1, 1, 1.]],
+                                                                 device=cuda),
+                                 generator=torch.Generator(device=cuda).manual_seed(0))["pred"]
+    torch.cuda.synchronize()
+    moved = {c: launched(c) - before[c] for c in counters}
+    print(f"two-attention generation at batch 2: launches {moved}")
+    assert moved["fused_core"] == 0 and moved["fused_core_two_attn"] == mcfg["num_timesteps"]
+    assert moved["fused_ff"] == 0 and not blocks
+    assert pred.shape == (2, mcfg["npoints"], 3) and torch.isfinite(pred).all()
+
+
+@pytest.mark.gpu
 def test_fused_core_tail_refuses_wide_outputs(cuda):
     args = fc.operands(fc.example_inputs(B=1, N=64, depth=1), cuda, torch.bfloat16)
     pw, pb = _tail(fc.MAX_OUT + 1, 0, cuda)

@@ -69,6 +69,24 @@ def ff_calls(monkeypatch):
     return seen
 
 
+@pytest.fixture
+def trunk_calls(monkeypatch):
+    """The token counts the denoiser hands to ``fused_core_two_attn``, the
+    two-attention trunk's entry: the kernel's calls, on the CPU its plain
+    version's."""
+    from difffacto_torch.models import denoiser
+
+    seen = []
+    wrapped = denoiser.fused_core_two_attn
+
+    def spy(x, *args):
+        seen.append(x.shape[0] * x.shape[1])
+        return wrapped(x, *args)
+
+    monkeypatch.setattr(denoiser, "fused_core_two_attn", spy)
+    return seen
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("D, T", [(128, 256), (256, 128)])
 def test_fused_ff_reference_matches_pallas_kernel(D, T, dtype):
@@ -195,10 +213,13 @@ def test_aligner_two_attention_matches_jax(interpret, ff_calls):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_transformer_net_two_attention_matches_jax(interpret, ff_calls, dtype):
+def test_transformer_net_two_attention_matches_jax(interpret, ff_calls, trunk_calls, dtype):
     """gen_chair's denoiser widths with two-attention blocks, depth 2, a part
-    absent in row 1: B x N = 256 tokens, so each block's FF takes the kernel.
-    In bf16 the denoiser computes in bf16 with f32 parameters, as on the card."""
+    absent in row 1: B x N = 256 tokens. The JAX module runs its blocks one by
+    one, each FF through its kernel; the port runs the whole trunk as one call
+    of the two-attention entry (its plain version here), with no FF call of
+    its own. In bf16 the denoiser computes in bf16 with f32 parameters, as on
+    the card."""
     rng = np.random.RandomState(13)
     Bn, Nn = 2, 128
     args = dict(
@@ -219,7 +240,7 @@ def test_transformer_net_two_attention_matches_jax(interpret, ff_calls, dtype):
     load_jax_params(net, params)
     with torch.no_grad():
         got = t2n(net(*[torch.as_tensor(a) for a in args.values()]).float())
-    assert got.shape == (Bn, Nn, 3) and ff_calls == [Bn * Nn] * 2
+    assert got.shape == (Bn, Nn, 3) and ff_calls == [] and trunk_calls == [Bn * Nn]
     if dtype == "float32":
         np.testing.assert_allclose(got, want, **TOL)
     else:
@@ -237,12 +258,12 @@ def two_attention(mcfg):
     return mcfg
 
 
-def test_two_attention_generation_matches_jax(interpret, ff_calls):
+def test_two_attention_generation_matches_jax(interpret, ff_calls, trunk_calls):
     """The slice: flow prior -> two-attention aligner -> T = 10 reverse steps
     through the two-attention denoiser, every draw injected, a part absent in
     two rows. The aligner's T = 4 x 3 takes the unfused FF, the denoiser's
-    3 x 128 tokens the FF kernel: 2 blocks x 10 steps. Tolerance as for
-    test_torch_generation."""
+    3 x 128 tokens the two-attention trunk's entry once a step. Tolerance as
+    for test_torch_generation."""
     from __graft_entry__ import _example_batch
 
     jmodel = jax_build(two_attention(JaxConfig(CONFIG).model.dump()), JAX_MODELS)
@@ -265,7 +286,7 @@ def test_two_attention_generation_matches_jax(interpret, ff_calls):
         cimle_noise=torch.as_tensor(jlat[3]), noise=torch.as_tensor(x_T),
         step_noise=torch.as_tensor(step_noise),
     )
-    assert out["pred"].shape == (B, N, 3) and ff_calls == [B * N] * (2 * T)
+    assert out["pred"].shape == (B, N, 3) and ff_calls == [] and trunk_calls == [B * N] * T
     np.testing.assert_array_equal(t2n(out["seg_mask"]), jseg)
     np.testing.assert_allclose(t2n(out["anchors"]), jmean, **TOL)
     np.testing.assert_allclose(t2n(out["pred"]), want, rtol=1e-4, atol=1e-4)
